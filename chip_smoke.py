@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from csrc/, holds each against its plain
-PyTorch version on the card, then drives the port's main path through the
-entry points a user calls: the headline scan-to-map match (set_target +
-scan_match, p2plane_vox_oct, 65,536-point target, 8,192-point source) and
-40 frames of LIO mapping (Lio.add_measure, p2plane_vox + ESKF, scan capacity
-8192). Launch counters show the main path went through the kernels. A last
-phase breaks the time of both paths down per layer (torch.profiler; tables
-in chiprun_out/).
+PyTorch version on the card, then drives the port's paths through the entry
+points a user calls: the headline scan-to-map match (set_target +
+scan_match, p2plane_vox_oct, 65,536-point target, 8,192-point source), 40
+frames of LIO mapping (Lio.add_measure, p2plane_vox + ESKF, scan capacity
+8192), and the NDT family on the same log: incremental NDT (ndt_inc, the
+repo's ndt_inc_odometry cell), direct NDT (ndt) and the moment-table voxel
+planes (icp_vox_inc). Launch counters, set to 0 before each path and read
+after it, show each path went through its kernels. A last phase breaks the
+time of the paths down per layer (torch.profiler; tables in chiprun_out/).
 
 Prints one line per phase, then a JSON line with the kernels, then the
 card's name and power limit, and as its last line
@@ -39,6 +41,16 @@ INIT_TRANS_M = 0.07       # 7 cm
 LIO_FRAMES = 40
 LIO_WARMUP = 6
 ATE_LIMIT_M = 0.10
+# ATE RMSE bounds of the NDT-family LIO phases (40 frames, capacity 8192).
+# ndt_inc: 0.10 m, as for icp (the reference engine recorded 0.0542 m for
+# this cell, BENCH_SUITE.json ndt_inc_odometry). ndt and icp_vox_inc: the
+# JAX package's ATE on the same workload (one run on the CPU, PERF.md
+# section 6) plus 0.04 m, the ATE change a 1-ulp nudge of the input makes in
+# the JAX engine's own free run (0.234 -> 0.275 m, tests/test_torch_lio.py).
+ATE_LIMIT_NDT_INC_M = 0.10
+ATE_LIMIT_NDT_M = 0.106254 + 0.04
+ATE_LIMIT_VOX_INC_M = 0.045601 + 0.04
+NDT_TH = 20.0             # NdtOptions.res_outlier_th
 
 
 def _so3_exp(w):
@@ -165,18 +177,19 @@ def _profiled(fn, reps):
     return len(dev) / reps, sum(dev) / 1e3 / reps, host_ms, prof
 
 
-def _compare(name, got, plain, A):
+def _compare(name, got, plain, A, rows_per_point=1):
     """Hold a kernel result against its plain version on the same inputs.
     The count must equal the plain version's and the rows' exact count.
     H, b and chi2 must lie, entry by entry, within
     kernels.check_against_rows' bound of the float64 sum of the plain
     version's rows A (2 gamma_{h+1} (|A|^T|A|)_ij for the kernel's reduction
-    depth h), so chi2 and b are held to their own scale. Returns the max
-    abs error against the plain float32 result and the largest
-    error / tolerance ratio."""
+    depth h, which counts `rows_per_point` rows per thread and point), so
+    chi2 and b are held to their own scale. Returns the max abs error
+    against the plain float32 result and the largest error / tolerance
+    ratio."""
     from loc_lib_tpu_torch.ops import kernels
 
-    chk = kernels.check_against_rows(got, A)
+    chk = kernels.check_against_rows(got, A, rows_per_point)
     cnt = int(got[2])
     if cnt != int(plain[2]) or cnt != chk.count:
         raise AssertionError(f"{name}: count {cnt} != plain {int(plain[2])} / exact {chk.count}")
@@ -188,7 +201,7 @@ def _compare(name, got, plain, A):
     return err, chk.ratio
 
 
-def _planted_errors_are_caught(name, got, A):
+def _planted_errors_are_caught(name, got, A, rows_per_point=1):
     """The check must reject a result with chi2 = 0, with b's translation
     part dropped, or with one H entry off by 1e-3 of itself."""
     from loc_lib_tpu_torch.ops import kernels
@@ -201,7 +214,7 @@ def _planted_errors_are_caught(name, got, A):
     for label, bad in (("chi2 = 0", (H, b, cnt, torch.zeros_like(chi2))),
                        ("b[3:] = 0", (H, b_t, cnt, chi2)),
                        ("H[0,0] * 1.001", (H_1, b, cnt, chi2))):
-        if kernels.check_against_rows(bad, A).ratio <= 1.0:
+        if kernels.check_against_rows(bad, A, rows_per_point).ratio <= 1.0:
             raise AssertionError(f"{name}: the check accepts a planted error ({label})")
 
 
@@ -342,6 +355,88 @@ def phase_kernels(device, card, workload):
             "p2plane_pick_fused_terms": (ms2, pms2, errs["p2plane_pick_fused_terms"])}
 
 
+def _random_k3(n, S, device, rng):
+    """K3 inputs at the 50 m scale, laid out as the NDT path lays them out:
+    mu and W are strided views of one gathered (N, S, 13) row tensor.
+    Voxel means 0.4 m from the points, random SPD information, 70% of the
+    (point, voxel) pairs valid."""
+    q = rng.uniform(-50, 50, size=(n, 3)).astype(np.float32)
+    R = _so3_exp(rng.normal(size=3) * 0.05).astype(np.float32)
+    t = (rng.normal(size=3) * 0.2).astype(np.float32)
+    qs = (q @ R.T + t).astype(np.float32)
+    rows = np.zeros((n, S, 13), np.float32)
+    rows[..., 0:3] = qs[:, None, :] + rng.normal(scale=0.4, size=(n, S, 3))
+    B = rng.normal(size=(n, S, 3, 3))
+    rows[..., 3:12] = np.linalg.cholesky(B @ np.swapaxes(B, -1, -2) + 0.5 * np.eye(3)) \
+        .reshape(n, S, 9)
+    rows[..., 12] = 1.0
+    valid = (rng.uniform(size=(n, S)) < 0.7).astype(np.float32)
+    d = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    rows_d = d(rows)
+    return (d(q), d(qs), rows_d[..., 0:3], rows_d[..., 3:12], d(valid)), d(R), d(t)
+
+
+def phase_kernels_k3(device, card):
+    """K3 against its plain version: N = 8192 and 8191 with S = 7, weighted
+    and direct; N = 8192, S = 1, weighted (the p2line_vox shape); all
+    invalid (G = 0). Counts exact, every entry within the per-entry bound of
+    K3's reduction depth; planted errors rejected; times at the NDT path's
+    shape (N = 8192, S = 7, weighted)."""
+    from loc_lib_tpu_torch.ops import kernels
+
+    K3, K3p = kernels.ndt_fused_terms, kernels.ndt_fused_terms_plain
+    rng = np.random.default_rng(3)
+    err, ratio, cases = 0.0, 0.0, []
+    main = None
+    for n, S, weighted in ((8192, 7, True), (8192, 7, False), (8191, 7, True),
+                           (8191, 7, False), (8192, 1, True)):
+        args, R, t = _random_k3(n, S, device, rng)
+        label = f"K3 N={n} S={S} {'weighted' if weighted else 'direct'}"
+        got = K3(*args, R, t, NDT_TH, weighted)
+        torch.cuda.synchronize()
+        A = kernels.ndt_rows_plain(*args, R, t, NDT_TH, weighted)
+        e, r = _compare(label, got, K3p(*args, R, t, NDT_TH, weighted), A, 3 * S)
+        err, ratio = max(err, e), max(ratio, r)
+        cases.append(f"{label} ok (cnt {int(got[2])}, err {e:.3g}, err/bound {r:.3g})")
+        if n == 8192 and S == 7:
+            _planted_errors_are_caught(label, got, A, 3 * S)
+            again = K3(*args, R, t, NDT_TH, weighted)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{label}: not bitwise deterministic")
+            if weighted:
+                main = (args, R, t)
+    cases.append("planted chi2 / b / H errors rejected; repeat calls bit-equal")
+
+    n, S = 8192, 7
+    pad = torch.full((n, 3), 1e6, device=device)
+    zrows = torch.zeros((n, S, 13), device=device)
+    for weighted in (True, False):
+        H, bb, cnt, chi2 = K3(pad, pad, zrows[..., 0:3], zrows[..., 3:12],
+                              torch.zeros((n, S), device=device), torch.eye(3, device=device),
+                              torch.zeros(3, device=device), NDT_TH, weighted)
+        if int(cnt) != 0 or torch.any(H != 0) or torch.any(bb != 0) or float(chi2) != 0:
+            raise AssertionError("K3: all-invalid input did not give G = 0")
+    cases.append("all-invalid G=0 ok")
+
+    args, R, t = main
+    ms, pms = _time_alternating(lambda: K3(*args, R, t, NDT_TH, True),
+                                lambda: K3p(*args, R, t, NDT_TH, True))
+    dev = {}
+    for label, fn in (("K3", lambda: K3(*args, R, t, NDT_TH, True)),
+                      ("K3 plain", lambda: K3p(*args, R, t, NDT_TH, True))):
+        fn()
+        n_launch, dms, _, _ = _profiled(fn, 20)
+        dev[label] = (dms, n_launch)
+    print("phase 3 K3 vs plain: " + "; ".join(cases), flush=True)
+    print(f"phase 3 K3 largest error / per-entry bound: {ratio:.4g}", flush=True)
+    print(f"phase 3 K3 times at N=8192, S=7, weighted (median of {2 * TIMING_REPS} per-call "
+          f"CUDA-event samples) [{card}]: K3 {ms:.4f} ms vs plain {pms:.4f} ms; device time "
+          "per call (torch.profiler, kernels only): "
+          + "; ".join(f"{k} {d:.4f} ms in {nl:.0f} launches" for k, (d, nl) in dev.items()),
+          flush=True)
+    return ms, pms, err
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the headline match
 # ---------------------------------------------------------------------------
@@ -401,15 +496,31 @@ def phase_headline_timing(device, card, workload, target):
 # Phase 5: LIO mapping
 # ---------------------------------------------------------------------------
 
-def phase_lio(device, card):
+def lio_options(matcher):
+    """The LIO configuration of each matcher's phase: p2plane_vox planes
+    (icp, icp_vox_inc) or 1 m NDT voxels (incremental for ndt_inc, direct
+    for ndt), ESKF on, scan capacity 8192, every other option at its
+    default (map_capacity 65,536, dense dims (256, 256, 64))."""
+    from loc_lib_tpu_torch.models import icp, ndt
+    from loc_lib_tpu_torch.pipeline import lio
+
+    method = "incremental" if matcher == "ndt_inc" else "direct"
+    return lio.LioOptions(matcher=matcher, icp=icp.IcpOptions(method="p2plane_vox"),
+                          ndt=ndt.NdtOptions(method=method, voxel_size=1.0),
+                          scan_capacity=8192, with_eskf=True)
+
+
+def phase_lio(device, card, matcher="icp", label="phase 5", ate_limit=ATE_LIMIT_M):
+    """LIO_FRAMES frames of the demo log (capacity 8192, yaw rate 0, 2 m/s)
+    through Lio.add_measure after a static IMU init from the first 150
+    samples. Returns (options, the state the last scan was matched against,
+    the last scan, its StepResult)."""
     from loc_lib_tpu_torch.eval import metrics
     from loc_lib_tpu_torch.io import logdir
-    from loc_lib_tpu_torch.models import icp
     from loc_lib_tpu_torch.pipeline import lio
 
     log = logdir.make_demo_log(num_frames=LIO_FRAMES, capacity=8192, yaw_rate=0.0, speed=2.0)
-    opts = lio.LioOptions(matcher="icp", icp=icp.IcpOptions(method="p2plane_vox"),
-                          scan_capacity=8192, with_eskf=True)
+    opts = lio_options(matcher)
     eng = lio.Lio(opts, device=device)
     for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
         eng.init_imu(g, a, t)
@@ -433,16 +544,21 @@ def phase_lio(device, card):
     if n_kf < 2:
         raise AssertionError(f"LIO accepted only {n_kf} keyframes")
     ate = metrics.ate(poses, log.gt_poses[np.asarray(idxs)])
-    if not ate.rmse <= ATE_LIMIT_M:
-        raise AssertionError(f"LIO ATE RMSE {ate.rmse:.4f} m > {ATE_LIMIT_M} m")
+    if not ate.rmse <= ate_limit:
+        raise AssertionError(f"LIO {matcher} ATE RMSE {ate.rmse:.4f} m > {ate_limit} m")
+    if matcher != "icp" and eng.health.status == eng.health.LOST:
+        raise AssertionError(f"LIO {matcher}: tracking health LOST "
+                             f"({eng.health.total_bad} bad frames)")
     steady = np.asarray(times[LIO_WARMUP:])
-    print(f"phase 5 LIO {LIO_FRAMES} frames (p2plane_vox + ESKF, capacity 8192): "
-          f"ATE RMSE {ate.rmse:.4f} m (max {ate.max:.4f}), {n_kf} keyframes, "
-          f"mean GN iterations {np.mean(iters[1:]):.2f}, health {eng.health.status}; "
+    what = "p2plane_vox" if matcher == "icp" else matcher
+    print(f"{label} LIO {LIO_FRAMES} frames ({what} + ESKF, capacity 8192): "
+          f"ATE RMSE {ate.rmse:.4f} m (max {ate.max:.4f}, bound {ate_limit:.4f}), {n_kf} keyframes, "
+          f"mean GN iterations {np.mean(iters[1:]):.2f}, health {eng.health.status} "
+          f"({eng.health.total_bad} bad); "
           f"p50 {np.percentile(steady, 50):.2f} ms/scan, p95 "
           f"{np.percentile(steady, 95):.2f} ms/scan over frames {LIO_WARMUP}-"
           f"{LIO_FRAMES - 1} (host clock) [{card}]", flush=True)
-    return before.icp_target, opts.icp, scan, out
+    return opts, before, scan, out
 
 
 def phase_lio_k2_check(lio_last):
@@ -451,7 +567,8 @@ def phase_lio_k2_check(lio_last):
     from loc_lib_tpu_torch.models import icp
     from loc_lib_tpu_torch.ops import kernels
 
-    target, opts, scan, out = lio_last
+    lio_opts, before, scan, out = lio_last
+    target, opts = before.icp_target, lio_opts.icp
     rows7 = icp._p2plane_vox_rows7(target, opts, scan, out.R, out.t)
     args = (scan.xyz, rows7, scan.mask.to(torch.float32), out.R, out.t,
             opts.max_plane_distance)
@@ -466,16 +583,41 @@ def phase_lio_k2_check(lio_last):
     return err
 
 
+def phase_lio_k3_check(ndt_last, label):
+    """K3 against its plain version on an NDT LIO path's own inputs: the map
+    the last scan was matched to (incremental for ndt_inc, weighted; direct
+    for ndt), that scan, its final pose."""
+    from loc_lib_tpu_torch.models import ndt
+    from loc_lib_tpu_torch.ops import kernels
+
+    lio_opts, before, scan, out = ndt_last
+    m = before.ndt_map
+    opts = lio_opts.ndt_inc if lio_opts.matcher == "ndt_inc" else lio_opts.ndt
+    weighted = opts.method == "incremental"
+    args = (*ndt._fused_inputs(m, opts, scan, out.R, out.t), out.R, out.t,
+            opts.res_outlier_th, weighted)
+    got = kernels.ndt_fused_terms(*args)
+    S = args[4].shape[1]
+    name = f"K3 on the LIO {lio_opts.matcher} map"
+    err, ratio = _compare(name, got, kernels.ndt_fused_terms_plain(*args),
+                          kernels.ndt_rows_plain(*args), 3 * S)
+    if int(got[2]) < opts.min_effective_pts:
+        raise AssertionError(f"{name} kept only {int(got[2])} residuals")
+    print(f"{label} {name} vs plain ({int(m.estimated.sum())} estimated voxels, "
+          f"N={scan.capacity}, S={S}, {'weighted' if weighted else 'direct'}): "
+          f"cnt {int(got[2])}, err {err:.3g}, err/bound {ratio:.3g}", flush=True)
+    return err
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: where the time goes
 # ---------------------------------------------------------------------------
 
 def phase_profile(device, card, workload, target, out_dir):
-    """Per-layer breakdown of both paths. Writes torch.profiler tables to
+    """Per-layer breakdown of the headline match, set_target and one LIO
+    step of the icp and ndt_inc paths. Writes torch.profiler tables to
     out_dir and prints one line per path."""
-    from loc_lib_tpu_torch.io import logdir
-    from loc_lib_tpu_torch.models import eskf, icp
-    from loc_lib_tpu_torch.pipeline import lio
+    from loc_lib_tpu_torch.models import icp
 
     out_dir.mkdir(parents=True, exist_ok=True)
     _, src, _, _, R_init, t_init = workload
@@ -494,11 +636,20 @@ def phase_profile(device, card, workload, target, out_dir):
     print(f"phase 6 profile set_target: {n:.0f} device launches, device {dev_ms:.3f} ms vs host "
           f"{host_ms:.3f} ms (profiler on) [{card}]", flush=True)
 
-    # LIO: 8 frames of warm-up, then a host-clock breakdown of frames 8-13
+    for matcher in ("icp", "ndt_inc"):
+        _profile_lio(device, card, out_dir, matcher)
+
+
+def _profile_lio(device, card, out_dir, matcher):
+    """LIO: 8 frames of warm-up, then a host-clock breakdown of frames 8-12
+    by stage, the keyframe update alone, and one step under the profiler."""
+    from loc_lib_tpu_torch.io import logdir
+    from loc_lib_tpu_torch.models import eskf
+    from loc_lib_tpu_torch.pipeline import lio
+
     frames = 14
     log = logdir.make_demo_log(num_frames=frames, capacity=8192, yaw_rate=0.0, speed=2.0)
-    lo = lio.LioOptions(matcher="icp", icp=icp.IcpOptions(method="p2plane_vox"),
-                        scan_capacity=8192, with_eskf=True)
+    lo = lio_options(matcher)
     eng = lio.Lio(lo, device=device)
     for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
         eng.init_imu(g, a, t)
@@ -523,7 +674,7 @@ def phase_profile(device, card, workload, target, out_dir):
             eskf.EskfOptions()))
         st = eng.state._replace(eskf=e2)
         R0, t0 = lio._predict_pose(lo, st)
-        clock("scan_match", lambda: icp.scan_match(st.icp_target, lo.icp, scan, R0, t0))
+        clock("scan_match", lambda: lio._align(lo, st, scan, R0, t0))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = eng.add_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
@@ -541,10 +692,12 @@ def phase_profile(device, card, workload, target, out_dir):
     mg = mgs[-1]
     n, dev_ms, host_ms, prof = _profiled(
         lambda: eng.add_measure(last, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid), 1)
-    (out_dir / "profile_lio_step.txt").write_text(
+    name = "profile_lio_step.txt" if matcher == "icp" else f"profile_lio_{matcher}_step.txt"
+    (out_dir / name).write_text(
         prof.key_averages().table(sort_by="cpu_time_total", row_limit=40))
     ranges = "; ".join(f"{k} {min(v):.2f}-{max(v):.2f} ms" for k, v in stage.items() if v)
-    print(f"phase 6 profile LIO frames 8-{frames - 2} (host clock): {ranges}; _push_keyframe "
+    print(f"phase 6 profile LIO {matcher} frames 8-{frames - 2} (host clock): {ranges}; "
+          "_push_keyframe "
           f"{np.median(kf_ms):.2f} ms; one step under the profiler: {n:.0f} device "
           f"launches, device {dev_ms:.3f} ms vs host {host_ms:.3f} ms [{card}]", flush=True)
 
@@ -563,16 +716,38 @@ def main() -> int:
     phase_build()
     workload = headline_workload(device)
     timing = phase_kernels(device, card, workload)
+    timing["ndt_fused_terms"] = phase_kernels_k3(device, card)
 
-    # the main path, counted: every counter starts at 0 here
-    kernels.reset_launch_counts()
-    target = phase_headline(device, card, workload)
-    lio_last = phase_lio(device, card)
-    launches = dict(kernels.LAUNCHES)
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
+    def counted(names, fn):
+        """Run one path with every counter set to 0 just before it; each
+        kernel in `names` must have launched in it. Returns (result, counts)."""
+        kernels.reset_launch_counts()
+        result = fn()
+        counts = dict(kernels.LAUNCHES)
+        for name in names:
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by its path")
+        return result, counts
+
+    # the first slice's main path: the headline match and LIO (icp)
+    (target, lio_last), launches = counted(
+        ("p2plane_fused_terms", "p2plane_pick_fused_terms"),
+        lambda: (phase_headline(device, card, workload), phase_lio(device, card)))
     k2_err = phase_lio_k2_check(lio_last)
+    # this slice's main path: LIO ndt_inc, the incremental-NDT cell
+    ndt_last, c = counted(("ndt_fused_terms",), lambda: phase_lio(
+        device, card, "ndt_inc", "phase 5b", ATE_LIMIT_NDT_INC_M))
+    launches["ndt_fused_terms"] = c["ndt_fused_terms"]
+    print(f"phase 5b launches: {c}", flush=True)
+    k3_err = phase_lio_k3_check(ndt_last, "phase 5b")
+    # the other two matchers of the NDT family on the same log
+    direct_last, c = counted(("ndt_fused_terms",), lambda: phase_lio(
+        device, card, "ndt", "phase 5c", ATE_LIMIT_NDT_M))
+    print(f"phase 5c launches: {c}", flush=True)
+    k3_err = max(k3_err, phase_lio_k3_check(direct_last, "phase 5c"))
+    _, c = counted(("p2plane_pick_fused_terms",), lambda: phase_lio(
+        device, card, "icp_vox_inc", "phase 5d", ATE_LIMIT_VOX_INC_M))
+    print(f"phase 5d launches: {c}", flush=True)
     phase_headline_timing(device, card, workload, target)
     phase_profile(device, card, workload, target,
                   Path(__file__).resolve().parent / "chiprun_out")
@@ -580,14 +755,18 @@ def main() -> int:
     src = {"p2plane_fused_terms": ("loc_lib_tpu_torch/csrc/p2plane_fused_terms.cu",
                                    "loc_lib_tpu/ops/pallas_kernels.py:75"),
            "p2plane_pick_fused_terms": ("loc_lib_tpu_torch/csrc/p2plane_pick_fused_terms.cu",
-                                        "loc_lib_tpu/ops/pallas_kernels.py:185")}
+                                        "loc_lib_tpu/ops/pallas_kernels.py:185"),
+           "ndt_fused_terms": ("loc_lib_tpu_torch/csrc/ndt_fused_terms.cu",
+                               "loc_lib_tpu/ops/pallas_kernels.py:314")}
     errs = {k: v[2] for k, v in timing.items()}
     errs["p2plane_pick_fused_terms"] = max(errs["p2plane_pick_fused_terms"], k2_err)
+    errs["ndt_fused_terms"] = max(errs["ndt_fused_terms"], k3_err)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": timing[name][0], "plain_ms": timing[name][1]}
-        for name in ("p2plane_fused_terms", "p2plane_pick_fused_terms")]}), flush=True)
+        for name in ("p2plane_fused_terms", "p2plane_pick_fused_terms",
+                     "ndt_fused_terms")]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,16 @@
-// Shared pieces of the fused P2Plane linearization kernels
-// (p2plane_fused_terms.cu, p2plane_pick_fused_terms.cu).
+// Shared pieces of the fused linearization kernels (p2plane_fused_terms.cu,
+// p2plane_pick_fused_terms.cu, ndt_fused_terms.cu).
 //
 // Every kernel folds, per source point, transform -> residual -> gate ->
-// Jacobian into one row A = [J_rot(3) | n(3) | dis | 1] * w and reduces the
+// Jacobian into rows A = [J(6) | r | flag] * w -- one row per point for the
+// P2Plane kernels (J = [J_rot | n], r = dis, flag = 1), three rows per
+// (point, stencil voxel) for NDT (flag = 1 on the first) -- and reduces the
 // symmetric 8x8 G = sum A A^T, from which H = G[:6,:6], b = -G[:6,6],
 // chi2 = G[6,6] and count = int(G[7,7]).
 //
 // Reduction design (deterministic, no float atomics):
 //   1. one thread per point in a grid-stride loop accumulates the 36
-//      upper-triangle entries of A A^T in registers;
+//      upper-triangle entries of A A^T over its rows in registers;
 //   2. warp-shuffle reduce, then a shared-memory reduce across the block's
 //      warps, in a fixed order;
 //   3. each block writes its 36 partial sums to partials[blockIdx.x][36];
@@ -19,8 +21,8 @@
 //
 // The library is compiled with -fmad=false so each product and sum rounds
 // separately, as the plain PyTorch versions (ops/kernels.py) evaluate the
-// same expressions op by op; the per-point rows, and so the K2 election and
-// the gate, then agree bit for bit and only the summation order differs.
+// same expressions op by op; the rows, and so the K2 election and every
+// gate, then agree bit for bit and only the summation order differs.
 #pragma once
 
 #include <cuda_runtime.h>

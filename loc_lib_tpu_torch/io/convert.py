@@ -1,5 +1,5 @@
 """Carry engine state across from host arrays (the engine has no weights:
-its state is the target table, the ESKF state and the LIO state).
+its state is the target tables, the ESKF state and the LIO state).
 
 Each function takes a dict of numpy arrays -- e.g. a state built elsewhere
 and flattened with `tree_map(np.asarray, state)._asdict()`, whose nested
@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models import eskf, icp
+from ..models import eskf, icp, ndt
 from ..ops import voxel
 from ..pipeline import lio
 
@@ -58,6 +58,18 @@ def icp_target_from_numpy(d, device) -> icp.IcpTarget:
     )
 
 
+def ndt_map_from_numpy(d, device) -> ndt.NdtMap:
+    f = _fields(d)
+    return ndt.NdtMap(
+        **{k: _tensor(f[k], device) for k in
+           ("keys", "count", "mean", "cov", "info", "estimated", "age", "origin")},
+        epoch=int(np.asarray(f["epoch"])),
+        packed=_maybe(f.get("packed"), device),
+        dense_table=_maybe(f.get("dense_table"), device),
+        dense_lo=_maybe(f.get("dense_lo"), device),
+    )
+
+
 def eskf_state_from_numpy(d, device) -> eskf.EskfState:
     f = _fields(d)
     return eskf.EskfState(**{k: _tensor(f[k], device) for k in eskf.EskfState._fields})
@@ -72,6 +84,8 @@ def lio_state_from_numpy(d, device) -> lio.LioState:
         **tensors,
         num_kfs=int(np.asarray(f["num_kfs"])),
         frame_idx=int(np.asarray(f["frame_idx"])),
-        icp_target=icp_target_from_numpy(f["icp_target"], device),
+        icp_target=None if f.get("icp_target") is None
+        else icp_target_from_numpy(f["icp_target"], device),
+        ndt_map=None if f.get("ndt_map") is None else ndt_map_from_numpy(f["ndt_map"], device),
         eskf=eskf_state_from_numpy(f["eskf"], device),
     )

@@ -135,6 +135,33 @@ def _build_plane_table(opts: IcpOptions, dense: voxel.DenseIndex, stats: voxel.V
     return _planes_from_moments(n, mu, cov, keys, opts)
 
 
+def target_from_moment_table(keys, count, mean, cov, dense_table, dense_lo, origin,
+                             opts: IcpOptions, dims) -> IcpTarget:
+    """A p2plane_vox target derived from an incrementally maintained voxel
+    moment table (an ndt.NdtMap built with bin_mode="floor" at
+    voxel_size = opts.grid_leaf): the neighbor merge, closed-form eigh and
+    repack of `set_target`, in O(V), with no re-sort of a local-map window.
+    `dims` must equal the table's dense-index dims. The grid is a minimal
+    carrier: the vox matcher reads only its inv_leaf and origin."""
+    dense = voxel.DenseIndex(table=dense_table, lo=dense_lo)
+    n, mu, cov_m = _merge_neighbor_moments(keys, count, mean, cov, dense, dims)
+    plane, mu, valid = _planes_from_moments(n, mu, cov_m, keys, opts)
+    packed = torch.cat([plane, mu, valid[:, None].to(torch.float32)], dim=1)
+    v, dev = keys.shape[0], keys.device
+    grid = voxel.HashGrid(
+        voxel_keys=keys,
+        bucket_xyz=torch.zeros((v, 3), dtype=torch.float32, device=dev),
+        bucket_idx=torch.full((v, 1), -1, dtype=torch.int32, device=dev),
+        bucket_cnt=torch.zeros((v,), dtype=torch.int32, device=dev),
+        num_voxels=(keys != voxel.INVALID_KEY).to(torch.int32).sum(),
+        overflow=torch.zeros((), dtype=torch.int32, device=dev),
+        inv_leaf=torch.full((), 1.0 / opts.grid_leaf, dtype=torch.float32, device=dev),
+        origin=torch.as_tensor(origin, dtype=torch.float32, device=dev),
+    )
+    return IcpTarget(grid=grid, packed=packed, plane=plane, plane_mu=mu,
+                     plane_valid=valid, dense=dense)
+
+
 def _build_oct_tables(grid: voxel.HashGrid, dense: voxel.DenseIndex,
                       packed: torch.Tensor, opts: IcpOptions):
     """Pre-elect the correspondence for every (voxel, octant) cell of the

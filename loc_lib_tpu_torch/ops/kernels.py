@@ -1,13 +1,16 @@
-"""Fused P2Plane linearization kernels: Hopper CUDA kernels + plain versions.
+"""Fused scan-matching linearization kernels: Hopper CUDA kernels + plain
+versions.
 
-Port of the two Pallas TPU kernels of the voxel-plane ICP hot path
-(loc_lib_tpu/ops/pallas_kernels.py):
+Port of the three Pallas TPU kernels (loc_lib_tpu/ops/pallas_kernels.py):
 
   K1 `p2plane_fused_terms`       (pallas_kernels.py:75)  -> csrc/p2plane_fused_terms.cu
   K2 `p2plane_pick_fused_terms`  (pallas_kernels.py:185) -> csrc/p2plane_pick_fused_terms.cu
+  K3 `ndt_fused_terms`           (pallas_kernels.py:314) -> csrc/ndt_fused_terms.cu
 
-Both return (H (6,6), b (6,), count () int32, chi2 ()) from one symmetric
-8x8 G = sum A A^T over per-point rows A = [J_rot(3) | n(3) | dis | 1] * w.
+All return (H (6,6), b (6,), count () int32, chi2 ()) from one symmetric
+8x8 G = sum A A^T over rows A = [J(6) | r | flag] * w: one row per point for
+the P2Plane kernels K1 and K2, three rows per (point, stencil voxel) for the
+generalized-Gaussian NDT kernel K3.
 
 The seam replaces the JAX package's `on_tpu()` switch with the tensor's
 device: CPU tensors go to the plain PyTorch version beside each kernel; CUDA
@@ -33,7 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-LAUNCHES = {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0}
+LAUNCHES = {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0, "ndt_fused_terms": 0}
 
 
 def reset_launch_counts() -> None:
@@ -117,12 +120,60 @@ def p2plane_pick_fused_terms_plain(q, rows, w, R, t, gate):
     return _split(A.T @ A)
 
 
+def ndt_rows_plain(q, qs, mu, W, valid, R, t, outlier_th, weighted: bool):
+    """K3's rows A (N * S * 3, 8) in the kernel's order (point, then stencil
+    voxel s, then residual row i), op by op as the kernel evaluates them.
+
+    Per (point, s): e = qs - mu, z = W^T e, res = |z|^2 and the weight
+    w = valid * [res <= outlier_th]. Row i is
+        weighted   w * [B_rot,i(M = W^T R) | (W^T)_i | z_i | flag_i]
+        direct     w * [B_rot,i(M = R)     |  I_i    | e_i | flag_i]
+    with B_rot row i = [m2 y - m1 z, m0 z - m2 x, m1 x - m0 y] from row i of
+    M (J = [-R hat(q) | I]) and flag_i = 1 on row 0 only, so the count
+    counts residuals. `t` is unused: qs arrives computed."""
+    x, y, z = q[:, 0], q[:, 1], q[:, 2]
+    ones = torch.ones_like(x)
+    zeros = torch.zeros_like(x)
+    per_s = []
+    for s in range(valid.shape[1]):
+        e = [qs[:, k] - mu[:, s, k] for k in range(3)]
+        Wm = [[W[:, s, 3 * k + j] for j in range(3)] for k in range(3)]
+        zr = [Wm[0][i] * e[0] + Wm[1][i] * e[1] + Wm[2][i] * e[2] for i in range(3)]
+        res = zr[0] * zr[0] + zr[1] * zr[1] + zr[2] * zr[2]
+        w = valid[:, s] * (res <= outlier_th).to(q.dtype)
+        if weighted:
+            M = [[Wm[0][i] * R[0, j] + Wm[1][i] * R[1, j] + Wm[2][i] * R[2, j]
+                  for j in range(3)] for i in range(3)]
+            Bt = [[Wm[j][i] for j in range(3)] for i in range(3)]
+            r = zr
+        else:
+            M = [[R[i, j] for j in range(3)] for i in range(3)]
+            Bt = [[ones if i == j else zeros for j in range(3)] for i in range(3)]
+            r = e
+        rows = []
+        for i in range(3):
+            m0, m1, m2 = M[i]
+            rows.append(torch.stack(
+                [m2 * y - m1 * z, m0 * z - m2 * x, m1 * x - m0 * y,
+                 Bt[i][0], Bt[i][1], Bt[i][2], r[i], ones if i == 0 else zeros],
+                dim=1) * w[:, None])
+        per_s.append(torch.stack(rows, dim=1))                 # (N, 3, 8)
+    return torch.stack(per_s, dim=1).reshape(-1, 8)            # (N * S * 3, 8)
+
+
+def ndt_fused_terms_plain(q, qs, mu, W, valid, R, t, outlier_th, weighted: bool):
+    """Plain PyTorch K3: same arguments and results as `ndt_fused_terms`."""
+    A = ndt_rows_plain(q, qs, mu, W, valid, R, t, outlier_th, weighted)
+    return _split(A.T @ A)
+
+
 # ---------------------------------------------------------------------------
 # Build and load (first use only)
 # ---------------------------------------------------------------------------
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_terms.cuh", "p2plane_fused_terms.cu", "p2plane_pick_fused_terms.cu")
+SOURCES = ("fused_terms.cuh", "p2plane_fused_terms.cu", "p2plane_pick_fused_terms.cu",
+           "ndt_fused_terms.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
               "-lineinfo")
@@ -182,6 +233,9 @@ def build() -> BuildInfo:
         for fn in (lib.p2plane_fused_terms_launch, lib.p2plane_pick_fused_terms_launch):
             fn.argtypes = [vp, vp, ci, vp, vp, vp, vp, cf, ci, vp, ci, vp, vp, vp, vp]
             fn.restype = ci
+        lib.ndt_fused_terms_launch.argtypes = [vp, vp, vp, ci, ci, vp, ci, ci, vp, ci, ci, ci,
+                                               vp, cf, ci, ci, vp, ci, vp, vp, vp, vp]
+        lib.ndt_fused_terms_launch.restype = ci
         lib.loc_fused_error_string.argtypes = [ci]
         lib.loc_fused_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -196,13 +250,14 @@ def num_blocks(n: int) -> int:
     return max(1, min(MAX_BLOCKS, -(-n // THREADS)))
 
 
-def reduction_depth(n: int) -> int:
+def reduction_depth(n: int, rows_per_point: int = 1) -> int:
     """The most float32 additions any one product passes through in the
-    kernels' sum: the per-thread grid-stride loop, the 5-level warp
-    shuffle, the serial sum over a block's warps, and the serial sum over
-    the blocks' partials in finalize_kernel."""
+    kernels' sum over N points with `rows_per_point` rows each (1 for K1
+    and K2, 3 S for K3): the per-thread serial sum over its points' rows,
+    the 5-level warp shuffle, the serial sum over a block's warps, and the
+    serial sum over the blocks' partials in finalize_kernel."""
     nb = num_blocks(n)
-    return -(-max(n, 1) // (nb * THREADS)) + 5 + THREADS // 32 + nb
+    return -(-max(n, 1) // (nb * THREADS)) * rows_per_point + 5 + THREADS // 32 + nb
 
 
 class GramCheck(NamedTuple):
@@ -211,13 +266,13 @@ class GramCheck(NamedTuple):
     count: int           # the exact count, G_exact[7, 7]
 
 
-def check_against_rows(out, A: torch.Tensor) -> GramCheck:
+def check_against_rows(out, A: torch.Tensor, rows_per_point: int = 1) -> GramCheck:
     """Hold a fused-terms result `out` = (H, b, count, chi2) against the
-    per-point rows A (N, 8) it should sum (the plain version's rows, which
-    the kernels reproduce bit for bit).
+    rows A (N * rows_per_point, 8) it should sum (the plain version's rows,
+    which the kernels reproduce bit for bit).
 
     G_exact = A^T A is summed in float64. Entry by entry the tolerance is
-    tol_ij = 2 gamma_{h+1} (|A|^T |A|)_ij, with h = reduction_depth(N),
+    tol_ij = 2 gamma_{h+1} (|A|^T |A|)_ij, with h = reduction_depth(N, rows_per_point),
     gamma_k = k u / (1 - k u) and u = 2^-24: twice the worst-case rounding
     of a float32 sum of these products over any tree of depth h. So chi2
     and each entry of b are held to their own scale, not to max |H|."""
@@ -225,7 +280,7 @@ def check_against_rows(out, A: torch.Tensor) -> GramCheck:
     A64 = A.to(torch.float64)
     G = A64.T @ A64
     S = A64.abs().T @ A64.abs()
-    k = reduction_depth(A.shape[0]) + 1
+    k = reduction_depth(A.shape[0] // rows_per_point, rows_per_point) + 1
     gamma = k * 2.0 ** -24 / (1.0 - k * 2.0 ** -24)
     ratio, err = 0.0, 0.0
     for got, ref, scale in ((H, G[:6, :6], S[:6, :6]), (b, -G[:6, 6], S[:6, 6]),
@@ -340,4 +395,37 @@ def p2plane_pick_fused_terms(q, rows, w, R, t, gate):
                   (q.data_ptr(), rows.data_ptr(), S, w.data_ptr(), *_pose_ptrs(*pose)),
                   n, dev)
     LAUNCHES["p2plane_pick_fused_terms"] += 1
+    return out
+
+
+def ndt_fused_terms(q, qs, mu, W, valid, R, t, outlier_th, weighted: bool):
+    """K3: fused generalized-Gaussian (NDT) linearization over S stencil
+    voxels per point.
+
+    q (N, 3) body points and qs (N, 3) world points (contiguous), mu
+    (N, S, 3) gathered voxel means, W (N, S, 9) row-major square-root
+    factors of the voxel information (info = W W^T), valid (N, S) float32
+    0/1; mu, W and valid may be strided views (e.g. columns of the gathered
+    (N, S, 13) packed rows) whose last dimension is contiguous. R (3, 3),
+    t (3,) (unused by the kernel: qs arrives computed), outlier_th the chi2
+    gate (a number), `weighted` selects the information-weighted system.
+    Returns (H (6,6), b (6,), count () int32 residuals, chi2 ())."""
+    if q.device.type == "cpu":
+        return ndt_fused_terms_plain(q, qs, mu, W, valid, R, t, outlier_th, weighted)
+    dev = _device_of(q)
+    n, S = valid.shape
+    _check("q", q, (n, 3), dev)
+    _check("qs", qs, (n, 3), dev)
+    _check("mu", mu, (n, S, 3), dev, contiguous=False)
+    _check("W", W, (n, S, 9), dev, contiguous=False)
+    _check("valid", valid, (n, S), dev, contiguous=False)
+    if mu.stride(2) != 1 or W.stride(2) != 1:
+        raise ValueError("mu, W: the last dimension must be contiguous")
+    R, t, _, th = _pose(R, t, float(outlier_th), dev)
+    out = _launch("ndt_fused_terms_launch",
+                  (q.data_ptr(), qs.data_ptr(), mu.data_ptr(), mu.stride(0), mu.stride(1),
+                   W.data_ptr(), W.stride(0), W.stride(1),
+                   valid.data_ptr(), valid.stride(0), valid.stride(1), S,
+                   R.data_ptr(), th, int(bool(weighted))), n, dev)
+    LAUNCHES["ndt_fused_terms"] += 1
     return out

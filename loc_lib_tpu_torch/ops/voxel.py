@@ -42,6 +42,12 @@ def nearby6(device: torch.device) -> torch.Tensor:
     return torch.tensor(_NEARBY6, dtype=torch.int32, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def center1(device: torch.device) -> torch.Tensor:
+    """(1, 3) int32 single-voxel stencil (NDT nearby="center")."""
+    return torch.zeros((1, 3), dtype=torch.int32, device=device)
+
+
 def voxel_coords(xyz: torch.Tensor, inv_leaf, origin=None, mode: str = "floor") -> torch.Tensor:
     """Integer voxel coordinates of points. mode="trunc" reproduces C++
     truncation toward zero; "floor" is the default for binning."""

@@ -1,33 +1,40 @@
-"""LIO: keyframe LiDAR-inertial odometry and local mapping (port of the
-matcher="icp" path of loc_lib_tpu/pipeline/lio.py).
+"""LIO: keyframe LiDAR-inertial odometry and local mapping (port of
+loc_lib_tpu/pipeline/lio.py for the matchers icp, icp_vox_inc, ndt and
+ndt_inc).
 
 One scan in, updated state + pose out: ESKF prediction through the measure
-group's IMU packet, Gauss-Newton scan match against the local-map target,
+group's IMU packet, Gauss-Newton scan match against the matcher's target,
 ESKF fusion of the matched pose, keyframe decision, and on a keyframe the
-ring-buffer local-map rebuild (transform, concat, voxel filter, budget
-compaction, target build). JAX's on-device `lax.cond` keyframe branch
-becomes one host branch per scan (one flag read back).
+target update:
+  * icp: ring-buffer local-map rebuild (transform, concat, voxel filter,
+    budget compaction, voxel-plane target build);
+  * ndt: the same local map, built into a direct NDT map;
+  * ndt_inc: the new keyframe absorbed into the incremental NDT table;
+  * icp_vox_inc: the new keyframe (downsampled) absorbed into a floor-binned
+    moment table, from which the voxel-plane target is re-derived; every
+    `vox_inc_reanchor`-th keyframe the table is rebuilt from the window.
+JAX's on-device `lax.cond` branches (keyframe, re-anchor) become host
+branches on a flag read back once per scan and on the host int `num_kfs`.
 
 Keyframe clouds are stored in the lidar frame and re-transformed by their
 world poses at every rebuild, as in the reference.
 
 Not ported yet (each raises NotImplementedError naming its roadmap slice):
-the matchers icp_vox_inc / ndt / ndt_inc / loam, Lio(pipelined=True), and
-Lio.apply_correction.
+matcher="loam", Lio(pipelined=True), and Lio.apply_correction.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..ops.pointcloud import PointCloud, PAD_COORD
 from ..ops import voxel as voxel_ops
-from ..models import icp, eskf as eskf_mod
+from ..models import icp, ndt, eskf as eskf_mod
 from ..utils import lie
 from ..utils import health as health_mod
 
@@ -35,10 +42,11 @@ from ..utils import health as health_mod
 @dataclasses.dataclass(frozen=True)
 class LioOptions:
     """Mirror of the JAX package's LioOptions for the matchers this port
-    runs (the ndt/loam option blocks come with their matchers)."""
+    runs (the loam option block comes with its matcher)."""
 
-    matcher: str = "icp"              # only "icp" is ported
+    matcher: str = "icp"              # icp | icp_vox_inc | ndt | ndt_inc
     icp: icp.IcpOptions = icp.IcpOptions()
+    ndt: ndt.NdtOptions = ndt.NdtOptions()
     kf_distance: float = 0.5          # keyframe translation gate (m)
     kf_angle_deg: float = 30.0        # keyframe rotation gate (deg)
     num_kfs_in_local_map: int = 10
@@ -46,6 +54,10 @@ class LioOptions:
     map_filter_leaf: float = 0.5
     scan_capacity: int = 8192         # padded points per filtered scan
     with_eskf: bool = True
+    # matcher="icp_vox_inc": every Nth accepted keyframe, rebuild the moment
+    # table from the keyframe window at the current poses instead of
+    # absorbing only the new scan (0: absorb only)
+    vox_inc_reanchor: int = 5
     # static row budget of the assembled local map as a fraction of the
     # window's raw capacity; overflow is counted in LioState.map_overflow
     local_map_budget_factor: float = 0.625
@@ -60,12 +72,23 @@ class LioOptions:
         b = int(cap * self.local_map_budget_factor)
         return min(cap, max(1024, -(-b // 1024) * 1024))
 
+    @property
+    def inc_ndt(self) -> ndt.NdtOptions:
+        """Moment-table options backing matcher="icp_vox_inc": floor-binned
+        incremental voxel Gaussians at the ICP grid leaf and dense dims."""
+        return dataclasses.replace(
+            self.ndt, method="incremental", voxel_size=self.icp.grid_leaf,
+            bin_mode="floor", dense_dims=self.icp.dense_dims)
+
+    @property
+    def ndt_inc(self) -> ndt.NdtOptions:
+        """The NDT options of matcher="ndt_inc"."""
+        return dataclasses.replace(self.ndt, method="incremental")
+
 
 def _check_matcher(opts: LioOptions):
-    if opts.matcher == "icp":
+    if opts.matcher in ("icp", "icp_vox_inc", "ndt", "ndt_inc"):
         return
-    if opts.matcher in ("icp_vox_inc", "ndt", "ndt_inc"):
-        icp.not_ported(f"LIO matcher {opts.matcher!r}", "4")
     if opts.matcher == "loam":
         icp.not_ported("LIO matcher 'loam'", "4")
     raise ValueError(f"unknown matcher {opts.matcher!r}")
@@ -86,7 +109,10 @@ class LioState(NamedTuple):
     last_kf_R: torch.Tensor         # pose of the most recent keyframe
     last_kf_t: torch.Tensor
     num_kfs: int                    # keyframes ever accepted
-    icp_target: icp.IcpTarget
+    # matcher target: icp_target (icp), ndt_map (ndt, ndt_inc), or both
+    # (icp_vox_inc: the moment table and the plane target derived from it)
+    icp_target: Optional[icp.IcpTarget]
+    ndt_map: Optional[ndt.NdtMap]
     eskf: eskf_mod.EskfState
     R_il: torch.Tensor              # T_imu_lidar extrinsic
     t_il: torch.Tensor
@@ -110,11 +136,25 @@ def _f32(x, device) -> torch.Tensor:
 
 def init_state(opts: LioOptions, R_il=None, t_il=None, *, device) -> LioState:
     """Fresh state on `device`, with the matcher target pre-built from an
-    empty budget-sized cloud (the reference's fixed-shape start)."""
+    empty budget-sized cloud or an empty table (the reference's fixed-shape
+    start)."""
     _check_matcher(opts)
     k, n = opts.num_kfs_in_local_map, opts.scan_capacity
     eye = torch.eye(3, dtype=torch.float32, device=device)
     z3 = torch.zeros((3,), dtype=torch.float32, device=device)
+    icp_target, ndt_map = None, None
+    if opts.matcher == "icp":
+        icp_target = icp.set_target(_empty_map_cloud(opts, device), opts.icp)
+    elif opts.matcher == "icp_vox_inc":
+        if opts.icp.method != "p2plane_vox":
+            raise ValueError("matcher='icp_vox_inc' needs icp.method='p2plane_vox', "
+                             f"got {opts.icp.method!r}")
+        ndt_map = ndt.empty_incremental(opts.inc_ndt, device=device)
+        icp_target = _derive_vox_target(opts, ndt_map)
+    elif opts.matcher == "ndt":
+        ndt_map = ndt.build_direct(_empty_map_cloud(opts, device), opts.ndt)
+    else:
+        ndt_map = ndt.empty_incremental(opts.ndt_inc, device=device)
     return LioState(
         R=eye, t=z3, last_R=eye, last_t=z3,
         kf_xyz=torch.full((k, n, 3), PAD_COORD, dtype=torch.float32, device=device),
@@ -123,13 +163,19 @@ def init_state(opts: LioOptions, R_il=None, t_il=None, *, device) -> LioState:
         kf_t=torch.zeros((k, 3), dtype=torch.float32, device=device),
         last_kf_R=eye, last_kf_t=z3,
         num_kfs=0,
-        icp_target=icp.set_target(_empty_map_cloud(opts, device), opts.icp),
+        icp_target=icp_target,
+        ndt_map=ndt_map,
         eskf=eskf_mod.init_state(device=device),
         R_il=eye if R_il is None else _f32(R_il, device),
         t_il=z3 if t_il is None else _f32(t_il, device),
         frame_idx=0,
         map_overflow=torch.zeros((), dtype=torch.int32, device=device),
     )
+
+
+def _derive_vox_target(opts: LioOptions, m: ndt.NdtMap) -> icp.IcpTarget:
+    return icp.target_from_moment_table(m.keys, m.count, m.mean, m.cov, m.dense_table,
+                                        m.dense_lo, m.origin, opts.icp, opts.icp.dense_dims)
 
 
 def _empty_map_cloud(opts: LioOptions, device) -> PointCloud:
@@ -175,8 +221,13 @@ def _assemble_local_map(opts: LioOptions, kf_xyz, kf_mask, kf_R, kf_t):
     return PointCloud(xyz=xyz, mask=mask), origin, overflow
 
 
+def _world_scan(scan_xyz, scan_mask, R, t) -> PointCloud:
+    world = torch.where(scan_mask[:, None], scan_xyz @ R.T + t, PAD_COORD)
+    return PointCloud(xyz=world, mask=scan_mask)
+
+
 def _push_keyframe(opts: LioOptions, state: LioState, scan_xyz, scan_mask, R, t) -> LioState:
-    """Insert (scan, pose) into the ring buffer and rebuild the target."""
+    """Insert (scan, pose) into the ring buffer and update the target."""
     slot = state.num_kfs % opts.num_kfs_in_local_map
 
     def upd(buf, row):
@@ -188,12 +239,41 @@ def _push_keyframe(opts: LioOptions, state: LioState, scan_xyz, scan_mask, R, t)
     kf_mask = upd(state.kf_mask, scan_mask)
     kf_R = upd(state.kf_R, R)
     kf_t = upd(state.kf_t, t)
-    local_map, origin, ovf = _assemble_local_map(opts, kf_xyz, kf_mask, kf_R, kf_t)
-    return state._replace(
-        kf_xyz=kf_xyz, kf_mask=kf_mask, kf_R=kf_R, kf_t=kf_t,
-        last_kf_R=R, last_kf_t=t, num_kfs=state.num_kfs + 1,
-        icp_target=icp.set_target(local_map, opts.icp, origin),
-        map_overflow=ovf)
+    new = state._replace(kf_xyz=kf_xyz, kf_mask=kf_mask, kf_R=kf_R, kf_t=kf_t,
+                         last_kf_R=R, last_kf_t=t, num_kfs=state.num_kfs + 1)
+    if opts.matcher == "icp":
+        local_map, origin, ovf = _assemble_local_map(opts, kf_xyz, kf_mask, kf_R, kf_t)
+        return new._replace(icp_target=icp.set_target(local_map, opts.icp, origin),
+                            map_overflow=ovf)
+    if opts.matcher == "ndt":
+        local_map, origin, ovf = _assemble_local_map(opts, kf_xyz, kf_mask, kf_R, kf_t)
+        return new._replace(ndt_map=ndt.build_direct(local_map, opts.ndt, origin),
+                            map_overflow=ovf)
+    if opts.matcher == "ndt_inc":
+        # incremental NDT absorbs only the new keyframe
+        return new._replace(ndt_map=ndt.update_incremental(
+            new.ndt_map, _world_scan(scan_xyz, scan_mask, R, t), opts.ndt_inc))
+    # icp_vox_inc: absorb the new keyframe, downsampled at the local-map leaf
+    # as the batch path feeds set_target; every vox_inc_reanchor-th keyframe
+    # rebuild the table from the window at the current poses instead, with
+    # the key window re-centred on the window's origin
+    if opts.vox_inc_reanchor > 0 and new.num_kfs % opts.vox_inc_reanchor == 0:
+        local_map, origin, _ = _assemble_local_map(opts, kf_xyz, kf_mask, kf_R, kf_t)
+        m2 = ndt.update_incremental(ndt.empty_incremental(opts.inc_ndt, origin=origin),
+                                    local_map, opts.inc_ndt)
+    else:
+        scan_w = voxel_ops.voxel_downsample(_world_scan(scan_xyz, scan_mask, R, t),
+                                            opts.map_filter_leaf, origin=t)
+        m2 = ndt.update_incremental(new.ndt_map, scan_w, opts.inc_ndt)
+    return new._replace(ndt_map=m2, icp_target=_derive_vox_target(opts, m2))
+
+
+def _align(opts: LioOptions, state: LioState, src: PointCloud, R0, t0):
+    if opts.matcher in ("icp", "icp_vox_inc"):
+        return icp.scan_match(state.icp_target, opts.icp, src, R0, t0)
+    if opts.matcher == "ndt":
+        return ndt.scan_match(state.ndt_map, opts.ndt, src, R0, t0)
+    return ndt.scan_match(state.ndt_map, opts.ndt_inc, src, R0, t0)
 
 
 def _predict_pose(opts: LioOptions, state: LioState):
@@ -223,7 +303,7 @@ def step(state: LioState, scan: PointCloud, opts: LioOptions):
     else:
         R0, t0 = _predict_pose(opts, state)
 
-    res = icp.scan_match(state.icp_target, opts.icp, scan, R0, t0)
+    res = _align(opts, state, scan, R0, t0)
     R_new, t_new = (R0, t0) if first else (res.R, res.t)
 
     new_eskf = state.eskf
@@ -316,7 +396,13 @@ class Lio:
         self.kf_poses: list[np.ndarray] = []
         self._imu_init = ImuStaticInit(device=self.device)
         self.imu_inited = not opts.with_eskf
-        self.health = health_mod.TrackingHealth(health_mod.HealthOptions())
+        # matcher-aware residual gate: the NDT matchers report an
+        # information-weighted chi2 (Mahalanobis^2 per residual, outlier
+        # gate 20), not metric m^2; under the 1.0 default every healthy
+        # NDT frame is flagged bad. Half the NDT outlier gate, as in JAX.
+        self.health = health_mod.TrackingHealth(
+            health_mod.HealthOptions(max_chi2_per_point=10.0)
+            if opts.matcher.startswith("ndt") else health_mod.HealthOptions())
 
     def init_imu(self, gyro, acce, timestamp) -> bool:
         """Feed one stationary IMU sample; True once the filter is seeded."""
@@ -328,6 +414,13 @@ class Lio:
         self.state = self.state._replace(eskf=st)
         self.imu_inited = True
         return True
+
+    def add_cloud(self, scan: PointCloud) -> StepResult:
+        """One scan without an IMU packet (the ESKF, if on, is not
+        propagated before the match)."""
+        self.state, out = step(self.state, scan, self.opts)
+        self._record(out)
+        return out
 
     def add_measure(self, scan: PointCloud, imu_gyro, imu_acce, imu_stamp,
                     imu_valid) -> StepResult:

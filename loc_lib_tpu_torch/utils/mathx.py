@@ -86,3 +86,67 @@ def solve_gn_6x6(H: torch.Tensor, b: torch.Tensor, damping: float = 0.0):
     if damping:
         H = H + damping * torch.eye(6, dtype=H.dtype, device=H.device)
     return torch.linalg.solve_ex(H, b, check_errors=False).result
+
+
+def merge_gaussian(hist_n, hist_mean, hist_cov, cur_n, cur_mean, cur_cov):
+    """Moment-matched merge of two Gaussians (the incremental NDT voxel
+    update). Counts (...,), means (..., 3), covariances (..., 3, 3)."""
+    total = hist_n + cur_n
+    new_mean = (hist_n[..., None] * hist_mean + cur_n[..., None] * cur_mean) / total[..., None]
+    dh = hist_mean - new_mean
+    dc = cur_mean - new_mean
+    new_cov = (
+        hist_n[..., None, None] * (hist_cov + dh[..., :, None] * dh[..., None, :])
+        + cur_n[..., None, None] * (cur_cov + dc[..., :, None] * dc[..., None, :])
+    ) / total[..., None, None]
+    return new_mean, new_cov
+
+
+def clamped_inverse_3x3(cov: torch.Tensor, rel_floor: float = 1e-3):
+    """NDT voxel information from a covariance: eigenvalues floored at
+    rel_floor times the largest, then inverted (on the closed-form
+    `eigh_sym3x3`). cov (..., 3, 3) symmetric PSD -> info (..., 3, 3)."""
+    vals, vecs = eigh_sym3x3(cov)                             # ascending
+    floor = vals[..., 2:3] * rel_floor
+    inv = 1.0 / torch.clamp(torch.maximum(vals, floor), min=1e-12)
+    return torch.einsum("...ij,...j,...kj->...ik", vecs, inv, vecs)
+
+
+def cholesky_3x3(A: torch.Tensor):
+    """Closed-form lower Cholesky of batched SPD (..., 3, 3) matrices ->
+    six packed factors (..., 6) [L00, L10, L11, L20, L21, L22].
+
+    Off-diagonal solves are clipped to their exact-arithmetic PSD bounds, so
+    a rank-deficient input whose tiny diagonal cancels to 0 in float32 does
+    not blow up; an exactly zero input gives an exactly zero factor (voxels
+    that are not estimated carry info = 0)."""
+    eps = 1e-12
+    a00 = torch.clamp(A[..., 0, 0], min=0.0)
+    a11 = torch.clamp(A[..., 1, 1], min=0.0)
+    a22 = torch.clamp(A[..., 2, 2], min=0.0)
+    l00 = torch.sqrt(a00 + eps)
+
+    def clip(x, bound):
+        return torch.minimum(torch.maximum(x, -bound), bound)
+
+    l10 = clip(A[..., 1, 0] / l00, torch.sqrt(a11 + eps))
+    l20 = clip(A[..., 2, 0] / l00, torch.sqrt(a22 + eps))
+    d11 = torch.clamp(a11 - l10 * l10, min=0.0)
+    l11 = torch.sqrt(d11 + eps)
+    d22_bound = torch.sqrt(torch.clamp(a22 - l20 * l20, min=0.0) + eps)
+    l21 = clip((A[..., 2, 1] - l20 * l10) / l11, d22_bound)
+    d22 = torch.clamp(a22 - l20 * l20 - l21 * l21, min=0.0)
+    l22 = torch.sqrt(d22 + eps)
+    packed = torch.stack([l00, l10, l11, l20, l21, l22], dim=-1)
+    zero = torch.all((A == 0.0).flatten(-2), dim=-1)
+    return torch.where(zero[..., None], 0.0, packed)
+
+
+def cholesky_3x3_unpack(packed: torch.Tensor) -> torch.Tensor:
+    """(..., 6) packed factors -> (..., 3, 3) lower-triangular L."""
+    z = torch.zeros_like(packed[..., 0])
+    return torch.stack([
+        torch.stack([packed[..., 0], z, z], dim=-1),
+        torch.stack([packed[..., 1], packed[..., 2], z], dim=-1),
+        torch.stack([packed[..., 3], packed[..., 4], packed[..., 5]], dim=-1),
+    ], dim=-2)

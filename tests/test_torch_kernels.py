@@ -1,11 +1,14 @@
-"""Port parity: the plain PyTorch versions of K1 (p2plane_fused_terms) and
-K2 (p2plane_pick_fused_terms) against the JAX package's Pallas kernels in
-interpret mode, plus the seam's dispatch rules.
+"""Port parity: the plain PyTorch versions of K1 (p2plane_fused_terms), K2
+(p2plane_pick_fused_terms) and K3 (ndt_fused_terms) against the JAX
+package's Pallas kernels in interpret mode, plus the seam's dispatch rules.
 
 Tolerance: H, b, chi2 within rtol 1e-5, atol 1e-4 (the bounds of
 test_icp.py's fused-vs-unfused check); counts exact. The two sides sum the
-same per-point rows in different orders (tile-wise MXU-style dot vs one
-float32 matmul), which the tolerance absorbs."""
+same rows in different orders (tile-wise MXU-style dot vs one float32
+matmul), which the tolerance absorbs. K3 sums 3 S rows per point (43,008
+rows at N = 2048, S = 7), so its entries also get the rounding of a
+reordered float32 sum: 64 u (|A|^T |A|)_ij, u = 2^-24, on top of that rule
+(measured up to 3x the plain rule, on entries that cancel to near 0)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -57,6 +60,20 @@ def _k2_inputs(rng, n, S=7):
     return q, rows, w
 
 
+def _k3_inputs(rng, n, S, scale=2.0):
+    """Points within +-scale m, voxel means 0.4 m from their world points,
+    random SPD information W W^T, 70% of the (point, voxel) pairs valid."""
+    q = rng.uniform(-scale, scale, size=(n, 3)).astype(np.float32)
+    R, t = _pose(rng)
+    qs = (q @ R.T + t).astype(np.float32)
+    mu = (qs[:, None, :] + rng.normal(scale=0.4, size=(n, S, 3))).astype(np.float32)
+    B = rng.normal(size=(n, S, 3, 3))
+    info = B @ np.swapaxes(B, -1, -2) + 0.5 * np.eye(3)
+    W = np.linalg.cholesky(info).astype(np.float32).reshape(n, S, 9)
+    valid = (rng.uniform(size=(n, S)) < 0.7).astype(np.float32)
+    return q, qs, mu, W, valid, R, t
+
+
 def _compare(jax_out, torch_out):
     Hj, bj, nj, cj = (np.asarray(a) for a in jax_out)
     Ht, bt, nt, ct = (a.numpy() for a in torch_out)
@@ -82,6 +99,27 @@ def test_k1_plain_matches_pallas_interpret(n):
     out = kernels.p2plane_fused_terms(*_t(q, plane, w, R, t), gate)
     assert int(out[2]) > n // 10
     _compare(ref, out)
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("S", [7, 1])
+@pytest.mark.parametrize("n", [2048, 2047])
+def test_k3_plain_matches_pallas_interpret(n, S, weighted):
+    rng = np.random.default_rng(10 * n + S + weighted)
+    args = _k3_inputs(rng, n, S)
+    ref = pallas_kernels.ndt_fused_terms(*(jnp.asarray(a) for a in args), 20.0, weighted,
+                                         interpret=True)
+    targs = _t(*args)
+    out = kernels.ndt_fused_terms(*targs, 20.0, weighted)
+    A = kernels.ndt_rows_plain(*targs, 20.0, weighted).to(torch.float64)
+    S_abs = (A.abs().T @ A.abs()).numpy()
+    Hj, bj, nj, cj = (np.asarray(a) for a in ref)
+    Ht, bt, nt, ct = (a.numpy() for a in out)
+    assert int(nt) == int(nj) and 0.5 * n * S < int(nj) < 0.9 * n * S
+    for got, want, sab in ((Ht, Hj, S_abs[:6, :6]), (bt, bj, S_abs[:6, 6]),
+                           (ct, cj, S_abs[6, 6])):
+        tol = ATOL + RTOL * np.abs(want) + 64 * 2.0 ** -24 * sab
+        assert (np.abs(got - want) <= tol).all(), np.max(np.abs(got - want) / tol)
 
 
 @pytest.mark.parametrize("n", [2048, 1500])
@@ -111,6 +149,24 @@ def test_all_masked_gives_zero_and_stays_finite():
         H, b, cnt, chi2 = out
         assert int(cnt) == 0
         assert torch.all(H == 0) and torch.all(b == 0) and float(chi2) == 0.0
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+def test_k3_all_invalid_gives_zero_and_stays_finite(weighted):
+    """No valid (point, voxel) pair -- padded points at PAD_COORD, zero
+    means, zero factors (the rows of missing or non-estimated voxels):
+    G must be exactly 0, as in JAX."""
+    n, S = 1000, 7
+    q = np.full((n, 3), 1e6, np.float32)
+    zeros = np.zeros((n, S, 3), np.float32), np.zeros((n, S, 9), np.float32)
+    args = (q, q.copy(), *zeros, np.zeros((n, S), np.float32), np.eye(3, dtype=np.float32),
+            np.zeros(3, np.float32))
+    H, b, cnt, chi2 = kernels.ndt_fused_terms(*_t(*args), 20.0, weighted)
+    assert int(cnt) == 0
+    assert torch.all(H == 0) and torch.all(b == 0) and float(chi2) == 0.0
+    ref = pallas_kernels.ndt_fused_terms(*(jnp.asarray(a) for a in args), 20.0, weighted,
+                                         interpret=True)
+    assert int(ref[2]) == 0 and not np.asarray(ref[0]).any()
 
 
 def test_k2_tie_first_candidate_wins():
@@ -150,7 +206,9 @@ def test_cpu_tensors_never_touch_launch_counters():
     kernels.p2plane_fused_terms(*_t(q, plane, w, R, t), 0.1)
     q2, rows, w2 = _k2_inputs(rng, 256)
     kernels.p2plane_pick_fused_terms(*_t(q2, rows, w2, R, t), 0.1)
-    assert kernels.LAUNCHES == {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0}
+    kernels.ndt_fused_terms(*_t(*_k3_inputs(rng, 256, 7)), 20.0, True)
+    assert kernels.LAUNCHES == {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0,
+                                "ndt_fused_terms": 0}
 
 
 def test_non_cpu_non_cuda_tensors_raise():
@@ -202,17 +260,20 @@ def test_port_fused_pick_matches_unfused_pick():
         np.testing.assert_allclose(float(c1), float(c2), rtol=RTOL, atol=ATOL)
 
 
-def _kernel_order_sum(A: torch.Tensor):
+def _kernel_order_sum(A: torch.Tensor, rows_per_point: int = 1):
     """The CUDA kernels' float32 summation order, emulated on the CPU: one
-    thread per point (N <= 256 * MAX_BLOCKS here), a 5-level warp-shuffle
-    tree, a serial sum over the block's 8 warps, then a serial sum over the
-    blocks. Returns (H, b, count, chi2) as the kernel would."""
-    n = A.shape[0]
+    thread per point (N <= 256 * MAX_BLOCKS here) summing its rows serially
+    (K3: 3 S rows, stencil-major), a 5-level warp-shuffle tree, a serial
+    sum over the block's 8 warps, then a serial sum over the blocks.
+    Returns (H, b, count, chi2) as the kernel would."""
+    n = A.shape[0] // rows_per_point
     nb = kernels.num_blocks(n)
     assert n <= nb * kernels.THREADS
     iu = torch.triu_indices(8, 8)
     P = torch.zeros((nb * kernels.THREADS, iu.shape[1]), dtype=torch.float32)
-    P[:n] = A[:, iu[0]] * A[:, iu[1]]
+    for r in range(rows_per_point):
+        Ar = A[r::rows_per_point]
+        P[:n] = P[:n] + Ar[:, iu[0]] * Ar[:, iu[1]]
     v = P.reshape(nb, kernels.THREADS // 32, 32, -1)
     for off in (16, 8, 4, 2, 1):
         v = v[:, :, :off] + v[:, :, off:2 * off]
@@ -239,15 +300,31 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("kernel,n", [("k1", 8192), ("k1", 8191), ("k1", 65536),
-                                      ("k2", 8192), ("k2", 8191)])
+                                      ("k2", 8192), ("k2", 8191),
+                                      ("k3w", 8192), ("k3d", 8191), ("k3w1", 8192)])
 def test_card_check_accepts_kernel_order_and_rejects_planted_errors(kernel, n):
     """The per-entry check chip_smoke holds the CUDA kernels to
-    (kernels.check_against_rows): a sum of the plain rows in the kernels'
-    own float32 order passes, and a result with chi2 = 0, b's translation
-    part dropped, one H entry off by 1e-3, or a wrong count fails."""
+    (kernels.check_against_rows, with the kernel's reduction depth): a sum
+    of the plain rows in the kernels' own float32 order passes, and a
+    result with chi2 = 0, b's translation part dropped, one H entry off by
+    1e-3, or a wrong count fails. k3w / k3d: K3 weighted / direct, S = 7;
+    k3w1: weighted, S = 1 (the p2line_vox shape)."""
     cs = _chip_smoke()
     rng = np.random.default_rng(n + (kernel == "k2"))
     R, t = (torch.from_numpy(a) for a in _pose(rng))
+    if kernel.startswith("k3"):
+        S = 1 if kernel == "k3w1" else 7
+        weighted = kernel != "k3d"
+        *args, R, t = _t(*_k3_inputs(rng, n, S, scale=50.0))   # the card's 50 m scale
+        A = kernels.ndt_rows_plain(*args, R, t, 20.0, weighted)
+        got = _kernel_order_sum(A, 3 * S)
+        plain = kernels.ndt_fused_terms_plain(*args, R, t, 20.0, weighted)
+        err, ratio = cs._compare("emulated", got, plain, A, 3 * S)
+        assert ratio <= 1.0 and int(got[2]) > n * S // 3
+        cs._planted_errors_are_caught("emulated", got, A, 3 * S)
+        with pytest.raises(AssertionError):
+            cs._compare("planted", (got[0], got[1], got[2] + 1, got[3]), plain, A, 3 * S)
+        return
     if kernel == "k1":
         q, x, w = _t(*_k1_inputs(rng, n))
         q = q * 10.0                               # the 50 m scale of the card's cases

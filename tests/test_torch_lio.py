@@ -2,7 +2,9 @@
 p2plane_vox, ESKF on) on the synthetic demo log, through the JAX package's
 Lio and the port's Lio -- step by step on a carried-across state, and free
 running, with a witness of how far float32 rounding alone moves the
-reference's own free run (tolerances stated in each test).
+reference's own free run (tolerances stated in each test). The NDT family
+(matchers ndt_inc, ndt, icp_vox_inc) step by step on a carried-across
+state, and the matcher-aware health gate through Lio.add_cloud.
 
 Also pins the port's numpy copies of the log generators
 (io/synthetic, io/logdir, io/replay) bit-identical to the JAX package's."""
@@ -15,12 +17,14 @@ import pytest
 import torch
 
 from loc_lib_tpu.io import logdir as jlogdir, replay as jreplay, synthetic as jsyn
-from loc_lib_tpu.models import icp as jicp
+from loc_lib_tpu.io import synthetic as jsynth
+from loc_lib_tpu.models import icp as jicp, ndt as jndt
 from loc_lib_tpu.ops.pointcloud import PointCloud as JPointCloud
 from loc_lib_tpu.pipeline import lio as jlio
 from loc_lib_tpu_torch.eval import metrics
 from loc_lib_tpu_torch.io import convert, logdir, replay, synthetic
-from loc_lib_tpu_torch.models import icp
+from loc_lib_tpu_torch.models import icp, ndt
+from loc_lib_tpu_torch.utils import health
 from loc_lib_tpu_torch.pipeline import lio
 import oracles
 
@@ -191,9 +195,98 @@ def test_lio_run_tracks_like_jax(log, free_runs):
     assert eng.local_map().shape[1] == 3 and len(eng.local_map()) > CAP
 
 
+def _ndt_family_opts(mod, imod, nmod, matcher):
+    return mod.LioOptions(
+        matcher=matcher, icp=imod.IcpOptions(method="p2plane_vox"),
+        ndt=nmod.NdtOptions(method="incremental" if matcher == "ndt_inc" else "direct",
+                            voxel_size=1.0),
+        scan_capacity=CAP, with_eskf=True, vox_inc_reanchor=2)
+
+
+@pytest.mark.parametrize("matcher", ["ndt_inc", "ndt", "icp_vox_inc"])
+def test_ndt_family_step_matches_jax_on_carried_state(log, matcher):
+    """Every frame: the JAX engine's state before the frame (with its NDT map
+    or moment table) is carried across and the port's step_measure is held
+    to the JAX step. Keyframe flags, iterations and effective counts equal;
+    poses within 1e-5 m / 1e-5 rad (measured up to 2.2e-6 m); chi2 within
+    rtol 1e-4 (measured 1.3e-5: icp_vox_inc's chi2 sums a few hundred
+    squared plane distances of millimetres). icp_vox_inc re-anchors every
+    2nd keyframe here, so both of its branches run."""
+    jeng = jlio.Lio(_ndt_family_opts(jlio, jicp, jndt, matcher))
+    _static_init(jeng, log)
+    opts = _ndt_family_opts(lio, icp, ndt, matcher)
+    kfs = 0
+    for mg in jreplay.sync_measures(log.scan_stamps, log.imu, imu_capacity=64):
+        state = convert.lio_state_from_numpy(
+            jax.tree_util.tree_map(np.asarray, jeng.state)._asdict(), "cpu")
+        _, tout = lio.step_measure(state, log.frame(mg.scan_index, "cpu"), mg.imu_gyro,
+                                   mg.imu_acce, mg.imu_stamp, mg.imu_valid, opts)
+        jout = jeng.add_measure(*_jax_scan(log, mg))
+        assert tout.is_keyframe == bool(jout.is_keyframe)
+        assert tout.iterations == int(jout.iterations)
+        assert int(tout.num_effective) == int(jout.num_effective)
+        dt, rot = _pose_gap(jout.R, jout.t, tout.R.numpy(), tout.t.numpy())
+        assert dt < 1e-5 and rot < 1e-5, (mg.scan_index, dt, rot)
+        np.testing.assert_allclose(float(tout.chi2), float(jout.chi2), rtol=1e-4)
+        kfs += tout.is_keyframe
+    assert kfs >= 2                  # the 2nd keyframe re-anchors icp_vox_inc
+
+
+def test_health_gate_is_matcher_aware():
+    """test_pipeline.py:243 in the port, through Lio.add_cloud: NDT reports
+    an information-weighted chi2 (Mahalanobis^2 per residual, outlier gate
+    20), so a clean ndt_inc run must stay 'ok' under the NDT threshold
+    (10 per residual); the metric default (1.0 m^2) would flag every
+    matched frame bad.
+
+    Free running, the port's add_cloud poses follow JAX's no further than
+    1.5 times the distance a 1-ulp nudge of every scan point moves JAX's own
+    run (measured: port gap 3.4e-3 m, JAX 1-ulp drift 3.7e-3 m): the maps'
+    information matrices amplify float32 rounding on near-planar voxels
+    (test_torch_ndt.py), so no tighter free-run bound holds. Both stay
+    within 0.05 m of the ground truth (measured 4.6e-3 m)."""
+    world = jsynth.make_world(num_points=20000, extent=60.0, seed=0)
+    traj = jsynth.make_trajectory(num_frames=12, dt=0.1, speed=2.0)
+    scans = [synthetic.render_scan(world, traj.R[i], traj.t[i], max_range=35.0,
+                                   max_points=2048, noise=0.005, seed=i, capacity=2048)
+             for i in range(8)]
+    args = dict(matcher="ndt_inc", scan_capacity=2048, with_eskf=False, kf_distance=0.4)
+    eng = lio.Lio(lio.LioOptions(ndt=ndt.NdtOptions(method="incremental", voxel_size=1.0),
+                                 **args), device="cpu")
+    jeng = jlio.Lio(jlio.LioOptions(ndt=jndt.NdtOptions(method="incremental", voxel_size=1.0),
+                                    **args))
+    nudged = jlio.Lio(jlio.LioOptions(ndt=jndt.NdtOptions(method="incremental",
+                                                          voxel_size=1.0), **args))
+    metric = health.TrackingHealth(health.HealthOptions())
+    assert eng.health.opts.max_chi2_per_point == 10.0
+    port_gap, self_gap = [], []
+    for k, sc in enumerate(scans):
+        out = eng.add_cloud(sc)
+        xyz, mask = sc.xyz.numpy(), sc.mask.numpy()
+        jout = jeng.add_cloud(JPointCloud(xyz=jnp.asarray(xyz), mask=jnp.asarray(mask)))
+        xyz = xyz.copy()
+        xyz[mask] = np.nextafter(xyz[mask], np.float32(np.inf))
+        nout = nudged.add_cloud(JPointCloud(xyz=jnp.asarray(xyz), mask=jnp.asarray(mask)))
+        if k:
+            metric.update(bool(out.converged), int(out.num_effective), float(out.chi2))
+        port_gap.append(np.linalg.norm(out.t.numpy() - np.asarray(jout.t)))
+        self_gap.append(np.linalg.norm(np.asarray(nout.t) - np.asarray(jout.t)))
+        gt = traj.R[0].T @ (traj.t[k] - traj.t[0])
+        assert np.linalg.norm(out.t.numpy() - gt) < 0.05
+        assert np.linalg.norm(np.asarray(jout.t) - gt) < 0.05
+    assert max(self_gap) > 1e-3
+    assert max(port_gap) <= 1.5 * max(self_gap), (max(port_gap), max(self_gap))
+    assert eng.health.status == eng.health.OK, (eng.health.status, eng.health.total_bad)
+    assert eng.health.total_bad <= 1
+    assert eng.health.total_bad == jeng.health.total_bad
+    assert metric.total_bad == len(scans) - 1
+
+
 def test_unported_lio_paths_name_their_slice():
     with pytest.raises(NotImplementedError, match="slice 4"):
-        lio.Lio(lio.LioOptions(matcher="ndt_inc"), device="cpu")
+        lio.Lio(lio.LioOptions(matcher="loam"), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        lio.Lio(lio.LioOptions(icp=icp.IcpOptions(method="p2line_vox")), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 3"):
         lio.Lio(lio.LioOptions(icp=icp.IcpOptions(method="p2plane_vox")), device="cpu",
                 pipelined=True)
