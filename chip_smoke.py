@@ -10,9 +10,14 @@ scan_match, p2plane_vox_oct, 65,536-point target, 8,192-point source), 40
 frames of LIO mapping (Lio.add_measure, p2plane_vox + ESKF, scan capacity
 8192), and the NDT family on the same log: incremental NDT (ndt_inc, the
 repo's ndt_inc_odometry cell), direct NDT (ndt) and the moment-table voxel
-planes (icp_vox_inc). Launch counters, set to 0 before each path and read
-after it, show each path went through its kernels. A last phase breaks the
-time of the paths down per layer (torch.profiler; tables in chiprun_out/).
+planes (icp_vox_inc). Then it checks that the map builds give the same bits
+on every run, and drives LOAM odometry (annotate_rings + extract_features +
+Lio.add_measure with edge_scan) and localization against a prior map
+(Loc.update_measure with p2plane_vox and p2plane_vox_oct, and two runs
+that re-crop). Launch counters, set to 0 before each path and read after
+it, show each path went through its kernels. A last phase breaks the time
+of the paths down per layer (torch.profiler tables go to an output
+directory beside this script).
 
 Prints one line per phase, then a JSON line with the kernels, then the
 card's name and power limit, and as its last line
@@ -50,6 +55,14 @@ ATE_LIMIT_M = 0.10
 ATE_LIMIT_NDT_INC_M = 0.10
 ATE_LIMIT_NDT_M = 0.106254 + 0.04
 ATE_LIMIT_VOX_INC_M = 0.045601 + 0.04
+# The same rule for LOAM odometry and localization against the prior map:
+# the JAX package's ATE on each phase's workload (one CPU run each, PERF.md
+# section 2) plus 0.04 m.
+ATE_LIMIT_LOAM_M = 0.058190 + 0.04
+ATE_LIMIT_LOC_M = 0.073056 + 0.04            # p2plane_vox, 150 m box
+ATE_LIMIT_LOC_OCT_M = 0.073002 + 0.04        # p2plane_vox_oct, 150 m box
+ATE_LIMIT_LOC_RECROP_M = 0.073085 + 0.04     # p2plane_vox, 110 m box: one re-crop
+DETERMINISM_FRAMES = 12
 NDT_TH = 20.0             # NdtOptions.res_outlier_th
 
 
@@ -510,33 +523,58 @@ def lio_options(matcher):
                           scan_capacity=8192, with_eskf=True)
 
 
-def phase_lio(device, card, matcher="icp", label="phase 5", ate_limit=ATE_LIMIT_M):
-    """LIO_FRAMES frames of the demo log (capacity 8192, yaw rate 0, 2 m/s)
-    through Lio.add_measure after a static IMU init from the first 150
-    samples. Returns (options, the state the last scan was matched against,
-    the last scan, its StepResult)."""
-    from loc_lib_tpu_torch.eval import metrics
+def demo_log(frames=LIO_FRAMES):
+    """The LIO / LOAM / Loc phases' log: make_demo_log(frames, capacity
+    8192, yaw rate 0, 2 m/s), rendered from make_world(120000, extent 80,
+    seed 0)."""
     from loc_lib_tpu_torch.io import logdir
+
+    return logdir.make_demo_log(num_frames=frames, capacity=8192, yaw_rate=0.0, speed=2.0)
+
+
+def drive_lio(device, opts, log, frames=None, features=None):
+    """Drive Lio.add_measure over the log's measure groups (the first
+    `frames`, or all) after a static IMU init from the first 150 samples.
+    `features(k)` gives (surf, edge) clouds for matcher="loam", prepared
+    outside the timed step. Returns (engine, per-step ms, scan indices, GN
+    iterations, the state the last scan was matched against, the last scan,
+    its edge cloud or None, its StepResult)."""
     from loc_lib_tpu_torch.pipeline import lio
 
-    log = logdir.make_demo_log(num_frames=LIO_FRAMES, capacity=8192, yaw_rate=0.0, speed=2.0)
-    opts = lio_options(matcher)
     eng = lio.Lio(opts, device=device)
     for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
         eng.init_imu(g, a, t)
     if not eng.imu_inited:
         raise AssertionError("static IMU init failed")
     times, idxs, iters = [], [], []
-    for mg in log.measures(imu_capacity=64):
-        scan = log.frame(mg.scan_index, device)
+    edge = None
+    for mg in list(log.measures(imu_capacity=64))[:frames]:
+        if features is None:
+            scan = log.frame(mg.scan_index, device)
+        else:
+            scan, edge = features(mg.scan_index)
         before = eng.state          # the state the last scan is matched against
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = eng.add_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+        out = eng.add_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid,
+                              edge_scan=edge)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         idxs.append(mg.scan_index)
         iters.append(out.iterations)
+    return eng, times, idxs, iters, before, scan, edge, out
+
+
+def phase_lio(device, card, matcher="icp", label="phase 5", ate_limit=ATE_LIMIT_M):
+    """LIO_FRAMES frames of the demo log (capacity 8192, yaw rate 0, 2 m/s)
+    through Lio.add_measure after a static IMU init from the first 150
+    samples. Returns (options, the state the last scan was matched against,
+    the last scan, its StepResult)."""
+    from loc_lib_tpu_torch.eval import metrics
+
+    log = demo_log()
+    opts = lio_options(matcher)
+    eng, times, idxs, iters, before, scan, _, out = drive_lio(device, opts, log)
     poses = np.stack(eng.poses)
     if not np.isfinite(poses).all():
         raise AssertionError("LIO produced a non-finite pose")
@@ -610,6 +648,252 @@ def phase_lio_k3_check(ndt_last, label):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5f: run-to-run determinism of the map builds
+# ---------------------------------------------------------------------------
+
+def _bits_equal(a, b) -> bool:
+    """Two results (tensors, or NamedTuples of them, nested) hold the same
+    bits: float tensors compared as raw int32 words (NaN-safe), the rest
+    with ==."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.shape == b.shape and bool(torch.equal(a, b))
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_bits_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def phase_determinism(device, card, workload):
+    """The same map builds twice must give the same bits: icp.set_target on
+    the headline's 65,536-point target (p2plane_vox_oct: grid, moments,
+    planes, octant tables), one ndt.update_incremental merging the 8,192-point
+    source into a map built from that target, and the first
+    DETERMINISM_FRAMES frames of LIO icp and ndt_inc (poses)."""
+    from loc_lib_tpu_torch.models import icp, ndt
+
+    tgt_pc, src = workload[0], workload[1]
+    opts = icp.IcpOptions(method="p2plane_vox_oct")
+    if not _bits_equal(icp.set_target(tgt_pc, opts), icp.set_target(tgt_pc, opts)):
+        raise AssertionError("icp.set_target is not run-to-run deterministic")
+    nopts = ndt.NdtOptions(method="incremental", voxel_size=1.0)
+    m0 = ndt.update_incremental(ndt.empty_incremental(nopts, device=device), tgt_pc, nopts)
+    m1 = ndt.update_incremental(m0, src, nopts)
+    if not _bits_equal(m1, ndt.update_incremental(m0, src, nopts)):
+        raise AssertionError("ndt.update_incremental is not run-to-run deterministic")
+    log = demo_log(DETERMINISM_FRAMES)
+    cases = [f"set_target (65,536 points, {int(icp.set_target(tgt_pc, opts).plane_valid.sum())} "
+             f"valid planes) bit-equal",
+             f"update_incremental ({int(m1.estimated.sum())} estimated voxels) bit-equal"]
+    for matcher in ("icp", "ndt_inc"):
+        runs = [np.stack(drive_lio(device, lio_options(matcher), log)[0].poses) for _ in range(2)]
+        if not np.array_equal(runs[0], runs[1]):
+            raise AssertionError(f"LIO {matcher}: two runs of the same frames gave different "
+                                 f"poses (max gap {np.abs(runs[0] - runs[1]).max():.3g})")
+        cases.append(f"LIO {matcher} {DETERMINISM_FRAMES} frames x2: poses bit-equal")
+    print("phase 5f determinism: " + "; ".join(cases) + f" [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5e: LOAM odometry
+# ---------------------------------------------------------------------------
+
+def loam_options():
+    """bench_suite.py's bench_loam configuration: LoamFeatureOptions(num_scan
+    16, min_ring_pts 64), LoamOption defaults (surf p2plane_vox on K2, edge
+    p2line_vox on K3 at S = 1, eps 1e-3), ESKF on, scan capacity 8192."""
+    from loc_lib_tpu_torch.models import loam
+    from loc_lib_tpu_torch.pipeline import lio
+
+    fo = loam.LoamFeatureOptions(num_scan=16, min_ring_pts=64)
+    return lio.LioOptions(matcher="loam", loam=loam.LoamOption(feature=fo),
+                          scan_capacity=8192, with_eskf=True)
+
+
+def phase_loam(device, card):
+    """LIO_FRAMES frames of LOAM odometry: each scan ring-annotated up front
+    (as the bench does: a sensor delivers the ring), then extract_features
+    (timed on its own) and Lio.add_measure(surf, ..., edge_scan=edge) (the
+    step time). Returns (options, the state the last scan was matched
+    against, its surf and edge clouds, its StepResult)."""
+    from loc_lib_tpu_torch.eval import metrics
+    from loc_lib_tpu_torch.io import synthetic
+    from loc_lib_tpu_torch.models import loam
+
+    log = demo_log()
+    opts = loam_options()
+    fo = opts.loam.feature
+    ringed = [synthetic.annotate_rings(log.frame(k, device), num_rings=fo.num_scan, device=device)
+              for k in range(log.scan_xyz.shape[0])]
+    fe_ms, n_edge = [], []
+
+    def features(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = loam.extract_features(ringed[k], fo)
+        torch.cuda.synchronize()
+        fe_ms.append((time.perf_counter() - t0) * 1e3)
+        n_edge.append(int(f.edge.mask.sum()))
+        return f.surf, f.edge
+
+    eng, times, idxs, iters, before, surf, edge, out = drive_lio(device, opts, log,
+                                                                 features=features)
+    poses = np.stack(eng.poses)
+    if not np.isfinite(poses).all():
+        raise AssertionError("LOAM produced a non-finite pose")
+    n_kf = len(eng.kf_poses)
+    if n_kf < 2:
+        raise AssertionError(f"LOAM accepted only {n_kf} keyframes")
+    ate = metrics.ate(poses, log.gt_poses[np.asarray(idxs)])
+    if not ate.rmse <= ATE_LIMIT_LOAM_M:
+        raise AssertionError(f"LOAM ATE RMSE {ate.rmse:.4f} m > {ATE_LIMIT_LOAM_M} m")
+    if eng.health.status == eng.health.LOST:
+        raise AssertionError(f"LOAM: tracking health LOST ({eng.health.total_bad} bad frames)")
+    steady = np.asarray(times[LIO_WARMUP:])
+    print(f"phase 5e LOAM {LIO_FRAMES} frames (surf p2plane_vox + edge p2line_vox + ESKF, "
+          f"capacity 8192): ATE RMSE {ate.rmse:.4f} m (max {ate.max:.4f}, bound "
+          f"{ATE_LIMIT_LOAM_M:.4f}), {n_kf} keyframes, mean GN iterations "
+          f"{np.mean(iters[1:]):.2f}, health {eng.health.status} ({eng.health.total_bad} bad); "
+          f"step p50 {np.percentile(steady, 50):.2f} ms/scan, p95 "
+          f"{np.percentile(steady, 95):.2f} ms/scan over frames {LIO_WARMUP}-{LIO_FRAMES - 1} "
+          f"(host clock) [{card}]", flush=True)
+    fe = np.asarray(fe_ms[LIO_WARMUP:])
+    print(f"phase 5e LOAM extract_features: p50 {np.percentile(fe, 50):.2f} ms, p95 "
+          f"{np.percentile(fe, 95):.2f} ms per scan (host clock), {np.mean(n_edge):.0f} edge "
+          f"points per scan [{card}]", flush=True)
+    return opts, before, surf, edge, out
+
+
+def phase_loam_checks(loam_last):
+    """K3 at S = 1, weighted (the p2line_vox shape) on the LOAM path's own
+    edge map, and K2 on its own surf map: the maps the last scan was matched
+    to, at that scan's final pose. Returns (K3 error, K2 error)."""
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.ops import kernels
+
+    opts, before, surf, edge, out = loam_last
+    tgt, eo, so = before.loam_target, opts.loam.edge_icp, opts.loam.surf_icp
+    qs, rows, w = icp._p2line_vox_rows(tgt.edge, eo, edge, out.R, out.t)
+    args = (edge.xyz, qs, rows[..., 0:3], rows[..., 3:12], w, out.R, out.t,
+            eo.max_line_distance ** 2, True)
+    got = kernels.ndt_fused_terms(*args)
+    k3_err, r3 = _compare("K3 S=1 on the LOAM edge map", got, kernels.ndt_fused_terms_plain(*args),
+                          kernels.ndt_rows_plain(*args), 3)
+    if int(got[2]) < eo.min_effective_pts:
+        raise AssertionError(f"K3 on the LOAM edge map kept only {int(got[2])} residuals")
+    rows7 = icp._p2plane_vox_rows7(tgt.surf, so, surf, out.R, out.t)
+    args2 = (surf.xyz, rows7, surf.mask.to(torch.float32), out.R, out.t, so.max_plane_distance)
+    got2 = kernels.p2plane_pick_fused_terms(*args2)
+    k2_err, r2 = _compare("K2 on the LOAM surf map", got2,
+                          kernels.p2plane_pick_fused_terms_plain(*args2),
+                          kernels.p2plane_pick_rows_plain(*args2))
+    print(f"phase 5e K3 (S=1, weighted) vs plain on the LOAM edge map "
+          f"({int(tgt.edge.line_packed[:, 12].sum())} valid lines, N={edge.capacity}, "
+          f"{int(edge.mask.sum())} edge points): cnt {int(got[2])}, err {k3_err:.3g}, "
+          f"err/bound {r3:.3g}; K2 vs plain on the LOAM surf map "
+          f"({int(tgt.surf.plane_valid.sum())} valid planes): cnt {int(got2[2])}, "
+          f"err {k2_err:.3g}, err/bound {r2:.3g}", flush=True)
+    return k3_err, k2_err
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: localization against the prior map
+# ---------------------------------------------------------------------------
+
+def phase_loc(device, card, method, label, ate_limit=None, frames=None, **kw):
+    """bench_suite.py's bench_loc configuration: the global map
+    make_world(120000, extent 80, seed 0) (the demo log's world), its
+    8,192-row scans, LocOptions(icp method `method`, ESKF on; box 150 m,
+    margin 50 m and local_map_capacity 131,072 unless `kw` says otherwise),
+    set_init_pose(gt[0]), then Loc.update_measure per frame. Returns (engine,
+    options, the state the last scan was matched against, the last scan,
+    its StepResult)."""
+    from loc_lib_tpu_torch.eval import metrics
+    from loc_lib_tpu_torch.io import synthetic
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.pipeline import loc
+
+    log = demo_log()
+    world = synthetic.make_world(num_points=120000, extent=80.0, seed=0)
+    opts = loc.LocOptions(icp=icp.IcpOptions(method=method), **kw)
+    eng = loc.Loc(world, opts, device=device)
+    eng.set_init_pose(log.gt_poses[0][:3, :3], log.gt_poses[0][:3, 3])
+    times = []
+    for mg in list(log.measures(imu_capacity=64))[:frames]:
+        scan = log.frame(mg.scan_index, device)
+        before = eng.state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.update_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    poses = np.stack(eng.poses)
+    if not np.isfinite(poses).all():
+        raise AssertionError(f"Loc {method} produced a non-finite pose")
+    ate = metrics.ate(poses, log.gt_poses[:len(poses)])
+    if ate_limit is not None and not ate.rmse <= ate_limit:
+        raise AssertionError(f"Loc {method} ATE RMSE {ate.rmse:.4f} m > {ate_limit} m")
+    if eng.health.status == eng.health.LOST:
+        raise AssertionError(f"Loc {method}: tracking health LOST")
+    first = 4 if len(times) > 4 else 0
+    steady = np.asarray(times[first:])
+    bound = "no bound" if ate_limit is None else f"bound {ate_limit:.4f}"
+    print(f"{label} Loc {len(poses)} frames ({method} + ESKF, box {opts.box_size:g} m, margin "
+          f"{opts.recrop_margin:g} m, crop capacity {opts.local_map_capacity}): ATE RMSE "
+          f"{ate.rmse:.4f} m (max {ate.max:.4f}, {bound}), {eng.num_recrops} re-crops, health "
+          f"{eng.health.status} ({eng.health.total_bad} bad); p50 "
+          f"{np.percentile(steady, 50):.2f} ms/scan, p95 {np.percentile(steady, 95):.2f} "
+          f"ms/scan over frames {first}-{len(poses) - 1} (host clock) [{card}]", flush=True)
+    return eng, opts, before, scan, out
+
+
+def phase_loc_crop_timing(card, loc_run, label):
+    """The re-crop latency users see: the engine's own Loc._recrop around
+    the last pose (crop of the global map, then the target build on the
+    131,072-row crop), and its crop_local_map alone (median of 3 each, host
+    clock). Run after the path, so it re-crops a finished engine."""
+    from loc_lib_tpu_torch.pipeline import loc
+
+    eng, opts = loc_run[0], loc_run[1]
+    recrop_ms, crop_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        crop = loc.crop_local_map(eng.map_xyz, eng.map_mask, eng.state.t, opts.box_size / 2.0,
+                                  opts.local_map_capacity)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng._recrop()
+        torch.cuda.synchronize()
+        crop_ms.append((t1 - t0) * 1e3)
+        recrop_ms.append((time.perf_counter() - t1) * 1e3)
+    print(f"{label} re-crop ({opts.icp.method}): Loc._recrop {np.median(recrop_ms):.2f} ms, of "
+          f"which crop_local_map {np.median(crop_ms):.2f} ms ({int(crop.mask.sum())} of "
+          f"{crop.capacity} rows inside) (median of 3, host clock) [{card}]", flush=True)
+
+
+def phase_loc_k1_check(loc_run):
+    """K1 against its plain version on the Loc oct path's own crop target,
+    for the last scan at its final pose."""
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.ops import kernels
+
+    _, opts, before, scan, out = loc_run
+    target = before.icp_target
+    rows, w = icp._p2plane_vox_oct_rows(target, opts.icp, scan, out.R, out.t)
+    args = (scan.xyz, rows[:, 0:4], w, out.R, out.t, opts.icp.max_plane_distance)
+    got = kernels.p2plane_fused_terms(*args)
+    err, ratio = _compare("K1 on the Loc crop", got, kernels.p2plane_fused_terms_plain(*args),
+                          kernels.p2plane_rows_plain(*args))
+    if int(got[2]) < opts.icp.min_effective_pts:
+        raise AssertionError(f"K1 on the Loc crop kept only {int(got[2])} points")
+    print(f"phase 7 K1 vs plain on the Loc oct crop target ({int(target.plane_valid.sum())} "
+          f"valid planes, N={scan.capacity}): cnt {int(got[2])}, err {err:.3g}, "
+          f"err/bound {ratio:.3g}", flush=True)
+    return err
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: where the time goes
 # ---------------------------------------------------------------------------
 
@@ -638,6 +922,54 @@ def phase_profile(device, card, workload, target, out_dir):
 
     for matcher in ("icp", "ndt_inc"):
         _profile_lio(device, card, out_dir, matcher)
+    _profile_loam_loc(device, card, out_dir)
+
+
+def _profile_loam_loc(device, card, out_dir):
+    """One LOAM step and one Loc step of each method under the profiler,
+    after 9 frames of warm-up: device launches, summed device time against
+    host time."""
+    from loc_lib_tpu_torch.io import synthetic
+    from loc_lib_tpu_torch.models import icp, loam
+    from loc_lib_tpu_torch.pipeline import loc
+
+    log = demo_log(10)
+    mgs = list(log.measures(imu_capacity=64))
+    opts = loam_options()
+
+    def feats(k):
+        f = loam.extract_features(synthetic.annotate_rings(log.frame(k, device), 16,
+                                                           device=device), opts.loam.feature)
+        return f.surf, f.edge
+
+    def report(label, name, fn):
+        out = []
+        n, dev_ms, host_ms, prof = _profiled(lambda: out.append(fn()), 1)
+        (out_dir / name).write_text(prof.key_averages().table(sort_by="cpu_time_total",
+                                                              row_limit=40))
+        it = getattr(out[0], "iterations", None)
+        print(f"phase 6 profile {label} (frame {mgs[-1].scan_index}"
+              + ("" if it is None else f", {it} GN iterations")
+              + f"): {n:.0f} device launches, device {dev_ms:.3f} ms vs host {host_ms:.3f} ms, "
+              f"device busy {100 * dev_ms / host_ms:.1f}% (profiler on) [{card}]", flush=True)
+
+    eng = drive_lio(device, opts, log, frames=len(mgs) - 1, features=feats)[0]
+    mg = mgs[-1]
+    surf, edge = feats(mg.scan_index)
+    report("LOAM step", "profile_loam_step.txt", lambda: eng.add_measure(
+        surf, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid, edge_scan=edge))
+    world = synthetic.make_world(num_points=120000, extent=80.0, seed=0)
+    for method in ("p2plane_vox", "p2plane_vox_oct"):
+        e = loc.Loc(world, loc.LocOptions(icp=icp.IcpOptions(method=method)), device=device)
+        e.set_init_pose(log.gt_poses[0][:3, :3], log.gt_poses[0][:3, 3])
+        for g in mgs:
+            args = (log.frame(g.scan_index, device), g.imu_gyro, g.imu_acce, g.imu_stamp,
+                    g.imu_valid)
+            if g is mg:
+                report(f"Loc {method} step", f"profile_loc_{method}_step.txt",
+                       lambda: e.update_measure(*args))
+            else:
+                e.update_measure(*args)
 
 
 def _profile_lio(device, card, out_dir, matcher):
@@ -748,6 +1080,34 @@ def main() -> int:
     _, c = counted(("p2plane_pick_fused_terms",), lambda: phase_lio(
         device, card, "icp_vox_inc", "phase 5d", ATE_LIMIT_VOX_INC_M))
     print(f"phase 5d launches: {c}", flush=True)
+    # this slice: run-to-run deterministic map builds, LOAM odometry (K2 +
+    # K3 at S = 1) and localization against the prior map (K2, K1)
+    phase_determinism(device, card, workload)
+    loam_last, c = counted(("p2plane_pick_fused_terms", "ndt_fused_terms"),
+                           lambda: phase_loam(device, card))
+    print(f"phase 5e launches: {c}", flush=True)
+    e3, e2 = phase_loam_checks(loam_last)
+    k3_err, k2_err = max(k3_err, e3), max(k2_err, e2)
+    loc_vox, c = counted(("p2plane_pick_fused_terms",), lambda: phase_loc(
+        device, card, "p2plane_vox", "phase 7", ATE_LIMIT_LOC_M))
+    print(f"phase 7 launches (p2plane_vox): {c}", flush=True)
+    phase_loc_crop_timing(card, loc_vox, "phase 7")
+    loc_oct, c = counted(("p2plane_fused_terms",), lambda: phase_loc(
+        device, card, "p2plane_vox_oct", "phase 7b", ATE_LIMIT_LOC_OCT_M))
+    print(f"phase 7b launches (p2plane_vox_oct): {c}", flush=True)
+    phase_loc_crop_timing(card, loc_oct, "phase 7b")
+    k1_err = phase_loc_k1_check(loc_oct)
+    # re-crops: a 110 m box re-crops once the pose is 5 m from the crop
+    # centre; a 60 m box (half-size 30 m < the 50 m margin) on every frame
+    rc, c = counted(("p2plane_pick_fused_terms",), lambda: phase_loc(
+        device, card, "p2plane_vox", "phase 7c", ATE_LIMIT_LOC_RECROP_M, box_size=110.0)[0])
+    print(f"phase 7c launches (110 m box): {c}", flush=True)
+    short, c = counted(("p2plane_pick_fused_terms",), lambda: phase_loc(
+        device, card, "p2plane_vox", "phase 7d", frames=8, box_size=60.0)[0])
+    print(f"phase 7d launches (60 m box): {c}", flush=True)
+    for label, eng in (("110 m", rc), ("60 m", short)):
+        if eng.num_recrops < 1:
+            raise AssertionError(f"Loc {label} box: no re-crop")
     phase_headline_timing(device, card, workload, target)
     phase_profile(device, card, workload, target,
                   Path(__file__).resolve().parent / "chiprun_out")
@@ -759,6 +1119,7 @@ def main() -> int:
            "ndt_fused_terms": ("loc_lib_tpu_torch/csrc/ndt_fused_terms.cu",
                                "loc_lib_tpu/ops/pallas_kernels.py:314")}
     errs = {k: v[2] for k, v in timing.items()}
+    errs["p2plane_fused_terms"] = max(errs["p2plane_fused_terms"], k1_err)
     errs["p2plane_pick_fused_terms"] = max(errs["p2plane_pick_fused_terms"], k2_err)
     errs["ndt_fused_terms"] = max(errs["ndt_fused_terms"], k3_err)
     print(json.dumps({"kernels": [

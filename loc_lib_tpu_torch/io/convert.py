@@ -1,5 +1,5 @@
 """Carry engine state across from host arrays (the engine has no weights:
-its state is the target tables, the ESKF state and the LIO state).
+its state is the target tables, the ESKF state and the LIO / Loc state).
 
 Each function takes a dict of numpy arrays -- e.g. a state built elsewhere
 and flattened with `tree_map(np.asarray, state)._asdict()`, whose nested
@@ -12,9 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models import eskf, icp, ndt
+from ..models import eskf, icp, loam, ndt
 from ..ops import voxel
-from ..pipeline import lio
+from ..pipeline import lio, loc
 
 
 def _fields(d) -> dict:
@@ -55,7 +55,19 @@ def icp_target_from_numpy(d, device) -> icp.IcpTarget:
         dense_oct=dense_index_from_numpy(f.get("dense_oct"), device),
         oct_table=_maybe(f.get("oct_table"), device),
         packed_ext=_maybe(f.get("packed_ext"), device),
+        line_packed=_maybe(f.get("line_packed"), device),
+        line_dir=_maybe(f.get("line_dir"), device),
     )
+
+
+def _maybe_of(convert, d, device):
+    return None if d is None else convert(d, device)
+
+
+def loam_target_from_numpy(d, device) -> loam.LoamTarget:
+    f = _fields(d)
+    return loam.LoamTarget(edge=icp_target_from_numpy(f["edge"], device),
+                           surf=icp_target_from_numpy(f["surf"], device))
 
 
 def ndt_map_from_numpy(d, device) -> ndt.NdtMap:
@@ -84,8 +96,22 @@ def lio_state_from_numpy(d, device) -> lio.LioState:
         **tensors,
         num_kfs=int(np.asarray(f["num_kfs"])),
         frame_idx=int(np.asarray(f["frame_idx"])),
-        icp_target=None if f.get("icp_target") is None
-        else icp_target_from_numpy(f["icp_target"], device),
-        ndt_map=None if f.get("ndt_map") is None else ndt_map_from_numpy(f["ndt_map"], device),
+        icp_target=_maybe_of(icp_target_from_numpy, f.get("icp_target"), device),
+        ndt_map=_maybe_of(ndt_map_from_numpy, f.get("ndt_map"), device),
+        loam_target=_maybe_of(loam_target_from_numpy, f.get("loam_target"), device),
+        kf_edge_xyz=_maybe(f.get("kf_edge_xyz"), device),
+        kf_edge_mask=_maybe(f.get("kf_edge_mask"), device),
         eskf=eskf_state_from_numpy(f["eskf"], device),
+    )
+
+
+def loc_state_from_numpy(d, device) -> loc.LocState:
+    f = _fields(d)
+    return loc.LocState(
+        **{k: _tensor(f[k], device) for k in
+           ("R", "t", "last_R", "last_t", "map_center", "R_il", "t_il")},
+        icp_target=_maybe_of(icp_target_from_numpy, f.get("icp_target"), device),
+        ndt_map=_maybe_of(ndt_map_from_numpy, f.get("ndt_map"), device),
+        eskf=eskf_state_from_numpy(f["eskf"], device),
+        initialized=bool(np.asarray(f["initialized"])),
     )

@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..ops.pointcloud import PointCloud, from_numpy
 
@@ -104,6 +105,29 @@ def render_scan(world: np.ndarray, R: np.ndarray, t: np.ndarray,
     """`render_scan_numpy` as a padded PointCloud on `device`."""
     local = render_scan_numpy(world, R, t, max_range, max_points, noise, seed)
     return from_numpy(local, capacity=capacity or max_points, device=device)
+
+
+def annotate_rings(pc: PointCloud, num_rings: int = 16,
+                   min_elev_deg: float = -16.0, max_elev_deg: float = 16.0, *,
+                   device) -> PointCloud:
+    """Attach spinning-lidar ring structure to a sensor-frame scan: ring =
+    elevation-angle bin, rows re-ordered by (ring, azimuth), valid rows
+    first, so each ring's points are azimuth-contiguous (the layout LOAM's
+    curvature stencil assumes). Computed in numpy on the host; the result
+    lies on `device`."""
+    xyz = pc.xyz.cpu().numpy()
+    mask = pc.mask.cpu().numpy()
+    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    rho = np.sqrt(x * x + y * y) + 1e-9
+    elev = np.degrees(np.arctan2(z, rho))
+    ring = np.clip(((elev - min_elev_deg)
+                    / max(max_elev_deg - min_elev_deg, 1e-6)
+                    * num_rings).astype(np.int32), 0, num_rings - 1)
+    azim = np.arctan2(y, x)
+    order = np.lexsort((azim, ring, ~mask))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return PointCloud(xyz=t(xyz[order]), mask=t(mask[order]),
+                      ring=t(np.where(mask[order], ring[order], -1)))
 
 
 def ideal_imu(traj: Trajectory, rate_hz: float = 100.0,

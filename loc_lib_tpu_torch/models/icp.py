@@ -1,18 +1,21 @@
-"""Voxel-plane ICP scan matching (port of the p2plane_vox / p2plane_vox_oct
-paths of loc_lib_tpu/models/icp.py).
+"""Voxel ICP scan matching (port of the p2plane_vox, p2plane_vox_oct and
+p2line_vox paths of loc_lib_tpu/models/icp.py).
 
-Target side: per-voxel planes from neighbor-merged Gaussian moments
-(VGICP-style) are precomputed once at `set_target`, plus (for
+Target side: per-voxel planes (or lines) from neighbor-merged Gaussian
+moments (VGICP-style) are precomputed once at `set_target`, plus (for
 p2plane_vox_oct) the correspondence pre-elected per (voxel, octant) cell.
 Match side: each Gauss-Newton iteration is one dense O(1) voxel lookup +
 row gather + one fused kernel (ops/kernels.py): K2 for p2plane_vox (the
-election is fused into the kernel), K1 for p2plane_vox_oct. The outer loop
-is a Python loop with the reference's stop rule (|dx| < eps, at most
-max_iteration, never during gate warm-up); it reads one flag back per
-iteration.
+election is fused into the kernel), K1 for p2plane_vox_oct, and for
+p2line_vox the nearest-valid-centroid election as an argmin, then K3 at
+S = 1 in weighted mode. The outer loop is a Python loop with the
+reference's stop rule (|dx| < eps, at most max_iteration, never during gate
+warm-up); it reads one flag back per iteration.
 
 P2Plane residual and Jacobian (right perturbation):
     e = n.(R q + t) + d      J = [-n^T R hat(q), n^T]
+P2Line: the generalized-Gaussian form with information I - d d^T, whose
+|W^T e|^2 is the squared distance to the voxel's line.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from ..ops.pointcloud import PointCloud
 from ..ops import kernels, voxel
 from ..utils import lie, mathx
 
-_VOX_METHODS = ("p2plane_vox", "p2plane_vox_oct")
+_VOX_METHODS = ("p2plane_vox", "p2plane_vox_oct", "p2line_vox")
 
 
 def not_ported(what: str, slice_: str):
@@ -39,23 +42,27 @@ def not_ported(what: str, slice_: str):
 class IcpOptions:
     """Mirror of the JAX package's IcpOptions (same names and defaults) for
     the fields the ported methods read; the fields of the other methods
-    (max_nn_distance, max_line_distance, line_ratio, elect_*) come with
-    them.
+    (max_nn_distance, elect_*) come with them.
 
-    This port runs method="p2plane_vox" and "p2plane_vox_oct"; the other
-    methods, and freeze_election_after > 0, raise NotImplementedError
-    naming the roadmap slice they wait for."""
+    This port runs method="p2plane_vox", "p2plane_vox_oct" and
+    "p2line_vox"; the knn methods (p2p, p2line, p2plane) and
+    freeze_election_after > 0 raise NotImplementedError naming the roadmap
+    slice they wait for."""
 
     method: str = "p2plane"
     use_initial_translation: bool = True
     max_iteration: int = 20
     max_plane_distance: float = 0.1
+    max_line_distance: float = 0.5
     min_effective_pts: int = 10
     eps: float = 1e-2
     grid_leaf: float = 1.0
     bucket_size: int = 8
     plane_fit_eps: float = 1e-2
     plane_min_pts: int = 5
+    # p2line_vox: the principal eigenvalue must dominate the cross-section
+    # by this ratio for a voxel to carry a line
+    line_ratio: float = 3.0
     dense_dims: tuple = (256, 256, 64)
     freeze_election_after: int = 0
     gate_warmup_iters: int = 0
@@ -63,11 +70,8 @@ class IcpOptions:
 
 
 def _check_method(opts: IcpOptions):
-    if opts.method in _VOX_METHODS:
-        return
-    if opts.method == "p2line_vox":
-        not_ported("ICP method 'p2line_vox' (kernel K3)", "4")
-    not_ported(f"ICP method {opts.method!r}", "2")
+    if opts.method not in _VOX_METHODS:
+        not_ported(f"ICP method {opts.method!r}", "2")
 
 
 class IcpTarget(NamedTuple):
@@ -79,6 +83,9 @@ class IcpTarget(NamedTuple):
     plane_mu: Optional[torch.Tensor] = None      # (V, 3) merged centroid
     plane_valid: Optional[torch.Tensor] = None   # (V,) bool
     dense: Optional[voxel.DenseIndex] = None
+    # p2line_vox: rows [mu(3), W(9 row-major), valid], W W^T = I - d d^T
+    line_packed: Optional[torch.Tensor] = None   # (V, 13)
+    line_dir: Optional[torch.Tensor] = None      # (V, 3) d, kept for tests
     # p2plane_vox_oct: correspondences pre-elected per (voxel, octant)
     dense_oct: Optional[voxel.DenseIndex] = None  # over the DILATED key set
     oct_table: Optional[torch.Tensor] = None     # (V7, 8) int32 -> packed_ext row
@@ -133,6 +140,29 @@ def _planes_from_moments(n, mu, cov, keys, opts: IcpOptions):
 def _build_plane_table(opts: IcpOptions, dense: voxel.DenseIndex, stats: voxel.VoxelStats):
     n, mu, cov, keys = _merged_moments(opts, dense, stats)
     return _planes_from_moments(n, mu, cov, keys, opts)
+
+
+def _build_line_table(opts: IcpOptions, dense: voxel.DenseIndex, stats: voxel.VoxelStats):
+    """Per-voxel line from the merged moments: direction d = principal
+    eigenvector; valid with >= plane_min_pts support where the principal
+    eigenvalue dominates the cross-section by line_ratio. W = [v0 v1 0]
+    (row-major) is the exact square-root factor of the projector I - d d^T,
+    so K3's |W^T e|^2 is the squared line distance. Returns
+    (line_packed (V, 13), line_dir (V, 3))."""
+    n, mu, cov, keys = _merged_moments(opts, dense, stats)
+    vals, vecs = mathx.eigh_sym3x3(cov)
+    d = vecs[..., :, 2]
+    valid = ((n >= opts.plane_min_pts)
+             & (vals[..., 2] >= opts.line_ratio * (vals[..., 0] + vals[..., 1]))
+             & (keys != voxel.INVALID_KEY)
+             & torch.isfinite(vecs).all(dim=-1).all(dim=-1))
+    v0, v1 = vecs[..., :, 0], vecs[..., :, 1]
+    zero = torch.zeros_like(v0[:, 0])
+    W = torch.stack([v0[:, 0], v1[:, 0], zero, v0[:, 1], v1[:, 1], zero,
+                     v0[:, 2], v1[:, 2], zero], dim=-1)               # (V, 9)
+    W = torch.where(valid[:, None], W, 0.0)
+    packed = torch.cat([mu, W, valid[:, None].to(torch.float32)], dim=1)
+    return packed, torch.where(valid[:, None], d, 0.0)
 
 
 def target_from_moment_table(keys, count, mean, cov, dense_table, dense_lo, origin,
@@ -231,6 +261,10 @@ def set_target(pc: PointCloud, opts: IcpOptions, origin=None) -> IcpTarget:
     grid, stats = voxel.build_hash_grid_with_stats(pc, opts.grid_leaf,
                                                    opts.bucket_size, origin)
     dense = voxel.build_dense_index(grid.voxel_keys, dims=opts.dense_dims)
+    if opts.method == "p2line_vox":
+        line_packed, line_dir = _build_line_table(opts, dense, stats)
+        return IcpTarget(grid=grid, centroid=cen, dense=dense,
+                         line_packed=line_packed, line_dir=line_dir)
     plane, plane_mu, plane_valid = _build_plane_table(opts, dense, stats)
     packed = torch.cat([plane, plane_mu, plane_valid[:, None].to(torch.float32)], dim=1)
     tgt = IcpTarget(grid=grid, centroid=cen, packed=packed, plane=plane,
@@ -259,15 +293,29 @@ def _transform(src: PointCloud, R, t):
     return src.xyz @ R.T + t
 
 
-def _p2plane_vox_rows7(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t):
-    """Candidate gather at the current pose: 7-key dense lookup + (N, 7, 8)
-    packed-row gather, validity folded into column 7."""
-    qs = _transform(src, R, t)
+def _stencil_rows(table, target: IcpTarget, opts: IcpOptions, src: PointCloud, qs):
+    """The rows of `table` for the point's voxel + 6 face neighbors: 7-key
+    dense lookup + (N, 7, C) row gather. Returns (rows7, found7)."""
     qcoords = voxel.voxel_coords(qs, target.grid.inv_leaf, target.grid.origin)
     keys7 = voxel.coords_to_key(qcoords[:, None, :] + voxel.nearby6(qs.device)[None],
                                 src.mask[:, None])
     slot7, found7 = voxel.lookup_dense(target.dense, opts.dense_dims, keys7)
-    rows7 = target.packed[slot7.to(torch.int64)]                # (N, 7, 8)
+    return table[slot7.to(torch.int64)], found7
+
+
+def _elect(rows7, valid7, mu7, qs, mask):
+    """Nearest valid centroid among the 7 candidates (argmin: the first
+    stencil entry wins ties). Returns (the picked rows (N, 1, C), w (N,))."""
+    d2 = torch.where(valid7, torch.sum((mu7 - qs[:, None, :]) ** 2, dim=-1), float("inf"))
+    pick = torch.argmin(d2, dim=1)
+    w = (torch.any(valid7, dim=1) & mask).to(qs.dtype)
+    return torch.take_along_dim(rows7, pick[:, None, None], dim=1), w
+
+
+def _p2plane_vox_rows7(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t):
+    """Candidate gather at the current pose: (N, 7, 8) packed plane rows,
+    validity (and the dense-lookup hit) folded into column 7."""
+    rows7, found7 = _stencil_rows(target.packed, target, opts, src, _transform(src, R, t))
     rows7[..., 7] = (found7 & (rows7[..., 7] > 0.5)).to(rows7.dtype)
     return rows7
 
@@ -286,14 +334,9 @@ def _p2plane_vox_elect(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, 
     """Election only (argmin over the 7 candidates, first wins ties).
     Returns (plane (N, 4), w (N,))."""
     rows7 = _p2plane_vox_rows7(target, opts, src, R, t)
-    qs = _transform(src, R, t)
-    valid7 = rows7[..., 7] > 0.5
-    d2 = torch.sum((rows7[..., 4:7] - qs[:, None, :]) ** 2, dim=-1)
-    d2 = torch.where(valid7, d2, float("inf"))
-    pick = torch.argmin(d2, dim=1)
-    plane = torch.take_along_dim(rows7[..., 0:4], pick[:, None, None], dim=1)[:, 0]
-    w = (torch.any(valid7, dim=1) & src.mask).to(src.xyz.dtype)
-    return plane, w
+    picked, w = _elect(rows7, rows7[..., 7] > 0.5, rows7[..., 4:7], _transform(src, R, t),
+                       src.mask)
+    return picked[:, 0, 0:4], w
 
 
 def _p2plane_vox_terms_unfused_pick(target: IcpTarget, opts: IcpOptions,
@@ -334,8 +377,31 @@ def _p2plane_vox_oct_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud,
     return kernels.p2plane_fused_terms(src.xyz, rows[:, 0:4], w, R, t, g)
 
 
+def _p2line_vox_rows(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t):
+    """The nearest-valid-centroid line voxel among the point's voxel + 6
+    face neighbors (argmin, first stencil entry wins ties). Returns
+    (qs (N, 3), rows (N, 1, 13), w (N, 1)): K3's S = 1 inputs."""
+    qs = _transform(src, R, t)
+    rows7, found7 = _stencil_rows(target.line_packed, target, opts, src, qs)   # (N, 7, 13)
+    rows, w = _elect(rows7, found7 & (rows7[..., 12] > 0.5), rows7[..., 0:3], qs, src.mask)
+    return qs, rows, w[:, None]
+
+
+def _p2line_vox_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t,
+                      gate=None):
+    """Voxel-line P2Line linearization: the election above, then K3 at
+    S = 1, weighted, on strided views of the picked rows, gated at
+    gate^2 (gate = max_line_distance by default): the squared line
+    distance |W^T e|^2 against the reference's |e| <= max_line_distance."""
+    qs, rows, w = _p2line_vox_rows(target, opts, src, R, t)
+    g = float(opts.max_line_distance if gate is None else gate)
+    return kernels.ndt_fused_terms(src.xyz, qs, rows[..., 0:3], rows[..., 3:12], w, R, t,
+                                   g * g, weighted=True)
+
+
 _TERM_FNS = {"p2plane_vox": _p2plane_vox_terms,
-             "p2plane_vox_oct": _p2plane_vox_oct_terms}
+             "p2plane_vox_oct": _p2plane_vox_oct_terms,
+             "p2line_vox": _p2line_vox_terms}
 
 
 def compute_h_and_b(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t):
@@ -355,10 +421,14 @@ def scan_match(target: IcpTarget, opts: IcpOptions, src: PointCloud, R0, t0) -> 
         # translation init = target - source centroid difference
         t0 = target.centroid - _masked_centroid(src)
     warmup = opts.gate_warmup_iters
-    base_gate = opts.max_plane_distance
-    gate = torch.full((1,), base_gate, dtype=torch.float32, device=dev)
-    wide_gate = torch.full((1,), base_gate * opts.gate_warmup_scale,
-                           dtype=torch.float32, device=dev)
+    if opts.method == "p2line_vox":
+        # K3 takes its threshold by value: host floats, nothing to copy
+        gate = opts.max_line_distance
+        wide_gate = gate * opts.gate_warmup_scale
+    else:
+        gate = torch.full((1,), opts.max_plane_distance, dtype=torch.float32, device=dev)
+        wide_gate = torch.full((1,), opts.max_plane_distance * opts.gate_warmup_scale,
+                               dtype=torch.float32, device=dev)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
 
     R = torch.as_tensor(R0, dtype=torch.float32, device=dev)

@@ -23,8 +23,8 @@ Differences from the JAX package, semantics kept:
   * `NdtMap.epoch` is a host int (the first-scan rule branches on it);
   * `jnp.lexsort((tag, keys))` becomes one stable sort on keys * 2 + tag,
     and every sort whose ties reach the output is stable;
-  * `segment_sum` / `segment_max` become `index_add_` /
-    `scatter_reduce(amax)` (CUDA `index_add_` sums with atomics);
+  * `segment_sum` / `segment_max` become `voxel.segment_sum` (a serial
+    sum per run, the same bits on every run) / `scatter_reduce(amax)`;
   * the Gauss-Newton loop is a host loop that reads `converged` back once
     per iteration.
 """
@@ -268,15 +268,15 @@ def rebuild_from_moments(keys, cnt, mean, cov, est, age, epoch, origin,
     new_seg = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), k[1:] != k[:-1]])
     seg = torch.cumsum(new_seg.to(torch.int64), 0) - 1
 
-    def seg_sum(x):
-        return torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=dev).index_add_(0, seg, x)
-
-    c_sum = seg_sum(c)
-    s1 = seg_sum(c[:, None] * mu)
     # unbiased covariances throughout: a row's raw second moment is
-    # (c - 1) cov + c mu mu^T, and the merged cov divides by (c_sum - 1)
-    s2 = seg_sum(torch.clamp(c - 1.0, min=0.0)[:, None, None] * cv
-                 + c[:, None, None] * mu[:, :, None] * mu[:, None, :])
+    # (c - 1) cov + c mu mu^T, and the merged cov divides by (c_sum - 1).
+    # The INVALID_KEY rows trail and are summed into no segment (c is 0
+    # there, and their run is dropped below).
+    s2_rows = (torch.clamp(c - 1.0, min=0.0)[:, None, None] * cv
+               + c[:, None, None] * mu[:, :, None] * mu[:, None, :])
+    sums = voxel.segment_sum(torch.cat([c[:, None], c[:, None] * mu, s2_rows.reshape(-1, 9)], dim=1),
+                             voxel.segment_offsets(seg, n, k != voxel.INVALID_KEY))
+    c_sum, s1, s2 = sums[:, 0], sums[:, 1:4], sums[:, 4:13].reshape(-1, 3, 3)
     mean_m = s1 / torch.clamp(c_sum, min=1.0)[:, None]
     cov_m = (s2 - c_sum[:, None, None] * mean_m[:, :, None] * mean_m[:, None, :]) \
         / torch.clamp(c_sum - 1.0, min=1.0)[:, None, None]

@@ -12,10 +12,11 @@ Two differences from the JAX package, both kept semantically identical:
     on the CPU and asserts on the card. Every scatter here writes its
     masked-out rows into one extra trash slot that is sliced away, which
     also avoids boolean-mask indexing (a host sync on the card).
-  * `jax.ops.segment_sum` becomes `index_add_` over the sorted order. On
-    the CPU that adds sequentially (as XLA does); on CUDA a float
-    `index_add_` uses atomics, so the float sums of one voxel may differ in
-    the last bits from run to run.
+  * `jax.ops.segment_sum` becomes `torch.segment_reduce` over the run
+    boundaries of the sorted order (`segment_sum`): each segment is summed
+    serially in row order, on the CPU and on CUDA alike, so one input gives
+    the same bits on every run, as in JAX. (A float `index_add_` would sum
+    with atomics on CUDA.)
 """
 
 from __future__ import annotations
@@ -93,9 +94,25 @@ def _segment_by_key(keys: torch.Tensor) -> _Segments:
     return _Segments(order, sk, seg_id, starts)
 
 
-def _segment_sum(values: torch.Tensor, seg_id: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n,) + values.shape[1:], dtype=values.dtype, device=values.device)
-    return out.index_add_(0, seg_id, values)
+def segment_offsets(seg_id: torch.Tensor, n: int, valid=None) -> torch.Tensor:
+    """(n + 1,) int64 run boundaries of n segments over rows sorted by
+    segment (`seg_id` non-decreasing): segment s is rows [off[s], off[s+1]).
+    Rows where `valid` is False must trail the others; they belong to no
+    segment. Searchsorted, no atomics: the same bits on every run."""
+    ids = seg_id if valid is None else torch.where(valid, seg_id, n)
+    return torch.searchsorted(ids, torch.arange(n + 1, dtype=ids.dtype, device=ids.device))
+
+
+def segment_sum(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Sum the rows of float `values` (N, ...) over the runs `offsets` (from
+    `segment_offsets`): each output row is its run added serially in row
+    order from 0, the order `index_add_` adds in on the CPU (bit-equal to it
+    there). On CUDA, `segment_reduce` walks each run in one thread for 2-D
+    data, so the sum is the same on every run (a float `index_add_` uses
+    atomics there). Empty segments are 0; rows past offsets[-1] are not read."""
+    flat = values.reshape(values.shape[0], -1)
+    out = torch.segment_reduce(flat, "sum", offsets=offsets, axis=0, unsafe=True)
+    return out.reshape((offsets.shape[0] - 1,) + values.shape[1:])
 
 
 def _segment_keys(seg: _Segments, count: torch.Tensor) -> torch.Tensor:
@@ -116,10 +133,12 @@ def voxel_downsample(pc: PointCloud, leaf_size: float, origin=None) -> PointClou
     inv = 1.0 / leaf_size
     keys = coords_to_key(voxel_coords(pc.xyz, inv, origin), pc.mask)
     seg = _segment_by_key(keys)
+    valid = seg.sorted_keys != INVALID_KEY
     pts_sorted = pc.xyz[seg.order]
-    w = (seg.sorted_keys != INVALID_KEY).to(pc.xyz.dtype)
-    sums = _segment_sum(pts_sorted * w[:, None], seg.seg_id, n)
-    cnts = _segment_sum(w, seg.seg_id, n)
+    w = valid.to(pc.xyz.dtype)
+    s = segment_sum(torch.cat([pts_sorted * w[:, None], w[:, None]], dim=1),
+                    segment_offsets(seg.seg_id, n, valid))
+    sums, cnts = s[:, 0:3], s[:, 3]
     centroids = sums / torch.clamp(cnts, min=1.0)[:, None]
     mask = cnts > 0
     xyz = torch.where(mask[:, None], centroids, PAD_COORD)
@@ -183,7 +202,8 @@ def _grid_from_segments(pc: PointCloud, seg: _Segments, inv, origin,
     dev = pc.device
     c = bucket_size
     valid_row = seg.sorted_keys != INVALID_KEY
-    seg_count = _segment_sum(valid_row.to(torch.int32), seg.seg_id, n)
+    off = segment_offsets(seg.seg_id, n, valid_row)
+    seg_count = (off[1:] - off[:-1]).to(torch.int32)
     voxel_keys = _segment_keys(seg, seg_count)
 
     # rank of each sorted row inside its segment
@@ -299,9 +319,10 @@ def _stats_from_segments(pc: PointCloud, seg: _Segments, inv, origin) -> VoxelSt
     pts = pc.xyz[seg.order]
     w = (seg.sorted_keys != INVALID_KEY).to(pc.xyz.dtype)
     pw = pts * w[:, None]
-    cnt = _segment_sum(w, seg.seg_id, n)
-    s1 = _segment_sum(pw, seg.seg_id, n)
-    s2 = _segment_sum(pw[:, :, None] * pts[:, None, :], seg.seg_id, n)
+    s = segment_sum(torch.cat([w[:, None], pw, (pw[:, :, None] * pts[:, None, :]).reshape(-1, 9)],
+                              dim=1),
+                    segment_offsets(seg.seg_id, n, seg.sorted_keys != INVALID_KEY))
+    cnt, s1, s2 = s[:, 0], s[:, 1:4], s[:, 4:13].reshape(-1, 3, 3)
     mean = s1 / torch.clamp(cnt, min=1.0)[:, None]
     cov = (s2 - cnt[:, None, None] * mean[:, :, None] * mean[:, None, :]) \
         / torch.clamp(cnt - 1.0, min=1.0)[:, None, None]

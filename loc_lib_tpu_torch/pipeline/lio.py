@@ -1,6 +1,6 @@
 """LIO: keyframe LiDAR-inertial odometry and local mapping (port of
-loc_lib_tpu/pipeline/lio.py for the matchers icp, icp_vox_inc, ndt and
-ndt_inc).
+loc_lib_tpu/pipeline/lio.py for the matchers icp, icp_vox_inc, ndt, ndt_inc
+and loam).
 
 One scan in, updated state + pose out: ESKF prediction through the measure
 group's IMU packet, Gauss-Newton scan match against the matcher's target,
@@ -12,7 +12,10 @@ target update:
   * ndt_inc: the new keyframe absorbed into the incremental NDT table;
   * icp_vox_inc: the new keyframe (downsampled) absorbed into a floor-binned
     moment table, from which the voxel-plane target is re-derived; every
-    `vox_inc_reanchor`-th keyframe the table is rebuilt from the window.
+    `vox_inc_reanchor`-th keyframe the table is rebuilt from the window;
+  * loam: twin ring buffers (surf features in kf_*, edge features in
+    kf_edge_*), two local maps, a line target over the edges and a plane
+    target over the surfs (`step(..., edge_scan=...)`).
 JAX's on-device `lax.cond` branches (keyframe, re-anchor) become host
 branches on a flag read back once per scan and on the host int `num_kfs`.
 
@@ -20,7 +23,7 @@ Keyframe clouds are stored in the lidar frame and re-transformed by their
 world poses at every rebuild, as in the reference.
 
 Not ported yet (each raises NotImplementedError naming its roadmap slice):
-matcher="loam", Lio(pipelined=True), and Lio.apply_correction.
+Lio(pipelined=True) and Lio.apply_correction.
 """
 
 from __future__ import annotations
@@ -34,19 +37,19 @@ import torch
 
 from ..ops.pointcloud import PointCloud, PAD_COORD
 from ..ops import voxel as voxel_ops
-from ..models import icp, ndt, eskf as eskf_mod
+from ..models import icp, ndt, loam, eskf as eskf_mod
 from ..utils import lie
 from ..utils import health as health_mod
 
 
 @dataclasses.dataclass(frozen=True)
 class LioOptions:
-    """Mirror of the JAX package's LioOptions for the matchers this port
-    runs (the loam option block comes with its matcher)."""
+    """Mirror of the JAX package's LioOptions."""
 
-    matcher: str = "icp"              # icp | icp_vox_inc | ndt | ndt_inc
+    matcher: str = "icp"              # icp | icp_vox_inc | ndt | ndt_inc | loam
     icp: icp.IcpOptions = icp.IcpOptions()
     ndt: ndt.NdtOptions = ndt.NdtOptions()
+    loam: loam.LoamOption = loam.LoamOption()
     kf_distance: float = 0.5          # keyframe translation gate (m)
     kf_angle_deg: float = 30.0        # keyframe rotation gate (deg)
     num_kfs_in_local_map: int = 10
@@ -87,10 +90,8 @@ class LioOptions:
 
 
 def _check_matcher(opts: LioOptions):
-    if opts.matcher in ("icp", "icp_vox_inc", "ndt", "ndt_inc"):
+    if opts.matcher in ("icp", "icp_vox_inc", "ndt", "ndt_inc", "loam"):
         return
-    if opts.matcher == "loam":
-        icp.not_ported("LIO matcher 'loam'", "4")
     raise ValueError(f"unknown matcher {opts.matcher!r}")
 
 
@@ -109,10 +110,15 @@ class LioState(NamedTuple):
     last_kf_R: torch.Tensor         # pose of the most recent keyframe
     last_kf_t: torch.Tensor
     num_kfs: int                    # keyframes ever accepted
-    # matcher target: icp_target (icp), ndt_map (ndt, ndt_inc), or both
-    # (icp_vox_inc: the moment table and the plane target derived from it)
+    # matcher target: icp_target (icp), ndt_map (ndt, ndt_inc), both
+    # (icp_vox_inc: the moment table and the plane target derived from it),
+    # or loam_target (loam)
     icp_target: Optional[icp.IcpTarget]
     ndt_map: Optional[ndt.NdtMap]
+    loam_target: Optional[loam.LoamTarget]
+    # loam: the edge-feature ring buffer (kf_* holds the surf features)
+    kf_edge_xyz: Optional[torch.Tensor]
+    kf_edge_mask: Optional[torch.Tensor]
     eskf: eskf_mod.EskfState
     R_il: torch.Tensor              # T_imu_lidar extrinsic
     t_il: torch.Tensor
@@ -142,7 +148,7 @@ def init_state(opts: LioOptions, R_il=None, t_il=None, *, device) -> LioState:
     k, n = opts.num_kfs_in_local_map, opts.scan_capacity
     eye = torch.eye(3, dtype=torch.float32, device=device)
     z3 = torch.zeros((3,), dtype=torch.float32, device=device)
-    icp_target, ndt_map = None, None
+    icp_target, ndt_map, loam_target = None, None, None
     if opts.matcher == "icp":
         icp_target = icp.set_target(_empty_map_cloud(opts, device), opts.icp)
     elif opts.matcher == "icp_vox_inc":
@@ -153,8 +159,12 @@ def init_state(opts: LioOptions, R_il=None, t_il=None, *, device) -> LioState:
         icp_target = _derive_vox_target(opts, ndt_map)
     elif opts.matcher == "ndt":
         ndt_map = ndt.build_direct(_empty_map_cloud(opts, device), opts.ndt)
-    else:
+    elif opts.matcher == "ndt_inc":
         ndt_map = ndt.empty_incremental(opts.ndt_inc, device=device)
+    else:
+        empty = _empty_map_cloud(opts, device)
+        loam_target = loam.set_target(empty, empty, opts.loam)
+    is_loam = opts.matcher == "loam"
     return LioState(
         R=eye, t=z3, last_R=eye, last_t=z3,
         kf_xyz=torch.full((k, n, 3), PAD_COORD, dtype=torch.float32, device=device),
@@ -165,6 +175,10 @@ def init_state(opts: LioOptions, R_il=None, t_il=None, *, device) -> LioState:
         num_kfs=0,
         icp_target=icp_target,
         ndt_map=ndt_map,
+        loam_target=loam_target,
+        kf_edge_xyz=torch.full((k, n, 3), PAD_COORD, dtype=torch.float32, device=device)
+        if is_loam else None,
+        kf_edge_mask=torch.zeros((k, n), dtype=torch.bool, device=device) if is_loam else None,
         eskf=eskf_mod.init_state(device=device),
         R_il=eye if R_il is None else _f32(R_il, device),
         t_il=z3 if t_il is None else _f32(t_il, device),
@@ -226,8 +240,10 @@ def _world_scan(scan_xyz, scan_mask, R, t) -> PointCloud:
     return PointCloud(xyz=world, mask=scan_mask)
 
 
-def _push_keyframe(opts: LioOptions, state: LioState, scan_xyz, scan_mask, R, t) -> LioState:
-    """Insert (scan, pose) into the ring buffer and update the target."""
+def _push_keyframe(opts: LioOptions, state: LioState, scan_xyz, scan_mask, R, t,
+                   edge: Optional[PointCloud] = None) -> LioState:
+    """Insert (scan, pose) into the ring buffer (and, for loam, the edge
+    features into theirs) and update the target."""
     slot = state.num_kfs % opts.num_kfs_in_local_map
 
     def upd(buf, row):
@@ -249,6 +265,14 @@ def _push_keyframe(opts: LioOptions, state: LioState, scan_xyz, scan_mask, R, t)
         local_map, origin, ovf = _assemble_local_map(opts, kf_xyz, kf_mask, kf_R, kf_t)
         return new._replace(ndt_map=ndt.build_direct(local_map, opts.ndt, origin),
                             map_overflow=ovf)
+    if opts.matcher == "loam":
+        kf_edge_xyz = upd(state.kf_edge_xyz, edge.xyz)
+        kf_edge_mask = upd(state.kf_edge_mask, edge.mask)
+        surf_map, origin, ovf_s = _assemble_local_map(opts, kf_xyz, kf_mask, kf_R, kf_t)
+        edge_map, _, ovf_e = _assemble_local_map(opts, kf_edge_xyz, kf_edge_mask, kf_R, kf_t)
+        return new._replace(kf_edge_xyz=kf_edge_xyz, kf_edge_mask=kf_edge_mask,
+                            loam_target=loam.set_target(edge_map, surf_map, opts.loam, origin),
+                            map_overflow=ovf_s + ovf_e)
     if opts.matcher == "ndt_inc":
         # incremental NDT absorbs only the new keyframe
         return new._replace(ndt_map=ndt.update_incremental(
@@ -268,9 +292,12 @@ def _push_keyframe(opts: LioOptions, state: LioState, scan_xyz, scan_mask, R, t)
     return new._replace(ndt_map=m2, icp_target=_derive_vox_target(opts, m2))
 
 
-def _align(opts: LioOptions, state: LioState, src: PointCloud, R0, t0):
+def _align(opts: LioOptions, state: LioState, src: PointCloud, R0, t0,
+           edge_src: Optional[PointCloud] = None):
     if opts.matcher in ("icp", "icp_vox_inc"):
         return icp.scan_match(state.icp_target, opts.icp, src, R0, t0)
+    if opts.matcher == "loam":
+        return loam.scan_match(state.loam_target, opts.loam, edge_src, src, R0, t0)
     if opts.matcher == "ndt":
         return ndt.scan_match(state.ndt_map, opts.ndt, src, R0, t0)
     return ndt.scan_match(state.ndt_map, opts.ndt_inc, src, R0, t0)
@@ -290,10 +317,14 @@ def _predict_pose(opts: LioOptions, state: LioState):
 # The step
 # ---------------------------------------------------------------------------
 
-def step(state: LioState, scan: PointCloud, opts: LioOptions):
+def step(state: LioState, scan: PointCloud, opts: LioOptions,
+         edge_scan: Optional[PointCloud] = None):
     """One scan in, updated state + pose out. `scan` must already be
-    voxel-filtered to `opts.scan_capacity` rows."""
+    voxel-filtered to `opts.scan_capacity` rows; for matcher="loam" pass
+    the surf features as `scan` and the edge features as `edge_scan`."""
     _check_matcher(opts)
+    if (opts.matcher == "loam") != (edge_scan is not None):
+        raise ValueError("edge_scan is required for matcher='loam' and only for it")
     first = state.frame_idx == 0
     if first:
         # first scan: identity pose (the match still runs, against the empty
@@ -303,7 +334,7 @@ def step(state: LioState, scan: PointCloud, opts: LioOptions):
     else:
         R0, t0 = _predict_pose(opts, state)
 
-    res = _align(opts, state, scan, R0, t0)
+    res = _align(opts, state, scan, R0, t0, edge_src=edge_scan)
     R_new, t_new = (R0, t0) if first else (res.R, res.t)
 
     new_eskf = state.eskf
@@ -320,7 +351,7 @@ def step(state: LioState, scan: PointCloud, opts: LioOptions):
                            eskf=new_eskf, frame_idx=state.frame_idx + 1)
     is_kf = _is_keyframe(opts, state, R_new, t_new)
     if is_kf:
-        state = _push_keyframe(opts, state, scan.xyz, scan.mask, R_new, t_new)
+        state = _push_keyframe(opts, state, scan.xyz, scan.mask, R_new, t_new, edge_scan)
     return state, StepResult(R=R_new, t=t_new, is_keyframe=is_kf,
                              converged=res.converged,
                              num_effective=res.num_effective,
@@ -328,12 +359,13 @@ def step(state: LioState, scan: PointCloud, opts: LioOptions):
 
 
 def step_measure(state: LioState, scan: PointCloud, imu_gyro, imu_acce,
-                 imu_stamp, imu_valid, opts: LioOptions):
+                 imu_stamp, imu_valid, opts: LioOptions,
+                 edge_scan: Optional[PointCloud] = None):
     """ESKF-predict through the measure group's padded IMU packet, then
     `step`."""
     new_eskf = eskf_mod.predict_scan(state.eskf, imu_gyro, imu_acce, imu_stamp,
                                      imu_valid, eskf_mod.EskfOptions())
-    return step(state._replace(eskf=new_eskf), scan, opts)
+    return step(state._replace(eskf=new_eskf), scan, opts, edge_scan=edge_scan)
 
 
 def preprocess_scan(opts: LioOptions, xyz: torch.Tensor, mask: torch.Tensor) -> PointCloud:
@@ -415,17 +447,18 @@ class Lio:
         self.imu_inited = True
         return True
 
-    def add_cloud(self, scan: PointCloud) -> StepResult:
+    def add_cloud(self, scan: PointCloud, edge_scan: Optional[PointCloud] = None
+                  ) -> StepResult:
         """One scan without an IMU packet (the ESKF, if on, is not
         propagated before the match)."""
-        self.state, out = step(self.state, scan, self.opts)
+        self.state, out = step(self.state, scan, self.opts, edge_scan=edge_scan)
         self._record(out)
         return out
 
     def add_measure(self, scan: PointCloud, imu_gyro, imu_acce, imu_stamp,
-                    imu_valid) -> StepResult:
+                    imu_valid, edge_scan: Optional[PointCloud] = None) -> StepResult:
         self.state, out = step_measure(self.state, scan, imu_gyro, imu_acce,
-                                       imu_stamp, imu_valid, self.opts)
+                                       imu_stamp, imu_valid, self.opts, edge_scan=edge_scan)
         self._record(out)
         return out
 

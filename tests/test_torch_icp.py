@@ -1,5 +1,5 @@
-"""Port parity: loc_lib_tpu_torch.models.icp (p2plane_vox, p2plane_vox_oct)
-against the JAX package, on the tests/test_icp.py workloads.
+"""Port parity: loc_lib_tpu_torch.models.icp (p2plane_vox, p2plane_vox_oct,
+p2line_vox) against the JAX package, on the tests/test_icp.py workloads.
 
 Stated tolerances:
   * target tables: plane validity may differ on <= 0.5 % of voxels and
@@ -14,7 +14,8 @@ Stated tolerances:
     test_lidar_normals_are_float32_roundings_of_the_float64_moments);
   * linearizations on a JAX-built target carried across by io/convert:
     counts exact, H/b/chi2 within rtol 1e-5, atol 1e-4 * max(1, max |H|);
-  * scan_match: pose within 1e-4 rad / 1e-4 m of JAX, equal iterations.
+  * scan_match: pose within 1e-4 rad / 1e-4 m of JAX, equal iterations;
+    p2line_vox on a carried-across line table: within 2e-6 m / 2e-6 rad.
 """
 import jax
 import jax.numpy as jnp
@@ -230,7 +231,71 @@ def test_empty_target_and_out_of_window_source_leave_pose_unmoved(method):
 
 
 def test_unported_methods_name_their_slice():
+    """The knn oracle methods and the frozen election wait for slice 2;
+    p2line_vox is ported and builds its line table."""
+    scene = pcm.from_numpy(_pair(7)[0])
+    for method in ("p2p", "p2line", "p2plane"):
+        with pytest.raises(NotImplementedError, match="slice 2"):
+            icp.set_target(scene, icp.IcpOptions(method=method))
     with pytest.raises(NotImplementedError, match="slice 2"):
-        icp.set_target(pcm.from_numpy(_pair(7)[0]), icp.IcpOptions(method="p2plane"))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        icp.set_target(pcm.from_numpy(_pair(7)[0]), icp.IcpOptions(method="p2line_vox"))
+        opts = icp.IcpOptions(method="p2plane_vox", freeze_election_after=2, dense_dims=DIMS)
+        icp.scan_match(icp.set_target(scene, opts), opts, scene, torch.eye(3), torch.zeros(3))
+    tgt = icp.set_target(scene, icp.IcpOptions(method="p2line_vox", dense_dims=DIMS))
+    assert tgt.line_packed.shape == (scene.capacity, 13) and tgt.packed is None
+
+
+def _line_pair():
+    """Poles, rails and a floor (test_torch_loam.py's line scene), and the
+    scene seen from a pose 2.6 deg / 19 cm away."""
+    from test_torch_loam import _line_scene
+
+    scene = _line_scene()
+    R_true = oracles.so3_exp(np.array([0.01, -0.015, 0.02]))
+    t_true = np.array([0.15, -0.1, 0.05])
+    return scene, ((scene - t_true) @ R_true).astype(np.float32), R_true, t_true
+
+
+@pytest.mark.parametrize("warmup", [0, 2])
+def test_p2line_vox_matches_jax_on_carried_target(warmup):
+    """p2line_vox (K3 at S = 1, weighted, gated at max_line_distance^2) on a
+    line table carried across from JAX: the Gram G is invariant under the
+    free rotation of the cross-section basis, so linearizations agree with
+    counts exact and entries within the K3 rule of test_torch_kernels.py;
+    scan_match agrees within 2e-6 m / 2e-6 rad with equal iterations, the
+    gate warm-up included (its wide gate is max_line_distance * scale). On
+    the port's own line table the match recovers the true pose."""
+    scene, src, R_true, t_true = _line_pair()
+    jo = jicp.IcpOptions(method="p2line_vox", dense_dims=DIMS, gate_warmup_iters=warmup)
+    to = icp.IcpOptions(method="p2line_vox", dense_dims=DIMS, gate_warmup_iters=warmup)
+    jt = jicp.set_target(jpc.from_numpy(scene, capacity=8192), jo)
+    tt = _carried(jt)
+    jsrc, tsrc = jpc.from_numpy(src, capacity=8192), pcm.from_numpy(src, capacity=8192)
+    for w, trans in (([0.0, 0.0, 0.0], [0.0, 0.0, 0.0]),
+                     ([0.01, -0.015, 0.02], [0.15, -0.1, 0.05])):
+        R = np.array(jlie.so3_exp(jnp.asarray(w, jnp.float32)))
+        t = np.asarray(trans, np.float32)
+        Hj, bj, nj, cj = (np.asarray(a) for a in jicp._p2line_vox_terms(
+            jt, jo, jsrc, jnp.asarray(R), jnp.asarray(t)))
+        out = icp.compute_h_and_b(tt, to, tsrc, torch.from_numpy(R), torch.from_numpy(t))
+        qs, rows, wt = icp._p2line_vox_rows(tt, to, tsrc, torch.from_numpy(R), torch.from_numpy(t))
+        from loc_lib_tpu_torch.ops import kernels
+        A = kernels.ndt_rows_plain(tsrc.xyz, qs, rows[..., 0:3], rows[..., 3:12], wt,
+                                   torch.from_numpy(R), torch.from_numpy(t), 0.25, True).double()
+        sab = (A.abs().T @ A.abs()).numpy()
+        assert int(out[2]) == int(nj) > 200
+        for got, want, s in ((out[0].numpy(), Hj, sab[:6, :6]), (out[1].numpy(), bj, sab[:6, 6]),
+                             (float(out[3]), cj, sab[6, 6])):
+            tol = 1e-4 + 1e-5 * np.abs(want) + 64 * 2.0 ** -24 * s
+            assert (np.abs(got - want) <= tol).all(), np.max(np.abs(got - want) / tol)
+    jr = jicp.scan_match(jt, jo, jsrc, jnp.eye(3), jnp.zeros(3))
+    tr = icp.scan_match(tt, to, tsrc, torch.eye(3), torch.zeros(3))
+    assert tr.iterations == int(jr.iterations) and bool(tr.converged) == bool(jr.converged)
+    assert int(tr.num_effective) == int(jr.num_effective)
+    rot = np.linalg.norm(oracles.so3_log(np.asarray(jr.R, np.float64).T
+                                         @ tr.R.numpy().astype(np.float64)))
+    assert rot < 2e-6 and np.linalg.norm(tr.t.numpy() - np.asarray(jr.t)) < 2e-6
+    own = icp.scan_match(icp.set_target(pcm.from_numpy(scene, capacity=8192), to), to, tsrc,
+                         torch.eye(3), torch.zeros(3))
+    # (voxel lines through merged centroids: 1.3 cm off on this scene)
+    assert np.linalg.norm(own.t.numpy() - t_true) < 5e-2
+    assert np.linalg.norm(oracles.so3_log(R_true.T @ own.R.numpy().astype(np.float64))) < 5e-3

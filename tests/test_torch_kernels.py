@@ -344,3 +344,46 @@ def test_card_check_accepts_kernel_order_and_rejects_planted_errors(kernel, n):
     for bad in ((H, b, cnt, torch.zeros_like(chi2)), (H, b, cnt + 1, chi2)):
         with pytest.raises(AssertionError):
             cs._compare("planted", bad, plain_fn(q, x, w, R, t, gate), A)
+
+
+@pytest.mark.parametrize("pose", ["identity", "perturbed"])
+def test_k3_plain_on_p2line_vox_views_matches_pallas_interpret(pose):
+    """K3 at S = 1, weighted, on the inputs p2line_vox hands it: the picked
+    line rows of a real line table (JAX-built, carried across), with mu and
+    W strided views of the (N, 1, 13) rows. The Pallas kernel in interpret
+    mode gets the same values; counts exact, entries within the K3 rule of
+    this module (the bound of the other K3 cases)."""
+    import jax
+    from loc_lib_tpu.models import icp as jicp
+    from loc_lib_tpu.ops import pointcloud as jpc
+    from loc_lib_tpu_torch.io import convert
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.ops import pointcloud as pcm
+    from test_torch_icp import _line_pair
+
+    scene, src, _, _ = _line_pair()
+    jo = jicp.IcpOptions(method="p2line_vox", dense_dims=(64, 64, 32))
+    to = icp.IcpOptions(method="p2line_vox", dense_dims=(64, 64, 32))
+    tt = convert.icp_target_from_numpy(jax.tree_util.tree_map(
+        np.asarray, jicp.set_target(jpc.from_numpy(scene, capacity=8192), jo))._asdict(), "cpu")
+    tsrc = pcm.from_numpy(src, capacity=8192)
+    w = [0.0, 0.0, 0.0] if pose == "identity" else [0.01, -0.015, 0.02]
+    R = torch.from_numpy(oracles.so3_exp(np.array(w)).astype(np.float32))
+    t = torch.tensor([0.0, 0.0, 0.0] if pose == "identity" else [0.15, -0.1, 0.05])
+    qs, rows, wt = icp._p2line_vox_rows(tt, to, tsrc, R, t)
+    mu, W = rows[..., 0:3], rows[..., 3:12]
+    assert mu.shape == (8192, 1, 3) and W.stride() == (13, 13, 1)
+    th = to.max_line_distance ** 2
+    out = kernels.ndt_fused_terms(tsrc.xyz, qs, mu, W, wt, R, t, th, True)
+    ref = pallas_kernels.ndt_fused_terms(
+        *(jnp.asarray(np.ascontiguousarray(a.numpy())) for a in (tsrc.xyz, qs, mu, W, wt, R, t)),
+        th, True, interpret=True)
+    A = kernels.ndt_rows_plain(tsrc.xyz, qs, mu, W, wt, R, t, th, True).to(torch.float64)
+    S_abs = (A.abs().T @ A.abs()).numpy()
+    Hj, bj, nj, cj = (np.asarray(a) for a in ref)
+    Ht, bt, nt, ct = (a.numpy() for a in out)
+    assert int(nt) == int(nj) > 1000
+    for got, want, sab in ((Ht, Hj, S_abs[:6, :6]), (bt, bj, S_abs[:6, 6]),
+                           (ct, cj, S_abs[6, 6])):
+        tol = ATOL + RTOL * np.abs(want) + 64 * 2.0 ** -24 * sab
+        assert (np.abs(got - want) <= tol).all(), np.max(np.abs(got - want) / tol)

@@ -283,10 +283,13 @@ def test_health_gate_is_matcher_aware():
 
 
 def test_unported_lio_paths_name_their_slice():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        lio.Lio(lio.LioOptions(matcher="loam"), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        lio.Lio(lio.LioOptions(icp=icp.IcpOptions(method="p2line_vox")), device="cpu")
+    """matcher="loam" and p2line_vox are ported (slice 4); the lag-1 loop
+    (slice 3) and the pose-graph write-back (slice 6) still wait."""
+    assert lio.Lio(lio.LioOptions(matcher="loam"), device="cpu").state.loam_target is not None
+    eng = lio.Lio(lio.LioOptions(icp=icp.IcpOptions(method="p2line_vox")), device="cpu")
+    assert eng.state.icp_target.line_packed is not None
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        eng.apply_correction(torch.eye(3), torch.zeros(3))
     with pytest.raises(NotImplementedError, match="slice 3"):
         lio.Lio(lio.LioOptions(icp=icp.IcpOptions(method="p2plane_vox")), device="cpu",
                 pipelined=True)

@@ -122,3 +122,76 @@ def test_dense_index_and_lookup_match_jax():
     ed = voxel.build_dense_index(empty, dims=(8, 8, 8))
     assert torch.all(ed.table == -1)
     assert not voxel.lookup_dense(ed, (8, 8, 8), keys_t)[1].any()
+
+
+def _index_add_sum(values, seg_id, n):
+    """The segment sum the port used before: a float index_add_ in row
+    order (sequential on the CPU)."""
+    return torch.zeros((n,) + values.shape[1:], dtype=values.dtype).index_add_(0, seg_id, values)
+
+
+@pytest.mark.parametrize("what", ["downsample", "stats", "grid_count", "rebuild"])
+def test_segment_sums_are_bit_equal_to_index_add(what):
+    """On the CPU the run-wise segment sum (voxel.segment_sum, which is
+    serial per run on CUDA too and so gives the same bits on every run
+    there) equals the float index_add_ it replaced bit for bit, trailing
+    padding rows (INVALID_KEY) included: every moment a map is built from
+    is unchanged."""
+    rng = np.random.default_rng(12)
+    pts = (rng.uniform(-8, 8, size=(1500, 3)) * [1, 1, 0.1]).astype(np.float32)
+    t = pcm.from_numpy(pts, capacity=2048)
+    inv = torch.tensor(1.0)
+    origin = torch.tensor([0.25, -0.5, 0.0])
+    keys = voxel.coords_to_key(voxel.voxel_coords(t.xyz, inv, origin), t.mask)
+    seg = voxel._segment_by_key(keys)
+    n = t.capacity
+    pts_s = t.xyz[seg.order]
+    w = (seg.sorted_keys != voxel.INVALID_KEY).to(torch.float32)
+    if what == "downsample":
+        ds = voxel.voxel_downsample(t, 1.0, origin=origin)
+        sums = _index_add_sum(pts_s * w[:, None], seg.seg_id, n)
+        cnts = _index_add_sum(w, seg.seg_id, n)
+        ref = torch.where((cnts > 0)[:, None], sums / torch.clamp(cnts, min=1.0)[:, None],
+                          pcm.PAD_COORD)
+        assert torch.equal(ds.xyz, ref) and torch.equal(ds.mask, cnts > 0)
+    elif what == "stats":
+        st = voxel.voxel_stats(t, 1.0, origin, mode="floor")
+        pw = pts_s * w[:, None]
+        cnt = _index_add_sum(w, seg.seg_id, n)
+        s1 = _index_add_sum(pw, seg.seg_id, n)
+        s2 = _index_add_sum(pw[:, :, None] * pts_s[:, None, :], seg.seg_id, n)
+        mean = s1 / torch.clamp(cnt, min=1.0)[:, None]
+        cov = (s2 - cnt[:, None, None] * mean[:, :, None] * mean[:, None, :]) \
+            / torch.clamp(cnt - 1.0, min=1.0)[:, None, None]
+        assert int((cnt > 1).sum()) > 100
+        for got, want in ((st.count, cnt), (st.mean, mean), (st.cov, cov)):
+            assert torch.equal(got, want)
+    elif what == "grid_count":
+        grid, _ = voxel.build_hash_grid_with_stats(t, 1.0, 4, origin)
+        want = _index_add_sum((seg.sorted_keys != voxel.INVALID_KEY).to(torch.int32),
+                              seg.seg_id, n)
+        assert int(grid.overflow) > 0
+        assert torch.equal(grid.bucket_cnt, torch.clamp(want, max=4))
+    else:
+        from loc_lib_tpu_torch.models import ndt
+        st = voxel.voxel_stats(t, 1.0, origin, mode="floor")
+        keys2 = torch.cat([st.keys, st.keys[:300]])
+        cnt = torch.cat([st.count, st.count[:300]])
+        mean = torch.cat([st.mean, st.mean[:300] + 0.01])
+        cov = torch.cat([st.cov, st.cov[:300]])
+        m = ndt.rebuild_from_moments(keys2, cnt, mean, cov, torch.zeros_like(cnt, dtype=torch.bool),
+                                     torch.zeros_like(keys2), 1, origin,
+                                     ndt.NdtOptions(map_capacity=4096, use_fused=False))
+        order = torch.argsort(keys2, stable=True)
+        k, c, mu, cv = keys2[order], cnt[order], mean[order], cov[order]
+        c = torch.where(k != voxel.INVALID_KEY, c, 0.0)
+        sid = torch.cumsum(torch.cat([torch.ones(1, dtype=torch.bool), k[1:] != k[:-1]]).long(),
+                           0) - 1
+        c_sum = _index_add_sum(c, sid, k.shape[0])
+        s1 = _index_add_sum(c[:, None] * mu, sid, k.shape[0])
+        live = c_sum > 0                   # INVALID_KEY rows carry c = 0
+        assert int(live.sum()) == int((m.keys != voxel.INVALID_KEY).sum()) > 100
+        # the surviving rows come out key-sorted, as the live segments are
+        assert torch.equal(m.count[:int(live.sum())], c_sum[live])
+        assert torch.equal(m.mean[:int(live.sum())],
+                           (s1 / torch.clamp(c_sum, min=1.0)[:, None])[live])
