@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from csrc/, holds each against its plain
-PyTorch version on the card, then drives the port's paths through the entry
-points a user calls: the headline scan-to-map match (set_target +
+PyTorch version on the card (K1 and K2 in both modes: plane / rows given,
+and from the target with the gather inside the kernel), then drives the
+port's paths through the entry points a user calls: the headline scan-to-map match (set_target +
 scan_match, p2plane_vox_oct, 65,536-point target, 8,192-point source), 40
 frames of LIO mapping (Lio.add_measure, p2plane_vox + ESKF, scan capacity
 8192), and the NDT family on the same log: incremental NDT (ndt_inc, the
@@ -15,9 +16,11 @@ on every run, and drives LOAM odometry (annotate_rings + extract_features +
 Lio.add_measure with edge_scan) and localization against a prior map
 (Loc.update_measure with p2plane_vox and p2plane_vox_oct, and two runs
 that re-crop). Launch counters, set to 0 before each path and read after
-it, show each path went through its kernels. A last phase breaks the time
-of the paths down per layer (torch.profiler tables go to an output
-directory beside this script).
+it, show each path went through its kernels. Then it compares a match with
+the gather in torch ops against the shipped one (same bits; launches per
+Gauss-Newton iteration), and only then opens the profiler: device time per
+kernel call, and the time of the paths broken down per layer
+(torch.profiler tables go to an output directory beside this script).
 
 Prints one line per phase, then a JSON line with the kernels, then the
 card's name and power limit, and as its last line
@@ -109,7 +112,7 @@ def phase_build() -> None:
             report.append(line.split("'")[1] if "'" in line else line.strip())
         elif "registers" in line or "spill" in line:
             report.append(line.replace("ptxas info    :", "").strip())
-    print(f"phase 2 build: {info.library.name} in {secs:.1f} s "
+    print(f"phase 2 build: {info.path.name} in {secs:.1f} s "
           f"({'compiled' if info.built_now else 'cached'}); ptxas: " + " | ".join(report),
           flush=True)
 
@@ -150,43 +153,68 @@ def headline_workload(device):
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _time_alternating(kernel_fn, plain_fn, reps=TIMING_REPS):
-    """Median per-call time of kernel and plain version between CUDA events
-    around one wrapper call (its device work plus any host enqueue gaps),
-    timed in turns plain, kernel, kernel, plain after a warm-up."""
+def _time_in_turns(fns, reps=TIMING_REPS):
+    """Median per-call time of each function in `fns` (a dict) between CUDA
+    events around one call (its device work plus any host enqueue gaps),
+    timed in turns a, b, ..., b, a after a warm-up. Returns {name: ms}."""
     for _ in range(5):
-        kernel_fn()
-        plain_fn()
+        for fn in fns.values():
+            fn()
     torch.cuda.synchronize()
-    samples = {"kernel": [], "plain": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = kernel_fn if which == "kernel" else plain_fn
+    samples = {k: [] for k in fns}
+    for which in list(fns) + list(fns)[::-1]:
         for _ in range(reps):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            fn()
+            fns[which]()
             b.record()
             b.synchronize()
             samples[which].append(a.elapsed_time(b))
-    return float(np.median(samples["kernel"])), float(np.median(samples["plain"]))
+    return {k: float(np.median(v)) for k, v in samples.items()}
+
+
+def _time_alternating(kernel_fn, plain_fn, reps=TIMING_REPS):
+    """Kernel and plain version in turns plain, kernel, kernel, plain."""
+    ms = _time_in_turns({"plain": plain_fn, "kernel": kernel_fn}, reps)
+    return ms["kernel"], ms["plain"]
+
+
+def _enqueue_us(fn, calls=300):
+    """Host time of one call of fn in microseconds: `calls` calls enqueued
+    back to back without a synchronise in between (the wrapper's own cost:
+    checks, allocation, the ctypes call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
 
 
 def _profiled(fn, reps):
     """Run fn() reps times under torch.profiler. Returns (device launches
     per call, summed device kernel ms per call, host ms per call with the
-    profiler on, the profile)."""
+    profiler on, the profile). A session can come back without one device
+    event although fn() launched (the activity buffers of a short session
+    are not always handed over): it is then repeated, up to 3 sessions, and
+    0 launches after that mean "not recorded", never "not launched"."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+    for _session in range(3):
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / reps
-    dev = [e.time_range.elapsed_us() for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        dev = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            break
     return len(dev) / reps, sum(dev) / 1e3 / reps, host_ms, prof
 
 
@@ -343,29 +371,301 @@ def phase_kernels(device, card, workload):
         raise AssertionError("K2 tie: the first stencil candidate did not win")
     cases.append("K2 tie first-wins ok")
 
+    # the kernel is built for the stencil's S = 7: another S on the card raises
+    launched = kernels.LAUNCHES["p2plane_pick_fused_terms"]
+    try:
+        K2(q, rows[:, :5].contiguous(), ones, eye, z, 1.0)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K2 with S = 5 rows on the card did not raise")
+    if kernels.LAUNCHES["p2plane_pick_fused_terms"] != launched:
+        raise AssertionError("K2 with S = 5 rows counted a launch")
+    cases.append("K2 S=5 raises")
+
     # times at the main path's N = 8192, in turns plain, kernel, kernel, plain
     ms1, pms1 = _time_alternating(lambda: K1(*k1_args, R, t, 0.1),
                                   lambda: K1p(*k1_args, R, t, 0.1))
     ms2, pms2 = _time_alternating(lambda: K2(*k2_args, R, t, 0.1),
                                   lambda: K2p(*k2_args, R, t, 0.1))
-    dev = {}
-    for label, fn in (("K1", lambda: K1(*k1_args, R, t, 0.1)),
-                      ("K1 plain", lambda: K1p(*k1_args, R, t, 0.1)),
-                      ("K2", lambda: K2(*k2_args, R, t, 0.1)),
-                      ("K2 plain", lambda: K2p(*k2_args, R, t, 0.1))):
-        fn()
-        n_launch, ms, _, _ = _profiled(fn, 20)
-        dev[label] = (ms, n_launch)
-    print("phase 3 kernels vs plain: " + "; ".join(cases), flush=True)
+    n = src.capacity
+    b1, by1 = _bound(n * 32 + POSE_BYTES + OUT_BYTES, FLOPS_K1_GIVEN * n)
+    b2, by2 = _bound(n * (16 + 7 * 32) + POSE_BYTES + OUT_BYTES, FLOPS_K2_GIVEN * n)
+    print("phase 3 kernels vs plain (plane / rows given): " + "; ".join(cases), flush=True)
     print(f"phase 3 largest error / per-entry bound: {ratio[0]:.4g}", flush=True)
-    print(f"phase 3 times at N=8192 (median of {2 * TIMING_REPS} per-call CUDA-event "
-          f"samples) [{card}]: K1 {ms1:.4f} ms vs plain {pms1:.4f} ms; "
-          f"K2 {ms2:.4f} ms vs plain {pms2:.4f} ms", flush=True)
-    print("phase 3 device time per call at N=8192 (torch.profiler, kernels only) "
-          f"[{card}]: " + "; ".join(f"{k} {ms:.4f} ms in {n:.0f} launches"
-                                   for k, (ms, n) in dev.items()), flush=True)
-    return {"p2plane_fused_terms": (ms1, pms1, errs["p2plane_fused_terms"]),
-            "p2plane_pick_fused_terms": (ms2, pms2, errs["p2plane_pick_fused_terms"])}
+    print(f"phase 3 times at N=8192, plane / rows given (median of {2 * TIMING_REPS} per-call "
+          f"CUDA-event samples) [{card}]: K1 {ms1:.4f} ms vs plain {pms1:.4f} ms (bound "
+          f"{b1:.6f} ms by {by1}); K2 {ms2:.4f} ms vs plain {pms2:.4f} ms (bound {b2:.6f} ms "
+          f"by {by2})", flush=True)
+    profile_later = {"K1 plane given": (lambda: K1(*k1_args, R, t, 0.1), True),
+                     "K1 plane given, plain": (lambda: K1p(*k1_args, R, t, 0.1), False),
+                     "K2 rows given": (lambda: K2(*k2_args, R, t, 0.1), True),
+                     "K2 rows given, plain": (lambda: K2p(*k2_args, R, t, 0.1), False)}
+    return errs, profile_later
+
+
+# Published peaks of the H100 SXM (NVIDIA's data sheet): the bounds below
+# are the larger of bytes over the memory rate and float32 operations over
+# the rate outside the tensor cores.
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_FLOPS = 67e12
+# float32 operations per point (K3: per (point, voxel)), counted from the
+# kernels' sources: qs 18, the row (dis 7, R^T n 15, J 12, scaling 8) 42,
+# its 36 products and sums 72; per K2 candidate 10; voxel coordinates 9
+# (K1 from the target: 15 with the octant bits); K3 per voxel e, z, res 25,
+# W^T R 45 (weighted), three rows of 89.
+FLOPS_K1_GIVEN, FLOPS_K1_TARGET = 132, 147
+FLOPS_K2_GIVEN, FLOPS_K2_TARGET = 132 + 7 * 10, 132 + 9 + 7 * 10
+FLOPS_K3_VOXEL = 25 + 45 + 3 * 89
+OUT_BYTES = 44 * 4
+POSE_BYTES = 13 * 4
+INDEX_BYTES = 7 * 4
+
+
+def _bound(n_bytes, flops):
+    """(bound_ms, bound_by): the least time the card could take."""
+    tb, to = n_bytes / H100_BYTES_PER_S * 1e3, flops / H100_FP32_FLOPS * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def _cells_and_slots(index, keys):
+    """The distinct dense-table cells a lookup of `keys` reads, and the slot
+    each key gets (0 for a miss, as the kernels read row 0 then)."""
+    from loc_lib_tpu_torch.ops import voxel
+
+    rel = voxel.key_to_coords(keys) - index.lo
+    ok = (keys != voxel.INVALID_KEY) & voxel._in_dims(rel, index.dims)
+    flat = torch.where(ok, (rel[..., 0] * index.dims[1] + rel[..., 1]) * index.dims[2]
+                       + rel[..., 2], 0)
+    return torch.unique(flat).numel(), torch.clamp(index.table[flat.to(torch.int64)], min=0)
+
+
+def _k2_target_bytes(q, mask, R, t, index):
+    """Bytes K2 from the target must move for these inputs: points and mask,
+    each distinct table cell (4 B) and plane row (32 B) the 7-voxel stencils
+    touch, the pose and index scalars, the outputs."""
+    from loc_lib_tpu_torch.ops import kernels, voxel
+
+    c = voxel.voxel_coords(kernels.transform_plain(q, R, t), index.inv_leaf, index.origin)
+    keys7 = voxel.coords_to_key(c[:, None, :] + voxel.nearby6(q.device)[None], mask[:, None])
+    cells, slots = _cells_and_slots(index, keys7)
+    return (q.shape[0] * 13 + cells * 4 + torch.unique(slots).numel() * 32
+            + POSE_BYTES + INDEX_BYTES + OUT_BYTES)
+
+
+def _k1_target_bytes(q, mask, R, t, oct_table, index):
+    """Bytes K1 from the target must move: points and mask, each distinct
+    table cell, octant entry (4 B) and plane row (32 B) touched, scalars,
+    outputs."""
+    from loc_lib_tpu_torch.ops import kernels, voxel
+
+    u = (kernels.transform_plain(q, R, t) - index.origin) * index.inv_leaf
+    fl = torch.floor(u)
+    octant = ((u - fl > 0.5).to(torch.int64) * torch.tensor([1, 2, 4], device=q.device)).sum(1)
+    cells, slots = _cells_and_slots(index, voxel.coords_to_key(fl.to(torch.int32), mask))
+    entry = slots.to(torch.int64) * 8 + octant
+    rows = oct_table.reshape(-1)[entry]
+    return (q.shape[0] * 13 + cells * 4 + torch.unique(entry).numel() * 4
+            + torch.unique(rows).numel() * 32 + POSE_BYTES + INDEX_BYTES + OUT_BYTES)
+
+
+def _lattice_target(device, side=16):
+    """A hand-made target for the boundary cases: every 1 m cell of a
+    side^3 block around the origin is occupied, its centroid at the cell
+    centre, its plane through the centroid with the normal along the axis
+    (cx + cy + cz) mod 3, so face neighbours carry different planes. A point
+    on a voxel corner (integer coordinates) is then exactly equidistant from
+    its own centroid and those of its -x, -y and -z neighbours. Returns
+    (target with the octant tables, options)."""
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.ops import voxel
+
+    opts = icp.IcpOptions(method="p2plane_vox_oct", dense_dims=(2 * side,) * 3)
+    r = torch.arange(side, device=device) - side // 2
+    c = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(-1, 3).to(torch.int32)
+    keys = voxel.coords_to_key(c, torch.ones(c.shape[0], dtype=torch.bool, device=device))
+    if not bool(torch.all(keys[1:] > keys[:-1])):
+        raise AssertionError("lattice keys are not sorted")
+    v = keys.shape[0]
+    mu = c.to(torch.float32) + 0.5
+    normal = torch.nn.functional.one_hot((c.sum(1) % 3).to(torch.int64), 3).to(torch.float32)
+    packed = torch.cat([normal, -(normal * mu).sum(1, keepdim=True), mu,
+                        torch.ones((v, 1), device=device)], dim=1).contiguous()
+    grid = voxel.HashGrid(
+        voxel_keys=keys, bucket_xyz=torch.zeros((v, 3), device=device),
+        bucket_idx=torch.full((v, 1), -1, dtype=torch.int32, device=device),
+        bucket_cnt=torch.zeros((v,), dtype=torch.int32, device=device),
+        num_voxels=torch.tensor(v, dtype=torch.int32, device=device),
+        overflow=torch.zeros((), dtype=torch.int32, device=device),
+        inv_leaf=torch.ones((), device=device), origin=torch.zeros(3, device=device))
+    dense = voxel.build_dense_index(keys, dims=opts.dense_dims)
+    dense_oct, oct_table, packed_ext = icp._build_oct_tables(grid, dense, packed, opts)
+    return icp.IcpTarget(grid=grid, packed=packed, dense=dense, dense_oct=dense_oct,
+                         oct_table=oct_table, packed_ext=packed_ext), opts
+
+
+def phase_kernels_from_target(device, card, workload):
+    """K2 and K1 from the target (the gather inside the kernel, the mode the
+    matchers run) against their plain versions: on the headline's 65,536-point
+    target at the init pose, on a second 65,536-point map at N = 8192 and
+    8191 under a random pose, with every point masked, with every point
+    missing the map (outside the key window; inside it but off the table),
+    and on a lattice target with points exactly on voxel corners (4-way ties
+    in the election: the point's own voxel must win) and exactly on the
+    octant boundary. Counts exact, every entry within the per-entry bound;
+    planted errors rejected; repeated calls bit-equal (the ticket resets).
+    Then times at the headline inputs, in turns: the plain version, the
+    composition this replaces (the gather in torch ops, then the kernel with
+    the rows given) and the kernel from the target.
+    Returns ({kernel name: dict of ms, plain_ms, bound, err}, the calls to
+    profile at the end of the run)."""
+    from loc_lib_tpu_torch.io import synthetic
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.ops import kernels
+    from loc_lib_tpu_torch.utils import lie
+
+    K1, K2 = "p2plane_fused_terms", "p2plane_pick_fused_terms"
+    modes = {
+        K2: (kernels.p2plane_pick_fused_terms_from_target,
+             kernels.p2plane_pick_from_target_terms_plain,
+             kernels.p2plane_pick_from_target_rows_plain),
+        K1: (kernels.p2plane_fused_terms_from_target,
+             kernels.p2plane_from_target_terms_plain,
+             kernels.p2plane_from_target_rows_plain)}
+    errs, ratio, cases = {K1: 0.0, K2: 0.0}, [0.0], []
+
+    def tables(kname, target, opts):
+        if kname == K2:
+            return (target.packed, icp._index(target, opts, target.dense))
+        return (target.packed_ext, target.oct_table, icp._index(target, opts, target.dense_oct))
+
+    def check(kname, label, target, opts, src, R, t, gate=0.1, expect_zero=False):
+        fn, plain, rows_fn = modes[kname]
+        args = (src.xyz, src.mask, R, t, gate, *tables(kname, target, opts))
+        got = fn(*args)
+        torch.cuda.synchronize()
+        A = rows_fn(*args)
+        e, r = _compare(f"{kname} from target, {label}", got, plain(*args), A)
+        if expect_zero and (int(got[2]) != 0 or torch.any(got[0] != 0) or torch.any(got[1] != 0)
+                            or float(got[3]) != 0):
+            raise AssertionError(f"{kname} from target, {label}: expected G = 0")
+        if not expect_zero and int(got[2]) < opts.min_effective_pts:
+            raise AssertionError(f"{kname} from target, {label}: kept {int(got[2])} points")
+        errs[kname], ratio[0] = max(errs[kname], e), max(ratio[0], r)
+        short = "K2" if kname == K2 else "K1"
+        cases.append(f"{short} {label} ok (cnt {int(got[2])}, err {e:.3g}, err/bound {r:.3g})")
+        return got, A, args
+
+    # the main path's own inputs: headline target, source at the init pose
+    tgt_pc, src, _, _, R_init, t_init = workload
+    opts = icp.IcpOptions(method="p2plane_vox_oct")
+    target = icp.set_target(tgt_pc, opts)
+    main = {}
+    for kname in (K2, K1):
+        got, A, args = check(kname, "headline inputs", target, opts, src, R_init, t_init)
+        _planted_errors_are_caught(f"{kname} from target", got, A)
+        for _ in range(50):     # the ticket must be back at 0 after every call
+            again = modes[kname][0](*args)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{kname} from target: repeated calls differ")
+        main[kname] = args
+    cases.append("planted chi2 / b / H errors rejected; 50 repeats bit-equal")
+
+    # a second stream gets its own scratch (partials and ticket) and the same bits
+    torch.cuda.synchronize()
+    before = len(kernels._scratch)
+    side = torch.cuda.Stream(device=device)
+    with torch.cuda.stream(side):
+        on_side = [modes[K2][0](*main[K2]) for _ in range(20)][-1]
+    on_main = modes[K2][0](*main[K2])
+    torch.cuda.synchronize()
+    if len(kernels._scratch) != before + 1 or not all(
+            torch.equal(x, y) for x, y in zip(on_side, on_main)):
+        raise AssertionError("K2 from target: a second stream did not get its own scratch "
+                             "or gave other bits")
+    cases.append("second stream: own scratch, same bits")
+
+    # a second 65,536-point map, random poses, N = 8192 and 8191
+    world = synthetic.make_world(num_points=200000, extent=80.0, seed=11)
+    traj = synthetic.make_trajectory(num_frames=2, dt=0.1, speed=2.0)
+    tgt2 = icp.set_target(synthetic.render_scan(
+        world, traj.R[0], traj.t[0], max_range=70.0, max_points=N_TARGET, noise=0.01, seed=0,
+        capacity=N_TARGET, device=device), opts)
+    src2 = synthetic.render_scan(world, traj.R[0], traj.t[0], max_range=70.0,
+                                 max_points=N_SOURCE, noise=0.01, seed=5, capacity=N_SOURCE,
+                                 device=device)
+    odd = src2._replace(xyz=src2.xyz[:8191].contiguous(), mask=src2.mask[:8191].contiguous())
+    R2 = lie.so3_exp(torch.tensor([0.004, -0.006, 0.005], device=device))
+    t2 = torch.tensor([0.05, -0.04, 0.02], device=device)
+    eye, zero = torch.eye(3, device=device), torch.zeros(3, device=device)
+    nobody = src2._replace(xyz=torch.full_like(src2.xyz, 1e6),
+                           mask=torch.zeros_like(src2.mask))
+    for kname in (K2, K1):
+        check(kname, "second map N=8192", tgt2, opts, src2, R2, t2)
+        check(kname, "second map N=8191", tgt2, opts, odd, R2, t2)
+        check(kname, "all masked", tgt2, opts, nobody, R2, t2, expect_zero=True)
+        check(kname, "all outside the key window", tgt2, opts,
+              src2._replace(xyz=src2.xyz + 5000.0), eye, zero, expect_zero=True)
+        check(kname, "all off the table", tgt2, opts, src2._replace(xyz=src2.xyz + 400.0),
+              eye, zero, expect_zero=True)
+
+    # voxel corners (4-way election ties) and octant boundaries, exactly
+    lattice, lopts = _lattice_target(device)
+    g = torch.Generator().manual_seed(1)
+    corners = torch.randint(-7, 7, (4096, 3), generator=g).to(torch.float32)
+    xyz = torch.cat([corners, corners + 0.5]).to(device)
+    on_faces = src2._replace(xyz=xyz, mask=torch.ones(8192, dtype=torch.bool, device=device))
+    rows7 = icp._p2plane_vox_rows7(lattice, lopts, on_faces, eye, zero)
+    d2 = torch.sum((rows7[..., 4:7] - xyz[:, None, :]) ** 2, dim=-1)
+    ties = int(torch.sum(torch.sum(d2 == d2.min(dim=1, keepdim=True).values, dim=1) > 1))
+    if ties != 4096:
+        raise AssertionError(f"lattice case: {ties} tied points, expected 4096")
+    for kname in (K2, K1):
+        got, _, _ = check(kname, "points on voxel corners and octant boundaries", lattice, lopts,
+                          on_faces, eye, zero, gate=1.0)
+        if int(got[2]) != 8192:
+            raise AssertionError(f"{kname} from target: lattice case kept {int(got[2])} of 8192")
+    cases.append(f"{ties} election ties: the point's own voxel wins")
+
+    # times at the headline inputs, in turns
+    def old_k2():
+        rows = icp._p2plane_vox_rows7(target, opts, src, R_init, t_init)
+        return kernels.p2plane_pick_fused_terms(src.xyz, rows, src.mask.to(torch.float32),
+                                                R_init, t_init, 0.1)
+
+    def old_k1():
+        rows, w = icp._p2plane_vox_oct_rows(target, opts, src, R_init, t_init)
+        return kernels.p2plane_fused_terms(src.xyz, rows[:, 0:4], w, R_init, t_init, 0.1)
+
+    out, profile_later = {}, {}
+    for kname, old, short in ((K2, old_k2, "K2"), (K1, old_k1, "K1")):
+        fn, plain, _ = modes[kname]
+        args = main[kname]
+        fns = {"plain": lambda plain=plain, a=args: plain(*a), "torch gather + kernel": old,
+               "from target": lambda fn=fn, a=args: fn(*a)}
+        ms = _time_in_turns(fns)
+        host = {label: _enqueue_us(f) for label, f in fns.items() if label != "plain"}
+        if kname == K2:
+            n_bytes = _k2_target_bytes(*args[:4], args[6])
+            flops = FLOPS_K2_TARGET * src.capacity
+        else:
+            n_bytes = _k1_target_bytes(*args[:4], args[6], args[7])
+            flops = FLOPS_K1_TARGET * src.capacity
+        bound_ms, bound_by = _bound(n_bytes, flops)
+        print(f"phase 3 {short} from the target at the headline inputs (N={src.capacity}) "
+              f"[{card}]: per-call CUDA-event medians of {2 * TIMING_REPS} in turns: "
+              + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + " | host time to enqueue one call: "
+              + "; ".join(f"{k} {v:.1f} us" for k, v in host.items())
+              + f" | bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} B, {flops} float32 ops)",
+              flush=True)
+        out[kname] = {"ms": ms["from target"], "plain_ms": ms["plain"], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "err": errs[kname]}
+        for label, f in fns.items():
+            profile_later[f"{short} {label}"] = (f, label == "from target")
+    print("phase 3 kernels from the target vs plain: " + "; ".join(cases), flush=True)
+    print(f"phase 3 from the target, largest error / per-entry bound: {ratio[0]:.4g}", flush=True)
+    return out, profile_later
 
 
 def _random_k3(n, S, device, rng):
@@ -434,20 +734,18 @@ def phase_kernels_k3(device, card):
     args, R, t = main
     ms, pms = _time_alternating(lambda: K3(*args, R, t, NDT_TH, True),
                                 lambda: K3p(*args, R, t, NDT_TH, True))
-    dev = {}
-    for label, fn in (("K3", lambda: K3(*args, R, t, NDT_TH, True)),
-                      ("K3 plain", lambda: K3p(*args, R, t, NDT_TH, True))):
-        fn()
-        n_launch, dms, _, _ = _profiled(fn, 20)
-        dev[label] = (dms, n_launch)
+    # q and qs 24 B a point; mu 12, W 36 and valid 4 B a (point, voxel); R
+    n_bytes = n * (24 + S * 52) + 36 + OUT_BYTES
+    bound_ms, bound_by = _bound(n_bytes, FLOPS_K3_VOXEL * n * S)
     print("phase 3 K3 vs plain: " + "; ".join(cases), flush=True)
     print(f"phase 3 K3 largest error / per-entry bound: {ratio:.4g}", flush=True)
     print(f"phase 3 K3 times at N=8192, S=7, weighted (median of {2 * TIMING_REPS} per-call "
-          f"CUDA-event samples) [{card}]: K3 {ms:.4f} ms vs plain {pms:.4f} ms; device time "
-          "per call (torch.profiler, kernels only): "
-          + "; ".join(f"{k} {d:.4f} ms in {nl:.0f} launches" for k, (d, nl) in dev.items()),
-          flush=True)
-    return ms, pms, err
+          f"CUDA-event samples) [{card}]: K3 {ms:.4f} ms vs plain {pms:.4f} ms; "
+          f"bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} B)", flush=True)
+    profile_later = {"K3": (lambda: K3(*args, R, t, NDT_TH, True), True),
+                     "K3 plain": (lambda: K3p(*args, R, t, NDT_TH, True), False)}
+    return {"ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "err": err}, profile_later
 
 
 # ---------------------------------------------------------------------------
@@ -503,6 +801,64 @@ def phase_headline_timing(device, card, workload, target):
           f"(p95 {np.percentile(times, 95):.3f} ms, {res.iterations} iterations, "
           f"{TIMING_REPS} runs, host clock) [{card}]", flush=True)
     return float(np.median(times))
+
+
+def phase_gather_before_after(device, card, workload, target):
+    """What moving the gather into the kernels changes in a match, for
+    p2plane_vox (K2) and p2plane_vox_oct (K1) on the headline workload:
+    the matcher's GN loop over the composition the from-target kernels
+    replace (the gather in torch ops, then the kernel with the rows / the
+    plane given) against icp.scan_match as it ships. Both must give the same bits (the same
+    rows, summed in the same order). Reports device launches per match and
+    per GN iteration, device and host time under the profiler, and
+    host-clock medians per match in turns (old, new, new, old)."""
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.ops import kernels
+
+    _, src, _, _, R_init, t_init = workload
+
+    def old_vox(tgt, opts, s, R, t, gate=None):
+        rows7 = icp._p2plane_vox_rows7(tgt, opts, s, R, t)
+        return kernels.p2plane_pick_fused_terms(s.xyz, rows7, s.mask.to(torch.float32), R, t,
+                                                icp._gate(opts, gate))
+
+    def old_oct(tgt, opts, s, R, t, gate=None):
+        rows, w = icp._p2plane_vox_oct_rows(tgt, opts, s, R, t)
+        return kernels.p2plane_fused_terms(s.xyz, rows[:, 0:4], w, R, t, icp._gate(opts, gate))
+
+    for method, old in (("p2plane_vox", old_vox), ("p2plane_vox_oct", old_oct)):
+        opts = icp.IcpOptions(method=method)
+
+        def match_old():
+            return icp._gauss_newton(old, target, opts, src, R_init, t_init)
+
+        def match_new():
+            return icp.scan_match(target, opts, src, R_init, t_init)
+
+        res = {"old": match_old(), "new": match_new()}
+        a, b = res["old"], res["new"]
+        if a.iterations != b.iterations or not (torch.equal(a.R, b.R) and torch.equal(a.t, b.t)):
+            raise AssertionError(f"{method}: the from-target kernel and the torch gather "
+                                 "disagree on the match")
+        fns = {"old": match_old, "new": match_new}
+        times = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            for _ in range(15):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[which]()
+                torch.cuda.synchronize()
+                times[which].append((time.perf_counter() - t0) * 1e3)
+        prof = {k: _profiled(f, 5)[:3] for k, f in fns.items()}
+        it = res["new"].iterations
+        print(f"phase 4b {method}, {it} GN iterations, torch gather + kernel -> kernel from "
+              f"the target [{card}]: device launches per match {prof['old'][0]:.0f} -> "
+              f"{prof['new'][0]:.0f} (per iteration {prof['old'][0] / it:.0f} -> "
+              f"{prof['new'][0] / it:.0f}); device ms per match {prof['old'][1]:.3f} -> "
+              f"{prof['new'][1]:.3f}; host ms per match, profiler on {prof['old'][2]:.3f} -> "
+              f"{prof['new'][2]:.3f}; host-clock median of 30 in turns "
+              f"{np.median(times['old']):.3f} -> {np.median(times['new']):.3f} ms; same bits",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -599,25 +955,67 @@ def phase_lio(device, card, matcher="icp", label="phase 5", ate_limit=ATE_LIMIT_
     return opts, before, scan, out
 
 
-def phase_lio_k2_check(lio_last):
-    """K2 against its plain version on the LIO path's own target: the
-    local map the last scan was matched to, at that scan's final pose."""
+def _modes_on_map(kernel, name, target, opts, scan, modes):
+    """One kernel in both its modes against its plain versions on a path's
+    own target; `modes` lists (mode, wrapper, plain version, rows function,
+    arguments). Returns (max error, report text)."""
+    err, text = 0.0, []
+    for mode, fn, plain, rows_fn, args in modes:
+        got = fn(*args)
+        e, r = _compare(f"{kernel} {mode} on {name}", got, plain(*args), rows_fn(*args))
+        if int(got[2]) < opts.min_effective_pts:
+            raise AssertionError(f"{kernel} {mode} on {name} kept only {int(got[2])} points")
+        err = max(err, e)
+        text.append(f"{mode}: cnt {int(got[2])}, err {e:.3g}, err/bound {r:.3g}")
+    return err, (f"{kernel} vs plain on {name} ({int(target.plane_valid.sum())} valid planes, "
+                 f"N={scan.capacity}): " + "; ".join(text))
+
+
+def _k2_on_map(name, target, opts, scan, R, t):
+    """K2 with the rows given and from the target, on a path's own target."""
     from loc_lib_tpu_torch.models import icp
     from loc_lib_tpu_torch.ops import kernels
 
+    gate = opts.max_plane_distance
+    given = (scan.xyz, icp._p2plane_vox_rows7(target, opts, scan, R, t),
+             scan.mask.to(torch.float32), R, t, gate)
+    from_target = (scan.xyz, scan.mask, R, t, gate, target.packed,
+                   icp._index(target, opts, target.dense))
+    return _modes_on_map("K2", name, target, opts, scan, (
+        ("rows given", kernels.p2plane_pick_fused_terms,
+         kernels.p2plane_pick_fused_terms_plain, kernels.p2plane_pick_rows_plain, given),
+        ("from target", kernels.p2plane_pick_fused_terms_from_target,
+         kernels.p2plane_pick_from_target_terms_plain,
+         kernels.p2plane_pick_from_target_rows_plain, from_target)))
+
+
+def _k1_on_map(name, target, opts, scan, R, t):
+    """K1 with the plane given and from the target, on a path's own octant
+    target."""
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.ops import kernels
+
+    gate = opts.max_plane_distance
+    rows, w = icp._p2plane_vox_oct_rows(target, opts, scan, R, t)
+    given = (scan.xyz, rows[:, 0:4], w, R, t, gate)
+    from_target = (scan.xyz, scan.mask, R, t, gate, target.packed_ext, target.oct_table,
+                   icp._index(target, opts, target.dense_oct))
+    return _modes_on_map("K1", name, target, opts, scan, (
+        ("plane given", kernels.p2plane_fused_terms, kernels.p2plane_fused_terms_plain,
+         kernels.p2plane_rows_plain, given),
+        ("from target", kernels.p2plane_fused_terms_from_target,
+         kernels.p2plane_from_target_terms_plain, kernels.p2plane_from_target_rows_plain,
+         from_target)))
+
+
+def phase_lio_k2_check(lio_last):
+    """K2 against its plain version, in both modes, on the LIO path's own
+    target: the local map the last scan was matched to, at that scan's
+    final pose."""
     lio_opts, before, scan, out = lio_last
-    target, opts = before.icp_target, lio_opts.icp
-    rows7 = icp._p2plane_vox_rows7(target, opts, scan, out.R, out.t)
-    args = (scan.xyz, rows7, scan.mask.to(torch.float32), out.R, out.t,
-            opts.max_plane_distance)
-    got = kernels.p2plane_pick_fused_terms(*args)
-    err, ratio = _compare("K2 LIO local map", got, kernels.p2plane_pick_fused_terms_plain(*args),
-                          kernels.p2plane_pick_rows_plain(*args))
-    if int(got[2]) < opts.min_effective_pts:
-        raise AssertionError(f"K2 on the LIO local map kept only {int(got[2])} points")
-    print(f"phase 5 K2 vs plain on the LIO local map ({int(target.plane_valid.sum())} valid "
-          f"planes, N={scan.capacity}): cnt {int(got[2])}, err {err:.3g}, "
-          f"err/bound {ratio:.3g}", flush=True)
+    err, text = _k2_on_map("the LIO local map", before.icp_target, lio_opts.icp, scan,
+                           out.R, out.t)
+    print(f"phase 5 {text}", flush=True)
     return err
 
 
@@ -781,18 +1179,11 @@ def phase_loam_checks(loam_last):
                           kernels.ndt_rows_plain(*args), 3)
     if int(got[2]) < eo.min_effective_pts:
         raise AssertionError(f"K3 on the LOAM edge map kept only {int(got[2])} residuals")
-    rows7 = icp._p2plane_vox_rows7(tgt.surf, so, surf, out.R, out.t)
-    args2 = (surf.xyz, rows7, surf.mask.to(torch.float32), out.R, out.t, so.max_plane_distance)
-    got2 = kernels.p2plane_pick_fused_terms(*args2)
-    k2_err, r2 = _compare("K2 on the LOAM surf map", got2,
-                          kernels.p2plane_pick_fused_terms_plain(*args2),
-                          kernels.p2plane_pick_rows_plain(*args2))
+    k2_err, k2_text = _k2_on_map("the LOAM surf map", tgt.surf, so, surf, out.R, out.t)
     print(f"phase 5e K3 (S=1, weighted) vs plain on the LOAM edge map "
           f"({int(tgt.edge.line_packed[:, 12].sum())} valid lines, N={edge.capacity}, "
           f"{int(edge.mask.sum())} edge points): cnt {int(got[2])}, err {k3_err:.3g}, "
-          f"err/bound {r3:.3g}; K2 vs plain on the LOAM surf map "
-          f"({int(tgt.surf.plane_valid.sum())} valid planes): cnt {int(got2[2])}, "
-          f"err {k2_err:.3g}, err/bound {r2:.3g}", flush=True)
+          f"err/bound {r3:.3g}; {k2_text}", flush=True)
     return k3_err, k2_err
 
 
@@ -873,24 +1264,52 @@ def phase_loc_crop_timing(card, loc_run, label):
 
 
 def phase_loc_k1_check(loc_run):
-    """K1 against its plain version on the Loc oct path's own crop target,
-    for the last scan at its final pose."""
-    from loc_lib_tpu_torch.models import icp
-    from loc_lib_tpu_torch.ops import kernels
-
+    """K1 against its plain version, in both modes, on the Loc oct path's
+    own crop target, for the last scan at its final pose."""
     _, opts, before, scan, out = loc_run
-    target = before.icp_target
-    rows, w = icp._p2plane_vox_oct_rows(target, opts.icp, scan, out.R, out.t)
-    args = (scan.xyz, rows[:, 0:4], w, out.R, out.t, opts.icp.max_plane_distance)
-    got = kernels.p2plane_fused_terms(*args)
-    err, ratio = _compare("K1 on the Loc crop", got, kernels.p2plane_fused_terms_plain(*args),
-                          kernels.p2plane_rows_plain(*args))
-    if int(got[2]) < opts.icp.min_effective_pts:
-        raise AssertionError(f"K1 on the Loc crop kept only {int(got[2])} points")
-    print(f"phase 7 K1 vs plain on the Loc oct crop target ({int(target.plane_valid.sum())} "
-          f"valid planes, N={scan.capacity}): cnt {int(got[2])}, err {err:.3g}, "
-          f"err/bound {ratio:.3g}", flush=True)
+    err, text = _k1_on_map("the Loc oct crop target", before.icp_target, opts.icp, scan,
+                           out.R, out.t)
+    print(f"phase 7b {text}", flush=True)
     return err
+
+
+def phase_loc_k2_check(loc_run):
+    """K2 against its plain version, in both modes, on the Loc p2plane_vox
+    path's own crop target, for the last scan at its final pose."""
+    _, opts, before, scan, out = loc_run
+    err, text = _k2_on_map("the Loc crop target", before.icp_target, opts.icp, scan,
+                           out.R, out.t)
+    print(f"phase 7 {text}", flush=True)
+    return err
+
+
+def phase_kernel_device_times(card, calls):
+    """Device time per call of every kernel, mode and plain version at the
+    shapes phase 3 timed (torch.profiler, summed kernel time over 20 calls).
+    Run after every host-clock timing of the paths: once the profiler
+    has run in a process, every later launch costs the host more. A kernel
+    call must be ONE launch. Returns {label: device ms, or None where the
+    profiler recorded no device event}."""
+    dev = {}
+    for label, (fn, one_launch) in calls.items():
+        fn()
+        launches, ms, _, _ = _profiled(fn, 20)
+        if launches == 0:
+            dev[label] = (None, 0)
+            continue
+        if one_launch:
+            # a session may also hand over fewer events than were launched,
+            # never more: over 1 per call is a second launch
+            if launches > 1:
+                raise AssertionError(f"{label}: {launches} launches per call, expected 1")
+            ms, launches = ms / launches, 1
+        dev[label] = (ms, launches)
+    print("phase 3b device time per call at N=8192 (torch.profiler, kernels only) "
+          f"[{card}]: " + "; ".join(
+              f"{k} not measured (the profiler recorded no device event in 3 sessions)"
+              if ms is None else f"{k} {ms:.4f} ms in {n:.0f} launches"
+              for k, (ms, n) in dev.items()), flush=True)
+    return {k: v[0] for k, v in dev.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1047,8 +1466,11 @@ def main() -> int:
     card = phase_device(device)
     phase_build()
     workload = headline_workload(device)
-    timing = phase_kernels(device, card, workload)
-    timing["ndt_fused_terms"] = phase_kernels_k3(device, card)
+    given_errs, to_profile = phase_kernels(device, card, workload)
+    timing, calls = phase_kernels_from_target(device, card, workload)
+    to_profile.update(calls)
+    timing["ndt_fused_terms"], calls = phase_kernels_k3(device, card)
+    to_profile.update(calls)
 
     def counted(names, fn):
         """Run one path with every counter set to 0 just before it; each
@@ -1097,6 +1519,7 @@ def main() -> int:
     print(f"phase 7b launches (p2plane_vox_oct): {c}", flush=True)
     phase_loc_crop_timing(card, loc_oct, "phase 7b")
     k1_err = phase_loc_k1_check(loc_oct)
+    k2_err = max(k2_err, phase_loc_k2_check(loc_vox))
     # re-crops: a 110 m box re-crops once the pose is 5 m from the crop
     # centre; a 60 m box (half-size 30 m < the 50 m margin) on every frame
     rc, c = counted(("p2plane_pick_fused_terms",), lambda: phase_loc(
@@ -1108,7 +1531,14 @@ def main() -> int:
     for label, eng in (("110 m", rc), ("60 m", short)):
         if eng.num_recrops < 1:
             raise AssertionError(f"Loc {label} box: no re-crop")
+    # every profiler run comes after the paths' host-clock timings
     phase_headline_timing(device, card, workload, target)
+    phase_gather_before_after(device, card, workload, target)
+    dev_ms = phase_kernel_device_times(card, to_profile)
+    for name, label in (("p2plane_fused_terms", "K1 from target"),
+                        ("p2plane_pick_fused_terms", "K2 from target"),
+                        ("ndt_fused_terms", "K3")):
+        timing[name]["device_ms"] = dev_ms[label]
     phase_profile(device, card, workload, target,
                   Path(__file__).resolve().parent / "chiprun_out")
 
@@ -1118,14 +1548,22 @@ def main() -> int:
                                         "loc_lib_tpu/ops/pallas_kernels.py:185"),
            "ndt_fused_terms": ("loc_lib_tpu_torch/csrc/ndt_fused_terms.cu",
                                "loc_lib_tpu/ops/pallas_kernels.py:314")}
-    errs = {k: v[2] for k, v in timing.items()}
-    errs["p2plane_fused_terms"] = max(errs["p2plane_fused_terms"], k1_err)
-    errs["p2plane_pick_fused_terms"] = max(errs["p2plane_pick_fused_terms"], k2_err)
+    errs = {k: v["err"] for k, v in timing.items()}
+    errs["p2plane_fused_terms"] = max(errs["p2plane_fused_terms"], k1_err,
+                                      given_errs["p2plane_fused_terms"])
+    errs["p2plane_pick_fused_terms"] = max(errs["p2plane_pick_fused_terms"], k2_err,
+                                           given_errs["p2plane_pick_fused_terms"])
     errs["ndt_fused_terms"] = max(errs["ndt_fused_terms"], k3_err)
+    print("library_ms is null for all three kernels: no single PyTorch call computes one of "
+          "them (each builds its rows from a gather, an election and a gate, then reduces "
+          "them); ms, plain_ms and device_ms of K1 and K2 are those of the from-target mode "
+          "the paths run, at the headline inputs", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": timing[name][0], "plain_ms": timing[name][1]}
+         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
+         "device_ms": timing[name]["device_ms"], "bound_ms": timing[name]["bound_ms"],
+         "bound_by": timing[name]["bound_by"], "library_ms": None}
         for name in ("p2plane_fused_terms", "p2plane_pick_fused_terms",
                      "ndt_fused_terms")]}), flush=True)
     print(f"card: {card}", flush=True)

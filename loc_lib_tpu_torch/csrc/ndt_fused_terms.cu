@@ -17,17 +17,20 @@
 // counts residuals. G = sum A A^T (fused_terms.cuh). `t` is not needed:
 // qs arrives computed, as in the TPU kernel.
 //
-// What bounds it on this card: at the path's N = 8192, S = 7 it reads
+// What bounds it on this card: bytes. At the path's N = 8192, S = 7 it reads
 // 8192 * (24 + 7 * 52) B ~ 3.2 MB of rows the gather just wrote (L2
-// resident) and does 21 row updates of 36 products per point -- about
-// 6 MFLOP, nothing for the SMs. Launch latency and the cross-block
-// reduction tail bound it, not HBM or the ALUs.
+// resident), 0.95 us of HBM time at 3.35 TB/s, and does 21 row updates of
+// 36 products per point -- about 12 MFLOP, 0.2 us at 67 TFLOP/s. What a
+// call costs is launch latency and each thread's serial walk over its S
+// voxels.
 // What the design does about that: one thread per point runs the S x 3
-// rows in registers into the same 36-entry accumulator and two-launch
-// deterministic reduction as K1 and K2; `weighted` is a template
-// parameter, so each mode is its own straight-line code. This is the
-// simple correct version: loads are scalar (the 13-float packed rows are
-// not 16-byte aligned) and nothing is staged in shared memory.
+// rows in registers into the same 36-entry accumulator and one-launch
+// deterministic reduction as K1 and K2 (fused_terms.cuh); `weighted` is a
+// template parameter, so each mode is its own straight-line code. This is
+// the simple correct version: its stencil gather still lies outside (it
+// reads gathered rows, as the TPU kernel does), loads are scalar (the
+// 13-float packed rows are not 16-byte aligned) and nothing is staged in
+// shared memory.
 #include "fused_terms.cuh"
 
 namespace loc_fused {
@@ -38,8 +41,7 @@ ndt_fused_kernel(const float* __restrict__ q, const float* __restrict__ qs,
                  const float* __restrict__ mu, int mu_sn, int mu_ss,
                  const float* __restrict__ W, int w_sn, int w_ss,
                  const float* __restrict__ valid, int v_sn, int v_ss, int S,
-                 const float* __restrict__ R, float th, int n,
-                 float* __restrict__ partials) {
+                 const float* __restrict__ R, float th, int n, Reduction red) {
   float r[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) r[k] = __ldg(R + k);
@@ -92,7 +94,7 @@ ndt_fused_kernel(const float* __restrict__ q, const float* __restrict__ qs,
       }
     }
   }
-  store_block_partials(acc, partials);
+  reduce_and_finish(acc, red);
 }
 
 }  // namespace loc_fused
@@ -101,27 +103,24 @@ extern "C" int ndt_fused_terms_launch(const void* q, const void* qs, const void*
                                       int mu_ss, const void* W, int w_sn, int w_ss,
                                       const void* valid, int v_sn, int v_ss, int S,
                                       const void* R, float th, int weighted, int n,
-                                      void* partials, int num_blocks, void* G, void* b,
-                                      void* count, void* stream) {
+                                      int num_blocks, void* partials, void* ticket, void* out,
+                                      void* stream) {
   using namespace loc_fused;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Reduction red{static_cast<float*>(partials), static_cast<unsigned int*>(ticket),
+                      static_cast<float*>(out)};
   const float* qf = static_cast<const float*>(q);
   const float* qsf = static_cast<const float*>(qs);
   const float* muf = static_cast<const float*>(mu);
   const float* Wf = static_cast<const float*>(W);
   const float* vf = static_cast<const float*>(valid);
   const float* Rf = static_cast<const float*>(R);
-  float* pf = static_cast<float*>(partials);
   if (weighted) {
     ndt_fused_kernel<true><<<num_blocks, kThreads, 0, s>>>(
-        qf, qsf, muf, mu_sn, mu_ss, Wf, w_sn, w_ss, vf, v_sn, v_ss, S, Rf, th, n, pf);
+        qf, qsf, muf, mu_sn, mu_ss, Wf, w_sn, w_ss, vf, v_sn, v_ss, S, Rf, th, n, red);
   } else {
     ndt_fused_kernel<false><<<num_blocks, kThreads, 0, s>>>(
-        qf, qsf, muf, mu_sn, mu_ss, Wf, w_sn, w_ss, vf, v_sn, v_ss, S, Rf, th, n, pf);
+        qf, qsf, muf, mu_sn, mu_ss, Wf, w_sn, w_ss, vf, v_sn, v_ss, S, Rf, th, n, red);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finalize_kernel<<<1, 64, 0, s>>>(pf, num_blocks, static_cast<float*>(G),
-                                   static_cast<float*>(b), static_cast<int*>(count));
   return static_cast<int>(cudaGetLastError());
 }

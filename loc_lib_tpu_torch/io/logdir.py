@@ -62,7 +62,7 @@ def make_demo_log(num_frames: int = 30, capacity: int = 8192,
                                             max_range=max_range,
                                             max_points=capacity, noise=0.01,
                                             seed=k)
-        pc = from_numpy(local, capacity=capacity)
+        pc = from_numpy(local, capacity=capacity, device="cpu")   # host staging
         xyz[k] = pc.xyz.numpy()
         mask[k] = pc.mask.numpy()
     imu = None

@@ -101,8 +101,9 @@ def render_scan_numpy(world: np.ndarray, R: np.ndarray, t: np.ndarray,
 def render_scan(world: np.ndarray, R: np.ndarray, t: np.ndarray,
                 max_range: float = 40.0, max_points: int = 8192,
                 noise: float = 0.01, seed: int = 0,
-                capacity: int | None = None, device="cpu") -> PointCloud:
-    """`render_scan_numpy` as a padded PointCloud on `device`."""
+                capacity: int | None = None, device=None) -> PointCloud:
+    """`render_scan_numpy` as a padded PointCloud on `device` (default: the
+    card; `from_numpy` raises where there is none)."""
     local = render_scan_numpy(world, R, t, max_range, max_points, noise, seed)
     return from_numpy(local, capacity=capacity or max_points, device=device)
 

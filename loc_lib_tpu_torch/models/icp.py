@@ -4,13 +4,15 @@ p2line_vox paths of loc_lib_tpu/models/icp.py).
 Target side: per-voxel planes (or lines) from neighbor-merged Gaussian
 moments (VGICP-style) are precomputed once at `set_target`, plus (for
 p2plane_vox_oct) the correspondence pre-elected per (voxel, octant) cell.
-Match side: each Gauss-Newton iteration is one dense O(1) voxel lookup +
-row gather + one fused kernel (ops/kernels.py): K2 for p2plane_vox (the
-election is fused into the kernel), K1 for p2plane_vox_oct, and for
-p2line_vox the nearest-valid-centroid election as an argmin, then K3 at
-S = 1 in weighted mode. The outer loop is a Python loop with the
-reference's stop rule (|dx| < eps, at most max_iteration, never during gate
-warm-up); it reads one flag back per iteration.
+Match side: each Gauss-Newton iteration is one fused kernel (ops/kernels.py)
+that does the dense O(1) voxel lookup and the row reads itself: K2 from the
+target for p2plane_vox (7-voxel gather and election inside the kernel), K1
+from the target for p2plane_vox_oct (one (voxel, octant) lookup inside the
+kernel). For p2line_vox the gather and the nearest-valid-centroid election
+(an argmin) stay in torch ops, then K3 at S = 1 in weighted mode. The outer
+loop is a Python loop with the reference's stop rule (|dx| < eps, at most
+max_iteration, never during gate warm-up); it reads one flag back per
+iteration.
 
 P2Plane residual and Jacobian (right perturbation):
     e = n.(R q + t) + d      J = [-n^T R hat(q), n^T]
@@ -312,69 +314,70 @@ def _elect(rows7, valid7, mu7, qs, mask):
     return torch.take_along_dim(rows7, pick[:, None, None], dim=1), w
 
 
+def _index(target: IcpTarget, opts: IcpOptions,
+           dense: voxel.DenseIndex) -> kernels.TargetIndex:
+    """What a from-target kernel needs to find a point's voxel in `dense`."""
+    return kernels.TargetIndex(dense.table, dense.lo, target.grid.origin,
+                               target.grid.inv_leaf, opts.dense_dims)
+
+
+def _gate(opts: IcpOptions, gate):
+    return opts.max_plane_distance if gate is None else gate
+
+
 def _p2plane_vox_rows7(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t):
-    """Candidate gather at the current pose: (N, 7, 8) packed plane rows,
-    validity (and the dense-lookup hit) folded into column 7."""
-    rows7, found7 = _stencil_rows(target.packed, target, opts, src, _transform(src, R, t))
-    rows7[..., 7] = (found7 & (rows7[..., 7] > 0.5)).to(rows7.dtype)
-    return rows7
+    """Candidate gather at the current pose in torch ops: (N, 7, 8) packed
+    plane rows, validity (and the dense-lookup hit) folded into column 7.
+    What K2 does inside the kernel when it runs from the target; kept for
+    the election oracle and for holding the kernel against it."""
+    return kernels.stencil_rows_plain(src.xyz, src.mask, R, t, target.packed,
+                                      _index(target, opts, target.dense))
 
 
 def _p2plane_vox_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t,
                        gate=None):
     """Exact-election voxel-plane linearization: nearest-valid-centroid plane
-    among the point's voxel + 6 face neighbors, elected inside kernel K2."""
-    rows7 = _p2plane_vox_rows7(target, opts, src, R, t)
-    g = opts.max_plane_distance if gate is None else gate
-    return kernels.p2plane_pick_fused_terms(
-        src.xyz, rows7, src.mask.to(src.xyz.dtype), R, t, g)
+    among the point's voxel + 6 face neighbors. One call of kernel K2 from
+    the target: lookup, row reads, election and the normal equations."""
+    return kernels.p2plane_pick_fused_terms_from_target(
+        src.xyz, src.mask, R, t, _gate(opts, gate), target.packed,
+        _index(target, opts, target.dense))
 
 
 def _p2plane_vox_elect(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t):
     """Election only (argmin over the 7 candidates, first wins ties).
     Returns (plane (N, 4), w (N,))."""
     rows7 = _p2plane_vox_rows7(target, opts, src, R, t)
-    picked, w = _elect(rows7, rows7[..., 7] > 0.5, rows7[..., 4:7], _transform(src, R, t),
-                       src.mask)
+    picked, w = _elect(rows7, rows7[..., 7] > 0.5, rows7[..., 4:7],
+                       kernels.transform_plain(src.xyz, R, t), src.mask)
     return picked[:, 0, 0:4], w
 
 
 def _p2plane_vox_terms_unfused_pick(target: IcpTarget, opts: IcpOptions,
                                     src: PointCloud, R, t, gate=None):
-    """Oracle of `_p2plane_vox_terms`: the same election as an argmin outside
-    the kernel, feeding the plane-only kernel K1."""
+    """Oracle of `_p2plane_vox_terms`: the gather in torch ops, the same
+    election as an argmin outside the kernel, then kernel K1 with the plane
+    given."""
     plane, w = _p2plane_vox_elect(target, opts, src, R, t)
-    g = opts.max_plane_distance if gate is None else gate
-    return kernels.p2plane_fused_terms(src.xyz, plane, w, R, t, g)
+    return kernels.p2plane_fused_terms(src.xyz, plane, w, R, t, _gate(opts, gate))
 
 
 def _p2plane_vox_oct_rows(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t):
     """Per point one dense lookup of its (voxel, octant) cell + one row
-    gather of the pre-elected plane. Returns (rows (N, 8), w (N,))."""
-    qs = _transform(src, R, t)
-    u = (qs - target.grid.origin) * target.grid.inv_leaf
-    fl = torch.floor(u)
-    vc = fl.to(torch.int32)
-    frac = u - fl
-    octant = ((frac[:, 0] > 0.5).to(torch.int64)
-              + 2 * (frac[:, 1] > 0.5).to(torch.int64)
-              + 4 * (frac[:, 2] > 0.5).to(torch.int64))
-    key = voxel.coords_to_key(vc, src.mask)
-    slot, found = voxel.lookup_dense(target.dense_oct, opts.dense_dims, key)
-    row_slot = torch.gather(target.oct_table[slot.to(torch.int64)], 1,
-                            octant[:, None])[:, 0]
-    rows = target.packed_ext[row_slot.to(torch.int64)]        # (N, 8)
-    w = (found & (rows[:, 7] > 0.5) & src.mask).to(src.xyz.dtype)
-    return rows, w
+    gather of the pre-elected plane, in torch ops: what K1 does inside the
+    kernel when it runs from the target. Returns (rows (N, 8), w (N,))."""
+    return kernels.oct_rows_plain(src.xyz, src.mask, R, t, target.packed_ext,
+                                  target.oct_table, _index(target, opts, target.dense_oct))
 
 
 def _p2plane_vox_oct_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud,
                            R, t, gate=None):
-    """Octant-pre-elected linearization: the (voxel, octant) row gather, then
-    kernel K1 on the plane columns (a strided view, no copy)."""
-    rows, w = _p2plane_vox_oct_rows(target, opts, src, R, t)
-    g = opts.max_plane_distance if gate is None else gate
-    return kernels.p2plane_fused_terms(src.xyz, rows[:, 0:4], w, R, t, g)
+    """Octant-pre-elected linearization. One call of kernel K1 from the
+    target: the (voxel, octant) lookup, the row read and the normal
+    equations."""
+    return kernels.p2plane_fused_terms_from_target(
+        src.xyz, src.mask, R, t, _gate(opts, gate), target.packed_ext, target.oct_table,
+        _index(target, opts, target.dense_oct))
 
 
 def _p2line_vox_rows(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t):
@@ -415,7 +418,13 @@ def scan_match(target: IcpTarget, opts: IcpOptions, src: PointCloud, R0, t0) -> 
     _check_method(opts)
     if opts.method == "p2plane_vox" and opts.freeze_election_after > 0:
         not_ported("freeze_election_after > 0 (frozen election)", "2")
-    terms = _TERM_FNS[opts.method]
+    return _gauss_newton(_TERM_FNS[opts.method], target, opts, src, R0, t0)
+
+
+def _gauss_newton(terms, target: IcpTarget, opts: IcpOptions, src: PointCloud, R0,
+                  t0) -> MatchResult:
+    """The GN loop of `scan_match` over the linearization
+    `terms(target, opts, src, R, t, gate=...)`."""
     dev = src.device
     if not opts.use_initial_translation:
         # translation init = target - source centroid difference

@@ -12,6 +12,15 @@ All return (H (6,6), b (6,), count () int32, chi2 ()) from one symmetric
 the P2Plane kernels K1 and K2, three rows per (point, stencil voxel) for the
 generalized-Gaussian NDT kernel K3.
 
+K1 and K2 each have two modes. With the plane (K1) or the candidate rows
+(K2) given they take the TPU kernels' interface. *From the target*
+(`p2plane_fused_terms_from_target`, `p2plane_pick_fused_terms_from_target`)
+they take the target's tables and do the correspondence gather themselves:
+the voxel lookup and row reads that the TPU kernels left to XLA, because
+Pallas on the TPU could not express a data-dependent row read. That is the
+mode the matchers run: no (N, 7, 8) or (N, 8) row tensor is made. Both modes
+of a kernel count as launches of that kernel.
+
 The seam replaces the JAX package's `on_tpu()` switch with the tensor's
 device: CPU tensors go to the plain PyTorch version beside each kernel; CUDA
 tensors go to the hand-written kernel, which raises if it cannot be built or
@@ -19,8 +28,9 @@ launched (there is no fallback). The kernels are compiled with nvcc on first
 use into `csrc/build/<hash of sources and flags>/` and loaded with ctypes;
 nothing here touches nvcc or ctypes at import time.
 
-`LAUNCHES` counts kernel launches per wrapper (never plain-version calls),
-so a run can show that its main path went through the kernels.
+`LAUNCHES` counts kernel launches per kernel (never plain-version calls),
+so a run can show that its main path went through the kernels. Each call is
+ONE launch: the last block to finish reduces the per-block partial sums.
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
+
+from . import voxel
 
 LAUNCHES = {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0, "ndt_fused_terms": 0}
 
@@ -55,6 +67,57 @@ def _pose_terms(q, R, t):
     qsy = R[1, 0] * x + R[1, 1] * y + R[1, 2] * z + t[1]
     qsz = R[2, 0] * x + R[2, 1] * y + R[2, 2] * z + t[2]
     return x, y, z, qsx, qsy, qsz
+
+
+def transform_plain(q, R, t):
+    """qs = R q + t as (N, 3), op by op in the kernels' order: the one qs
+    that decides both a point's voxel and its distances."""
+    return torch.stack(_pose_terms(q, R, t)[3:], dim=1)
+
+
+class TargetIndex(NamedTuple):
+    """What a from-target kernel needs to find a point's voxel: the dense
+    slot table over `dims` cells anchored at `lo`, and the grid's origin and
+    1 / leaf (IcpTarget.dense / dense_oct and IcpTarget.grid)."""
+
+    table: torch.Tensor      # (dims[0] * dims[1] * dims[2],) int32, -1 empty
+    lo: torch.Tensor         # (3,) int32
+    origin: torch.Tensor     # (3,) float32
+    inv_leaf: torch.Tensor   # () float32
+    dims: tuple
+
+
+def stencil_rows_plain(q, mask, R, t, packed, index: TargetIndex):
+    """K2's gather at the pose (R, t): the rows of `packed` (V, 8) for each
+    point's voxel and its 6 face neighbours (the point's own voxel first),
+    with the lookup hit folded into the validity column. Returns (N, 7, 8)."""
+    qcoords = voxel.voxel_coords(transform_plain(q, R, t), index.inv_leaf, index.origin)
+    keys7 = voxel.coords_to_key(qcoords[:, None, :] + voxel.nearby6(q.device)[None],
+                                mask[:, None])
+    slot7, found7 = voxel.lookup_dense(voxel.DenseIndex(index.table, index.lo), index.dims,
+                                       keys7)
+    rows7 = packed[slot7.to(torch.int64)]
+    rows7[..., 7] = (found7 & (rows7[..., 7] > 0.5)).to(rows7.dtype)
+    return rows7
+
+
+def oct_rows_plain(q, mask, R, t, packed_ext, oct_table, index: TargetIndex):
+    """K1's gather at the pose (R, t): per point one dense lookup of its
+    voxel in the dilated table, the pre-elected row of its octant (bit k set
+    where the point lies in the upper half of the voxel along axis k), and
+    that row of `packed_ext`. Returns (rows (N, 8), w (N,) float32)."""
+    u = (transform_plain(q, R, t) - index.origin) * index.inv_leaf
+    fl = torch.floor(u)
+    frac = u - fl
+    octant = ((frac[:, 0] > 0.5).to(torch.int64)
+              + 2 * (frac[:, 1] > 0.5).to(torch.int64)
+              + 4 * (frac[:, 2] > 0.5).to(torch.int64))
+    key = voxel.coords_to_key(fl.to(torch.int32), mask)
+    slot, found = voxel.lookup_dense(voxel.DenseIndex(index.table, index.lo), index.dims, key)
+    row_slot = torch.gather(oct_table[slot.to(torch.int64)], 1, octant[:, None])[:, 0]
+    rows = packed_ext[row_slot.to(torch.int64)]
+    w = (found & (rows[:, 7] > 0.5) & mask).to(q.dtype)
+    return rows, w
 
 
 def _rows(q, R, nx, ny, nz, dis, w):
@@ -120,6 +183,36 @@ def p2plane_pick_fused_terms_plain(q, rows, w, R, t, gate):
     return _split(A.T @ A)
 
 
+def p2plane_from_target_rows_plain(q, mask, R, t, gate, packed_ext, oct_table,
+                                   index: TargetIndex):
+    """K1 from the target, per-point rows A (N, 8): the octant gather, then
+    K1's rows on the plane columns."""
+    rows, w = oct_rows_plain(q, mask, R, t, packed_ext, oct_table, index)
+    return p2plane_rows_plain(q, rows[:, 0:4], w, R, t, gate)
+
+
+def p2plane_from_target_terms_plain(q, mask, R, t, gate, packed_ext, oct_table,
+                                    index: TargetIndex):
+    """Plain PyTorch K1 from the target: same arguments and results as
+    `p2plane_fused_terms_from_target`."""
+    A = p2plane_from_target_rows_plain(q, mask, R, t, gate, packed_ext, oct_table, index)
+    return _split(A.T @ A)
+
+
+def p2plane_pick_from_target_rows_plain(q, mask, R, t, gate, packed, index: TargetIndex):
+    """K2 from the target, per-point rows A (N, 8): the 7-voxel gather, then
+    K2's election and rows."""
+    rows7 = stencil_rows_plain(q, mask, R, t, packed, index)
+    return p2plane_pick_rows_plain(q, rows7, mask.to(q.dtype), R, t, gate)
+
+
+def p2plane_pick_from_target_terms_plain(q, mask, R, t, gate, packed, index: TargetIndex):
+    """Plain PyTorch K2 from the target: same arguments and results as
+    `p2plane_pick_fused_terms_from_target`."""
+    A = p2plane_pick_from_target_rows_plain(q, mask, R, t, gate, packed, index)
+    return _split(A.T @ A)
+
+
 def ndt_rows_plain(q, qs, mu, W, valid, R, t, outlier_th, weighted: bool):
     """K3's rows A (N * S * 3, 8) in the kernel's order (point, then stencil
     voxel s, then residual row i), op by op as the kernel evaluates them.
@@ -172,26 +265,29 @@ def ndt_fused_terms_plain(q, qs, mu, W, valid, R, t, outlier_th, weighted: bool)
 # ---------------------------------------------------------------------------
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_terms.cuh", "p2plane_fused_terms.cu", "p2plane_pick_fused_terms.cu",
-           "ndt_fused_terms.cu")
+HEADER = "fused_terms.cuh"
+UNITS = ("p2plane_fused_terms.cu", "p2plane_pick_fused_terms.cu", "ndt_fused_terms.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
-              "-lineinfo")
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v", "-lineinfo")
 
-THREADS = 256          # kThreads in fused_terms.cuh
+THREADS = 128          # kThreads in fused_terms.cuh
+STENCIL = 7            # kStencil in p2plane_pick_fused_terms.cu: K2's candidates a point
 MAX_BLOCKS = 1024
 ENTRIES = 36
+OUT_WORDS = 44         # kOutWords: H (36) | b (6) | chi2 | count (int32 bits)
 
 
-class BuildInfo(NamedTuple):
-    library: Path
+class Library(NamedTuple):
+    cdll: ctypes.CDLL
+    path: Path
     log: str           # nvcc / ptxas output of the build (registers, spills)
     built_now: bool
 
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_build_info: Optional[BuildInfo] = None
+_library: Optional[Library] = None
+# (device index, stream) -> (partials, ticket): the reduction's scratch
+_scratch: dict = {}
 
 
 def _nvcc() -> str:
@@ -201,15 +297,60 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> BuildInfo:
-    """Compile csrc/*.cu into one shared library (once per source hash) and
-    load it. Returns where it lives and the compiler's report."""
-    global _lib, _build_info
+def _compile(out_dir: Path) -> str:
+    """One nvcc per source, all started together, then one link. Returns
+    the compilers' output; raises with it if any step fails."""
+    nvcc = _nvcc()
+    objs = [out_dir / (Path(u).stem + f".{os.getpid()}.o") for u in UNITS]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC / u), "-o", str(o)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for u, o in zip(UNITS, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = out_dir / f"libloc_fused.so.{os.getpid()}.tmp"
+    try:
+        for u, p, log in zip(UNITS, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {u} ({p.returncode}):\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(tmp, out_dir / "libloc_fused.so")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return "".join(logs) + link.stdout + link.stderr
+
+
+def _bind(cdll: ctypes.CDLL) -> None:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    pose = [vp, vp, vp, cf]                   # R, t, gate_ptr, gate_value
+    tail = [ci, ci, vp, vp, vp, vp]           # n, num_blocks, partials, ticket, out, stream
+    index = [vp, vp, vp, vp, ci, ci, ci]      # table, lo, origin, inv_leaf, dims
+    cdll.p2plane_fused_terms_launch.argtypes = [vp, vp, ci, vp, *pose, *tail]
+    cdll.p2plane_pick_fused_terms_launch.argtypes = [vp, vp, vp, *pose, *tail]
+    cdll.p2plane_from_target_launch.argtypes = [vp, vp, vp, vp, *index, *pose, *tail]
+    cdll.p2plane_pick_from_target_launch.argtypes = [vp, vp, vp, *index, *pose, *tail]
+    cdll.ndt_fused_terms_launch.argtypes = [vp, vp, vp, ci, ci, vp, ci, ci, vp, ci, ci, ci,
+                                            vp, cf, ci, *tail]
+    for fn in (cdll.p2plane_fused_terms_launch, cdll.p2plane_pick_fused_terms_launch,
+               cdll.p2plane_from_target_launch, cdll.p2plane_pick_from_target_launch,
+               cdll.ndt_fused_terms_launch):
+        fn.restype = ci
+    cdll.loc_fused_error_string.argtypes = [ci]
+    cdll.loc_fused_error_string.restype = ctypes.c_char_p
+
+
+def build() -> Library:
+    """Compile csrc/*.cu into one shared library (once per hash of sources
+    and flags), load it (once per process) and return it."""
+    global _library
     with _lock:
-        if _build_info is not None:
-            return _build_info
+        if _library is not None:
+            return _library
         h = hashlib.sha256()
-        for name in SOURCES:
+        for name in (HEADER, *UNITS):
             h.update((CSRC / name).read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         out_dir = CSRC / "build" / h.hexdigest()[:16]
@@ -218,30 +359,13 @@ def build() -> BuildInfo:
         built_now = False
         if not lib_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"libloc_fused.so.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(CSRC / s) for s in SOURCES if s.endswith(".cu")]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            log_path.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, lib_path)
+            log_path.write_text(_compile(out_dir))
             built_now = True
-        lib = ctypes.CDLL(str(lib_path))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for fn in (lib.p2plane_fused_terms_launch, lib.p2plane_pick_fused_terms_launch):
-            fn.argtypes = [vp, vp, ci, vp, vp, vp, vp, cf, ci, vp, ci, vp, vp, vp, vp]
-            fn.restype = ci
-        lib.ndt_fused_terms_launch.argtypes = [vp, vp, vp, ci, ci, vp, ci, ci, vp, ci, ci, ci,
-                                               vp, cf, ci, ci, vp, ci, vp, vp, vp, vp]
-        lib.ndt_fused_terms_launch.restype = ci
-        lib.loc_fused_error_string.argtypes = [ci]
-        lib.loc_fused_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        _build_info = BuildInfo(lib_path, log_path.read_text() if log_path.exists() else "",
-                                built_now)
-        return _build_info
+        cdll = ctypes.CDLL(str(lib_path))
+        _bind(cdll)
+        _library = Library(cdll, lib_path, log_path.read_text() if log_path.exists() else "",
+                           built_now)
+        return _library
 
 
 def num_blocks(n: int) -> int:
@@ -255,7 +379,8 @@ def reduction_depth(n: int, rows_per_point: int = 1) -> int:
     kernels' sum over N points with `rows_per_point` rows each (1 for K1
     and K2, 3 S for K3): the per-thread serial sum over its points' rows,
     the 5-level warp shuffle, the serial sum over a block's warps, and the
-    serial sum over the blocks' partials in finalize_kernel."""
+    serial sum over the blocks' partials, in block order, by the last block
+    to finish."""
     nb = num_blocks(n)
     return -(-max(n, 1) // (nb * THREADS)) * rows_per_point + 5 + THREADS // 32 + nb
 
@@ -297,50 +422,100 @@ def check_against_rows(out, A: torch.Tensor, rows_per_point: int = 1) -> GramChe
 # The wrappers (the seam)
 # ---------------------------------------------------------------------------
 
-def _check(name, x, shape, device, contiguous=True):
-    if x.device != device or x.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32 on {device}, got {x.dtype} on {x.device}")
+def _check(name, x, shape, device, contiguous=True, dtype=torch.float32):
+    if (x.dtype == dtype and x.device == device and x.shape == shape
+            and (not contiguous or x.is_contiguous())):
+        return
+    if x.device != device or x.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype} on {device}, got {x.dtype} on {x.device}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
-    if contiguous and not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    raise ValueError(f"{name}: must be contiguous")
+
+
+def _f32_on(x, device):
+    """x as a contiguous float32 tensor on `device`; x itself when it
+    already is one (nothing is called, nothing is copied)."""
+    if x.dtype == torch.float32 and x.device == device and x.is_contiguous():
+        return x
+    return x.to(device=device, dtype=torch.float32).contiguous()
 
 
 def _pose(R, t, gate, device):
-    """R (3, 3) and t (3,) as contiguous float32 tensors on `device`, and
-    the gate as a 1-element device tensor (or None) plus a value. R, t and
-    a tensor gate come from the previous GN iteration and are already in
-    this form, so nothing is copied and nothing waits for the host. The
-    caller keeps the returned tensors alive until the launch is enqueued."""
-    R = R.to(device=device, dtype=torch.float32).contiguous()
-    t = t.to(device=device, dtype=torch.float32).contiguous()
-    _check("R", R, (3, 3), device)
-    _check("t", t, (3,), device)
+    """Pointers to R (3, 3) and t (3,) as contiguous float32 tensors on
+    `device`, the gate's pointer (a 1-element device tensor) or None, and
+    the gate's value where it is a number; then the tensors themselves, for
+    the caller to keep alive until the launch is enqueued. R, t and a tensor
+    gate come from the previous GN iteration and are already in this form,
+    so nothing is copied and nothing waits for the host."""
+    R, t = _f32_on(R, device), _f32_on(t, device)
+    if R.shape != (3, 3) or t.shape != (3,):
+        raise ValueError(f"R, t: expected shapes (3, 3) and (3,), got {tuple(R.shape)} "
+                         f"and {tuple(t.shape)}")
     if isinstance(gate, torch.Tensor):
-        g = gate.to(device=device, dtype=torch.float32).reshape(-1).contiguous()
-        _check("gate", g, (1,), device)
-        return R, t, g, 0.0
-    return R, t, None, float(gate)
+        g = _f32_on(gate, device)
+        if g.numel() != 1:
+            raise ValueError(f"gate: expected one element, got shape {tuple(g.shape)}")
+        return (R.data_ptr(), t.data_ptr(), g.data_ptr(), 0.0), (R, t, g)
+    return (R.data_ptr(), t.data_ptr(), None, float(gate)), (R, t)
 
 
-def _pose_ptrs(R, t, g, gate_value):
-    return R.data_ptr(), t.data_ptr(), None if g is None else g.data_ptr(), gate_value
+def _index_args(index: TargetIndex, device):
+    """The kernels' view of a TargetIndex, checked: pointers and dims."""
+    d0, d1, d2 = (int(d) for d in index.dims)
+    if not 0 < d0 * d1 * d2 < 2 ** 31:
+        raise ValueError(f"index.dims: {index.dims} does not fit an int32 cell index")
+    _check("index.table", index.table, (d0 * d1 * d2,), device, dtype=torch.int32)
+    _check("index.lo", index.lo, (3,), device, dtype=torch.int32)
+    _check("index.origin", index.origin, (3,), device)
+    if index.inv_leaf.numel() != 1:
+        raise ValueError("index.inv_leaf: expected one element")
+    _check("index.inv_leaf", index.inv_leaf, index.inv_leaf.shape, device)
+    return (index.table.data_ptr(), index.lo.data_ptr(), index.origin.data_ptr(),
+            index.inv_leaf.data_ptr(), d0, d1, d2)
+
+
+def _check_points(q, mask, device):
+    n = q.shape[0]
+    _check("q", q, (n, 3), device)
+    _check("mask", mask, (n,), device, dtype=torch.bool)
+    return n
+
+
+def _check_rows8(name, x, device):
+    _check(name, x, (x.shape[0], 8), device)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
 
 
 def _launch(fn_name, args, n, device):
-    build()
+    """One launch of `fn_name` on the current stream of `device`.
+
+    The reduction's scratch (per-block partial sums and the ticket the
+    blocks draw) is kept per device AND stream and reused: calls on one
+    stream are ordered, so one buffer serves them all, and two streams get
+    two buffers. The kernel leaves the ticket at 0; a scratch whose launch
+    failed is dropped, so the next call starts from a fresh one. The four
+    results are views of one allocation."""
+    lib = build()
     nb = num_blocks(n)
-    partials = torch.empty((nb, ENTRIES), dtype=torch.float32, device=device)
-    G = torch.empty((8, 8), dtype=torch.float32, device=device)
-    b = torch.empty((6,), dtype=torch.float32, device=device)
-    count = torch.empty((), dtype=torch.int32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(_lib, fn_name)(*args, n, partials.data_ptr(), nb, G.data_ptr(),
-                                 b.data_ptr(), count.data_ptr(), stream)
+    # the current stream's handle without building a Stream object
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    key = (device.index, stream)
+    scratch = _scratch.get(key)
+    if scratch is None:
+        scratch = _scratch[key] = (
+            torch.empty((MAX_BLOCKS * ENTRIES,), dtype=torch.float32, device=device),
+            torch.zeros((1,), dtype=torch.int32, device=device))
+    out = torch.empty((OUT_WORDS,), dtype=torch.float32, device=device)
+    err = getattr(lib.cdll, fn_name)(*args, n, nb, scratch[0].data_ptr(),
+                                     scratch[1].data_ptr(), out.data_ptr(), stream)
     if err != 0:
+        _scratch.pop(key, None)
         raise RuntimeError(f"{fn_name}: CUDA error {err}: "
-                           f"{_lib.loc_fused_error_string(err).decode()}")
-    return G[:6, :6], b, count, G[6, 6]
+                           f"{lib.cdll.loc_fused_error_string(err).decode()}")
+    return (out.as_strided((6, 6), (6, 1)), out.as_strided((6,), (1,), 36),
+            out.view(torch.int32).as_strided((), (), 43), out.as_strided((), (), 42))
 
 
 def _device_of(q: torch.Tensor) -> torch.device:
@@ -350,7 +525,7 @@ def _device_of(q: torch.Tensor) -> torch.device:
 
 
 def p2plane_fused_terms(q, plane, w, R, t, gate):
-    """K1: fused voxel-plane P2Plane linearization.
+    """K1, plane given: fused voxel-plane P2Plane linearization.
 
     q (N, 3) source points, plane (N, 4) per-point plane [n, d] (rows may be
     strided), w (N,) float32 0/1 validity, R (3, 3) and t (3,) float32
@@ -366,34 +541,82 @@ def p2plane_fused_terms(q, plane, w, R, t, gate):
     if plane.stride(1) != 1:
         raise ValueError("plane: columns must be contiguous")
     _check("w", w, (n,), dev)
-    pose = _pose(R, t, gate, dev)
+    pose, _alive = _pose(R, t, gate, dev)
     out = _launch("p2plane_fused_terms_launch",
-                  (q.data_ptr(), plane.data_ptr(), plane.stride(0), w.data_ptr(),
-                   *_pose_ptrs(*pose)), n, dev)
+                  (q.data_ptr(), plane.data_ptr(), plane.stride(0), w.data_ptr(), *pose),
+                  n, dev)
+    LAUNCHES["p2plane_fused_terms"] += 1
+    return out
+
+
+def p2plane_fused_terms_from_target(q, mask, R, t, gate, packed_ext, oct_table,
+                                    index: TargetIndex):
+    """K1 from the target: the (voxel, octant) gather and the linearization
+    in one launch.
+
+    q (N, 3) body points, mask (N,) bool, R, t, gate as for
+    `p2plane_fused_terms`; packed_ext (V + 1, 8) rows [n, d, mu, valid] (the
+    last row invalid), oct_table (V7, 8) int32 row of packed_ext pre-elected
+    per (dilated voxel, octant), index: the dilated dense table with the
+    grid's origin and 1 / leaf. Returns (H, b, count, chi2)."""
+    if q.device.type == "cpu":
+        return p2plane_from_target_terms_plain(q, mask, R, t, gate, packed_ext, oct_table,
+                                               index)
+    dev = _device_of(q)
+    n = _check_points(q, mask, dev)
+    _check_rows8("packed_ext", packed_ext, dev)
+    _check("oct_table", oct_table, (oct_table.shape[0], 8), dev, dtype=torch.int32)
+    pose, _alive = _pose(R, t, gate, dev)
+    out = _launch("p2plane_from_target_launch",
+                  (q.data_ptr(), mask.data_ptr(), packed_ext.data_ptr(), oct_table.data_ptr(),
+                   *_index_args(index, dev), *pose), n, dev)
     LAUNCHES["p2plane_fused_terms"] += 1
     return out
 
 
 def p2plane_pick_fused_terms(q, rows, w, R, t, gate):
-    """K2: fused nearest-valid-centroid election + linearization.
+    """K2, rows given: fused nearest-valid-centroid election + linearization.
 
     q (N, 3) body points, rows (N, S, 8) candidate voxel rows
     [n(3), d, mu(3), valid] (valid already ANDed with the dense-lookup
     `found`), w (N,) float32 0/1 source mask, R (3, 3), t (3,), gate.
+    The CUDA kernel is built for the stencil's S = 7, the one shape its
+    callers have, and raises for another; the plain version takes any S.
     Returns (H (6,6), b (6,), count () int32, chi2 ())."""
     if q.device.type == "cpu":
         return p2plane_pick_fused_terms_plain(q, rows, w, R, t, gate)
     dev = _device_of(q)
-    n, S = q.shape[0], rows.shape[1]
+    n = q.shape[0]
     _check("q", q, (n, 3), dev)
-    _check("rows", rows, (n, S, 8), dev)
+    _check("rows", rows, (n, STENCIL, 8), dev)
     if rows.data_ptr() % 16:
         raise ValueError("rows: must be 16-byte aligned")
     _check("w", w, (n,), dev)
-    pose = _pose(R, t, gate, dev)
+    pose, _alive = _pose(R, t, gate, dev)
     out = _launch("p2plane_pick_fused_terms_launch",
-                  (q.data_ptr(), rows.data_ptr(), S, w.data_ptr(), *_pose_ptrs(*pose)),
-                  n, dev)
+                  (q.data_ptr(), rows.data_ptr(), w.data_ptr(), *pose), n, dev)
+    LAUNCHES["p2plane_pick_fused_terms"] += 1
+    return out
+
+
+def p2plane_pick_fused_terms_from_target(q, mask, R, t, gate, packed, index: TargetIndex):
+    """K2 from the target: the 7-voxel gather, the election and the
+    linearization in one launch.
+
+    q (N, 3) body points, mask (N,) bool, R, t, gate as for
+    `p2plane_pick_fused_terms`; packed (V, 8) rows [n, d, mu, valid] per
+    grid slot, index: the target's dense table with the grid's origin and
+    1 / leaf. The candidates are the point's own voxel and its 6 face
+    neighbours, the point's own first. Returns (H, b, count, chi2)."""
+    if q.device.type == "cpu":
+        return p2plane_pick_from_target_terms_plain(q, mask, R, t, gate, packed, index)
+    dev = _device_of(q)
+    n = _check_points(q, mask, dev)
+    _check_rows8("packed", packed, dev)
+    pose, _alive = _pose(R, t, gate, dev)
+    out = _launch("p2plane_pick_from_target_launch",
+                  (q.data_ptr(), mask.data_ptr(), packed.data_ptr(),
+                   *_index_args(index, dev), *pose), n, dev)
     LAUNCHES["p2plane_pick_fused_terms"] += 1
     return out
 
@@ -421,11 +644,11 @@ def ndt_fused_terms(q, qs, mu, W, valid, R, t, outlier_th, weighted: bool):
     _check("valid", valid, (n, S), dev, contiguous=False)
     if mu.stride(2) != 1 or W.stride(2) != 1:
         raise ValueError("mu, W: the last dimension must be contiguous")
-    R, t, _, th = _pose(R, t, float(outlier_th), dev)
+    (R_ptr, _, _, th), _alive = _pose(R, t, float(outlier_th), dev)
     out = _launch("ndt_fused_terms_launch",
                   (q.data_ptr(), qs.data_ptr(), mu.data_ptr(), mu.stride(0), mu.stride(1),
                    W.data_ptr(), W.stride(0), W.stride(1),
                    valid.data_ptr(), valid.stride(0), valid.stride(1), S,
-                   R.data_ptr(), th, int(bool(weighted))), n, dev)
+                   R_ptr, th, int(bool(weighted))), n, dev)
     LAUNCHES["ndt_fused_terms"] += 1
     return out

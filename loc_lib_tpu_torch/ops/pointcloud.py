@@ -40,6 +40,17 @@ class PointCloud(NamedTuple):
 PAD_COORD = 1e6
 
 
+def card_device(device=None) -> torch.device:
+    """The device an entry point puts its tensors on: `device` when the
+    caller names one, else the first CUDA card. Without a card it raises;
+    it never falls back to the CPU (callers that want the CPU say so)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available: pass device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)
+
+
 def _pad_to(n_points: int, arr: np.ndarray, fill) -> np.ndarray:
     out = np.full((n_points,) + arr.shape[1:], fill, dtype=arr.dtype)
     out[: arr.shape[0]] = arr
@@ -53,10 +64,11 @@ def from_numpy(
     ring: Optional[np.ndarray] = None,
     time: Optional[np.ndarray] = None,
     stamp: float = 0.0,
-    device="cpu",
+    device=None,
 ) -> PointCloud:
-    """Build a padded PointCloud on `device` from host arrays, dropping
-    non-finite points."""
+    """Build a padded PointCloud on `device` (default: the card, see
+    `card_device`) from host arrays, dropping non-finite points."""
+    device = card_device(device)
     xyz = np.asarray(xyz, dtype=np.float32).reshape(-1, 3)
     finite = np.isfinite(xyz).all(axis=1)
     xyz = xyz[finite]

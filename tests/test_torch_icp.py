@@ -14,6 +14,10 @@ Stated tolerances:
     test_lidar_normals_are_float32_roundings_of_the_float64_moments);
   * linearizations on a JAX-built target carried across by io/convert:
     counts exact, H/b/chi2 within rtol 1e-5, atol 1e-4 * max(1, max |H|);
+    the port's one qs (op by op, the kernels' order) and JAX's (XLA's
+    product) may put a point within an ulp of a voxel face into different
+    voxels: counted in test_voxel_of_each_point_matches_jax_transform
+    (0 of 4,096 on a 35 m scan at a rotated pose; at most 2 allowed);
   * scan_match: pose within 1e-4 rad / 1e-4 m of JAX, equal iterations;
     p2line_vox on a carried-across line table: within 2e-6 m / 2e-6 rad.
 """
@@ -33,6 +37,11 @@ from loc_lib_tpu_torch.ops import pointcloud as pcm, voxel
 import oracles
 
 torch.set_num_threads(2)
+
+
+def _from_numpy(*args, **kwargs):
+    """pointcloud.from_numpy on the CPU (its default device is the card)."""
+    return pcm.from_numpy(*args, device="cpu", **kwargs)
 
 DIMS = (64, 64, 32)
 METHODS = ("p2plane_vox", "p2plane_vox_oct")
@@ -69,7 +78,7 @@ def _float64_planes(pts, cap, target, opts):
     eigh. Returns (n64 (V, 3), cond (V,)) with cond = u s / gap, u = 2^-24,
     s = |mu|^2 + tr(cov) the magnitude of the raw second moments, and gap
     = lambda_1 - lambda_0: the size of the normal's float32 rounding."""
-    pc = pcm.from_numpy(pts, capacity=cap)
+    pc = _from_numpy(pts, capacity=cap)
     grid = target.grid
     keys = voxel.coords_to_key(voxel.voxel_coords(pc.xyz, grid.inv_leaf, grid.origin, "floor"),
                                pc.mask)
@@ -108,7 +117,7 @@ def test_set_target_tables_match_jax(method, cloud):
     cap = 2048 if cloud == "structured" else 4096
     jo, to = _opts(method)
     jt = jicp.set_target(jpc.from_numpy(pts, capacity=cap), jo)
-    tt = icp.set_target(pcm.from_numpy(pts, capacity=cap), to)
+    tt = icp.set_target(_from_numpy(pts, capacity=cap), to)
     np.testing.assert_array_equal(tt.grid.voxel_keys.numpy(), np.asarray(jt.grid.voxel_keys))
     np.testing.assert_array_equal(tt.dense.table.numpy(), np.asarray(jt.dense.table))
     jv, tv = np.asarray(jt.plane_valid), tt.plane_valid.numpy()
@@ -153,7 +162,7 @@ def test_lidar_normals_are_float32_roundings_of_the_float64_moments():
     pts, cap = _lidar_scan(), 4096
     jo, to = _opts("p2plane_vox")
     jt = jicp.set_target(jpc.from_numpy(pts, capacity=cap), jo)
-    tt = icp.set_target(pcm.from_numpy(pts, capacity=cap), to)
+    tt = icp.set_target(_from_numpy(pts, capacity=cap), to)
     n64, cond = _float64_planes(pts, cap, tt, to)
     both = np.asarray(jt.plane_valid) & tt.plane_valid.numpy()
     jn = np.asarray(jt.plane)[both, :3].astype(np.float64)
@@ -175,7 +184,7 @@ def test_linearization_on_carried_target_matches_jax(method):
     jt = jicp.set_target(jpc.from_numpy(scene, capacity=2048), jo)
     tt = _carried(jt)
     jsrc = jpc.from_numpy(src, capacity=2048)
-    tsrc = pcm.from_numpy(src, capacity=2048)
+    tsrc = _from_numpy(src, capacity=2048)
     jfn = jicp._TERM_FNS[method]
     for w, trans in (([0.0, 0.0, 0.0], [0.0, 0.0, 0.0]),
                      ([0.01, -0.02, 0.03], [0.1, -0.05, 0.2])):
@@ -191,6 +200,50 @@ def test_linearization_on_carried_target_matches_jax(method):
 
 
 @pytest.mark.parametrize("method", METHODS)
+def test_voxel_of_each_point_matches_jax_transform(method):
+    """The fused kernels decide a point's voxel (and octant) from the same
+    qs = R q + t they measure distances with, evaluated op by op; JAX looks
+    the voxel up from XLA's product `xyz @ R.T + t`. The two qs differ in
+    the last bit, so a point within an ulp of a voxel face (or, for the
+    octant path, of a voxel's mid-plane) may change cell. On a 35 m LiDAR
+    scan at a rotated pose no point of 4,096 does, for either method, and
+    the test holds that count at 0; so the linearization on a JAX target
+    carried across agrees with JAX's `compute_h_and_b` in its
+    effective-point count exactly and in its entries within the module's
+    rule (1e-4 of max |H|)."""
+    from loc_lib_tpu_torch.ops import kernels
+
+    pts = _lidar_scan()
+    jo, to = _opts(method)
+    jt = jicp.set_target(jpc.from_numpy(pts, capacity=4096), jo)
+    tt = _carried(jt)
+    R = np.array(jlie.so3_exp(jnp.asarray([0.011, -0.023, 0.31], jnp.float32)))
+    t = np.asarray([0.41, -0.27, 0.13], np.float32)
+    src = ((pts - t) @ R).astype(np.float32)          # R^T (p - t): lands back on the map
+    jsrc, tsrc = jpc.from_numpy(src, capacity=4096), _from_numpy(src, capacity=4096)
+    qs_j = np.asarray(jsrc.xyz @ jnp.asarray(R).T + jnp.asarray(t))   # icp.py's own expression
+    qs_t = kernels.transform_plain(tsrc.xyz, torch.from_numpy(R), torch.from_numpy(t)).numpy()
+    valid = tsrc.mask.numpy()
+    assert np.abs(qs_j - qs_t)[valid].max() < 1e-5
+    u_j = (qs_j - np.asarray(jt.grid.origin)) * np.float32(jt.grid.inv_leaf)
+    u_t = (qs_t - tt.grid.origin.numpy()) * np.float32(tt.grid.inv_leaf)
+    cell_j, cell_t = np.floor(u_j), np.floor(u_t)
+    differs = (cell_j != cell_t).any(axis=1)
+    if method == "p2plane_vox_oct":
+        differs |= ((u_j - cell_j > 0.5) != (u_t - cell_t > 0.5)).any(axis=1)
+    n_diff = int((differs & valid).sum())
+    assert n_diff == 0, n_diff
+    Hj, bj, nj, cj = (np.asarray(a) for a in jicp.compute_h_and_b(
+        jt, jo, jsrc, jnp.asarray(R), jnp.asarray(t)))
+    Ht, bt, nt, ct = icp.compute_h_and_b(tt, to, tsrc, torch.from_numpy(R), torch.from_numpy(t))
+    assert int(nt) == int(nj) and int(nj) > 1000
+    atol = 1e-4 * max(1.0, np.abs(Hj).max())
+    np.testing.assert_allclose(Ht.numpy(), Hj, rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(bt.numpy(), bj, rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(float(ct), float(cj), rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("method", METHODS)
 @pytest.mark.parametrize("target_from", ["port", "jax"])
 def test_scan_match_matches_jax(method, target_from):
     """test_icp.py:141 (p2plane_vox) and :500 (p2plane_vox_oct) workloads."""
@@ -198,9 +251,9 @@ def test_scan_match_matches_jax(method, target_from):
     jo, to = _opts(method)
     jt = jicp.set_target(jpc.from_numpy(scene, capacity=2048), jo)
     jr = jicp.scan_match(jt, jo, jpc.from_numpy(src, capacity=2048), jnp.eye(3), jnp.zeros(3))
-    tt = icp.set_target(pcm.from_numpy(scene, capacity=2048), to) \
+    tt = icp.set_target(_from_numpy(scene, capacity=2048), to) \
         if target_from == "port" else _carried(jt)
-    tr = icp.scan_match(tt, to, pcm.from_numpy(src, capacity=2048), torch.eye(3), torch.zeros(3))
+    tr = icp.scan_match(tt, to, _from_numpy(src, capacity=2048), torch.eye(3), torch.zeros(3))
     assert tr.iterations == int(jr.iterations)
     assert bool(tr.converged) and bool(jr.converged)
     rot = np.linalg.norm(oracles.so3_log(np.asarray(jr.R, np.float64).T
@@ -222,8 +275,8 @@ def test_empty_target_and_out_of_window_source_leave_pose_unmoved(method):
     scene, src, _, _ = _pair(7)
     far = src + np.float32(5000.0)          # outside the +-512-cell key window
     R0, t0 = torch.eye(3), torch.tensor([0.5, -0.5, 0.25])
-    for t_, s_ in ((tgt, src), (icp.set_target(pcm.from_numpy(scene, capacity=2048), to), far)):
-        res = icp.scan_match(t_, to, pcm.from_numpy(s_, capacity=2048), R0, t0)
+    for t_, s_ in ((tgt, src), (icp.set_target(_from_numpy(scene, capacity=2048), to), far)):
+        res = icp.scan_match(t_, to, _from_numpy(s_, capacity=2048), R0, t0)
         assert not bool(res.converged) and int(res.num_effective) == 0
         assert res.iterations == to.max_iteration
         assert torch.equal(res.t, t0) and torch.allclose(res.R, R0, atol=1e-7)
@@ -233,7 +286,7 @@ def test_empty_target_and_out_of_window_source_leave_pose_unmoved(method):
 def test_unported_methods_name_their_slice():
     """The knn oracle methods and the frozen election wait for slice 2;
     p2line_vox is ported and builds its line table."""
-    scene = pcm.from_numpy(_pair(7)[0])
+    scene = _from_numpy(_pair(7)[0])
     for method in ("p2p", "p2line", "p2plane"):
         with pytest.raises(NotImplementedError, match="slice 2"):
             icp.set_target(scene, icp.IcpOptions(method=method))
@@ -269,7 +322,7 @@ def test_p2line_vox_matches_jax_on_carried_target(warmup):
     to = icp.IcpOptions(method="p2line_vox", dense_dims=DIMS, gate_warmup_iters=warmup)
     jt = jicp.set_target(jpc.from_numpy(scene, capacity=8192), jo)
     tt = _carried(jt)
-    jsrc, tsrc = jpc.from_numpy(src, capacity=8192), pcm.from_numpy(src, capacity=8192)
+    jsrc, tsrc = jpc.from_numpy(src, capacity=8192), _from_numpy(src, capacity=8192)
     for w, trans in (([0.0, 0.0, 0.0], [0.0, 0.0, 0.0]),
                      ([0.01, -0.015, 0.02], [0.15, -0.1, 0.05])):
         R = np.array(jlie.so3_exp(jnp.asarray(w, jnp.float32)))
@@ -294,7 +347,7 @@ def test_p2line_vox_matches_jax_on_carried_target(warmup):
     rot = np.linalg.norm(oracles.so3_log(np.asarray(jr.R, np.float64).T
                                          @ tr.R.numpy().astype(np.float64)))
     assert rot < 2e-6 and np.linalg.norm(tr.t.numpy() - np.asarray(jr.t)) < 2e-6
-    own = icp.scan_match(icp.set_target(pcm.from_numpy(scene, capacity=8192), to), to, tsrc,
+    own = icp.scan_match(icp.set_target(_from_numpy(scene, capacity=8192), to), to, tsrc,
                          torch.eye(3), torch.zeros(3))
     # (voxel lines through merged centroids: 1.3 cm off on this scene)
     assert np.linalg.norm(own.t.numpy() - t_true) < 5e-2

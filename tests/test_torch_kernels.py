@@ -15,12 +15,14 @@ import pytest
 import torch
 
 from loc_lib_tpu.ops import pallas_kernels
-from loc_lib_tpu_torch.ops import kernels
+from loc_lib_tpu_torch.models import icp
+from loc_lib_tpu_torch.ops import kernels, pointcloud as pcm, voxel
 import oracles
 
 torch.set_num_threads(2)
 
 RTOL, ATOL = 1e-5, 1e-4
+DIMS = (64, 64, 32)
 
 
 def _pose(rng):
@@ -72,6 +74,35 @@ def _k3_inputs(rng, n, S, scale=2.0):
     W = np.linalg.cholesky(info).astype(np.float32).reshape(n, S, 9)
     valid = (rng.uniform(size=(n, S)) < 0.7).astype(np.float32)
     return q, qs, mu, W, valid, R, t
+
+
+def _vox_case(method, n_src, seed=21):
+    """A voxel-plane target over a floor and two walls (the port's own
+    set_target, on the CPU) and n_src source points of the same scene seen
+    from a pose 3 deg / 40 cm away, with the last 5 % masked out. Returns
+    (target, options, source cloud, R, t)."""
+    rng = np.random.default_rng(seed)
+    n = 700
+    scene = np.concatenate([
+        np.stack([rng.uniform(-10, 10, n), rng.uniform(-10, 10, n), np.zeros(n)], 1),
+        np.stack([rng.uniform(-10, 10, n), np.full(n, -10.0), rng.uniform(0, 5, n)], 1),
+        np.stack([np.full(n, -10.0), rng.uniform(-10, 10, n), rng.uniform(0, 5, n)], 1),
+    ]).astype(np.float32)
+    opts = icp.IcpOptions(method=method, dense_dims=DIMS)
+    tgt = icp.set_target(pcm.from_numpy(scene, capacity=4096, device="cpu"), opts)
+    R_true = oracles.so3_exp(np.array([0.02, -0.03, 0.04]))
+    pts = scene[rng.integers(0, len(scene), n_src)] + rng.normal(scale=0.02, size=(n_src, 3))
+    src = ((pts - np.array([0.3, -0.2, 0.15])) @ R_true).astype(np.float32)
+    cloud = pcm.from_numpy(src[: n_src - n_src // 20], capacity=n_src, device="cpu")
+    R = torch.from_numpy(oracles.so3_exp(np.array([0.021, -0.029, 0.041])).astype(np.float32))
+    return tgt, opts, cloud, R, torch.tensor([0.28, -0.21, 0.16])
+
+
+def _from_target_args(method, tgt, opts, src, R, t, gate):
+    if method == "p2plane_vox":
+        return (src.xyz, src.mask, R, t, gate, tgt.packed, icp._index(tgt, opts, tgt.dense))
+    return (src.xyz, src.mask, R, t, gate, tgt.packed_ext, tgt.oct_table,
+            icp._index(tgt, opts, tgt.dense_oct))
 
 
 def _compare(jax_out, torch_out):
@@ -207,6 +238,9 @@ def test_cpu_tensors_never_touch_launch_counters():
     q2, rows, w2 = _k2_inputs(rng, 256)
     kernels.p2plane_pick_fused_terms(*_t(q2, rows, w2, R, t), 0.1)
     kernels.ndt_fused_terms(*_t(*_k3_inputs(rng, 256, 7)), 20.0, True)
+    tgt, opts, src, R, t = _vox_case("p2plane_vox_oct", 512)
+    for method in ("p2plane_vox", "p2plane_vox_oct"):
+        icp.compute_h_and_b(tgt, icp.IcpOptions(method=method, dense_dims=DIMS), src, R, t)
     assert kernels.LAUNCHES == {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0,
                                 "ndt_fused_terms": 0}
 
@@ -215,17 +249,30 @@ def test_non_cpu_non_cuda_tensors_raise():
     """The seam takes the plain version ONLY for CPU tensors; any other
     device goes to the kernel path, which refuses what it cannot launch."""
     q = torch.zeros((8, 3), device="meta")
+    eye, zero = torch.eye(3, device="meta"), torch.zeros(3, device="meta")
     with pytest.raises(ValueError):
         kernels.p2plane_fused_terms(q, torch.zeros((8, 4), device="meta"),
-                                    torch.zeros(8, device="meta"),
-                                    torch.eye(3, device="meta"),
-                                    torch.zeros(3, device="meta"), 0.1)
+                                    torch.zeros(8, device="meta"), eye, zero, 0.1)
+    mask = torch.ones(8, dtype=torch.bool, device="meta")
+    index = kernels.TargetIndex(torch.zeros(8, dtype=torch.int32, device="meta"),
+                                torch.zeros(3, dtype=torch.int32, device="meta"), zero,
+                                torch.ones((), device="meta"), (2, 2, 2))
+    packed = torch.zeros((4, 8), device="meta")
+    with pytest.raises(ValueError):
+        kernels.p2plane_pick_fused_terms_from_target(q, mask, eye, zero, 0.1, packed, index)
+    with pytest.raises(ValueError):
+        kernels.p2plane_fused_terms_from_target(
+            q, mask, eye, zero, 0.1, packed, torch.zeros((4, 8), dtype=torch.int32, device="meta"),
+            index)
 
 
 def test_grid_size_depends_only_on_n():
+    """128 threads a block: 64 blocks at the paths' N = 8192 (the 256-thread
+    grid of the first design filled 32 of the card's 132 SMs)."""
+    assert kernels.THREADS == 128
     assert kernels.num_blocks(0) == 1
-    assert kernels.num_blocks(8191) == kernels.num_blocks(8192) == 32
-    assert kernels.num_blocks(65536) == 256
+    assert kernels.num_blocks(8191) == kernels.num_blocks(8192) == 64
+    assert kernels.num_blocks(65536) == 512
     assert kernels.num_blocks(10 ** 7) == kernels.MAX_BLOCKS
 
 
@@ -246,8 +293,8 @@ def test_port_fused_pick_matches_unfused_pick():
     R_true = oracles.so3_exp(np.array([0.02, -0.03, 0.04]))
     src = ((scene - np.array([0.3, -0.2, 0.15])) @ R_true).astype(np.float32)
     opts = icp.IcpOptions(method="p2plane_vox", dense_dims=(64, 64, 32))
-    tgt = icp.set_target(pcm.from_numpy(scene, capacity=2048), opts)
-    src_pc = pcm.from_numpy(src, capacity=2048)
+    tgt = icp.set_target(pcm.from_numpy(scene, capacity=2048, device="cpu"), opts)
+    src_pc = pcm.from_numpy(src, capacity=2048, device="cpu")
     for w, trans in (([0.0, 0.0, 0.0], [0.0, 0.0, 0.0]),
                      ([0.01, -0.02, 0.03], [0.1, -0.05, 0.2])):
         R = lie.so3_exp(torch.tensor(w))
@@ -260,11 +307,80 @@ def test_port_fused_pick_matches_unfused_pick():
         np.testing.assert_allclose(float(c1), float(c2), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("method", ["p2plane_vox", "p2plane_vox_oct"])
+def test_from_target_plain_equals_gather_then_given_plain_bit_for_bit(method):
+    """K2 / K1 from the target are the gather followed by the rows-given /
+    plane-given kernel, with ONE qs (op by op) deciding both the voxel and
+    the distances. The gather is written out here a second time, from the
+    voxel functions, as the matcher had it before it moved into the kernel."""
+    tgt, opts, src, R, t = _vox_case("p2plane_vox_oct", 2048)
+    opts = icp.IcpOptions(method=method, dense_dims=DIMS)
+    qs = kernels.transform_plain(src.xyz, R, t)
+    grid = tgt.grid
+    if method == "p2plane_vox":
+        rows7, found7 = icp._stencil_rows(tgt.packed, tgt, opts, src, qs)
+        rows7[..., 7] = (found7 & (rows7[..., 7] > 0.5)).to(rows7.dtype)
+        want = kernels.p2plane_pick_fused_terms_plain(src.xyz, rows7, src.mask.float(), R, t, 0.1)
+        rows_want = kernels.p2plane_pick_rows_plain(src.xyz, rows7, src.mask.float(), R, t, 0.1)
+        rows_fn, fn = (kernels.p2plane_pick_from_target_rows_plain,
+                       kernels.p2plane_pick_fused_terms_from_target)
+    else:
+        u = (qs - grid.origin) * grid.inv_leaf
+        fl = torch.floor(u)
+        octant = ((u - fl > 0.5).to(torch.int64) * torch.tensor([1, 2, 4])).sum(1)
+        slot, found = voxel.lookup_dense(tgt.dense_oct, DIMS,
+                                         voxel.coords_to_key(fl.to(torch.int32), src.mask))
+        rows = tgt.packed_ext[tgt.oct_table[slot.long(), octant].long()]
+        w = (found & (rows[:, 7] > 0.5) & src.mask).float()
+        want = kernels.p2plane_fused_terms_plain(src.xyz, rows[:, 0:4], w, R, t, 0.1)
+        rows_want = kernels.p2plane_rows_plain(src.xyz, rows[:, 0:4], w, R, t, 0.1)
+        rows_fn, fn = (kernels.p2plane_from_target_rows_plain,
+                       kernels.p2plane_fused_terms_from_target)
+    args = _from_target_args(method, tgt, opts, src, R, t, 0.1)
+    assert torch.equal(rows_fn(*args), rows_want)
+    got = fn(*args)                      # CPU tensors: the wrapper takes the plain version
+    assert int(got[2]) > 500
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+    # and it is what the matcher's linearization runs
+    for a, b_ in zip(icp.compute_h_and_b(tgt, opts, src, R, t), want):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("method", ["p2plane_vox", "p2plane_vox_oct"])
+def test_from_target_rejects_what_the_lookup_rejects(method):
+    """Masked points, points padded at PAD_COORD, points outside the
+    +-512-cell key window and points inside it but off the dense table all
+    get weight 0: G = 0 exactly and finite. Negative coordinates floor
+    downwards (a point at -0.25 m lies in voxel -1)."""
+    tgt, _, src, R, t = _vox_case("p2plane_vox_oct", 1024)
+    opts = icp.IcpOptions(method=method, dense_dims=DIMS)
+    n = src.capacity
+    cases = {
+        "masked": src._replace(mask=torch.zeros(n, dtype=torch.bool)),
+        "padded": src._replace(xyz=torch.full((n, 3), pcm.PAD_COORD),
+                               mask=torch.zeros(n, dtype=torch.bool)),
+        "outside the key window": src._replace(xyz=src.xyz + 5000.0),
+        "off the table": src._replace(xyz=src.xyz + 200.0),
+    }
+    for name, cloud in cases.items():
+        H, b, cnt, chi2 = icp.compute_h_and_b(tgt, opts, cloud, torch.eye(3), torch.zeros(3))
+        assert int(cnt) == 0, name
+        assert torch.all(H == 0) and torch.all(b == 0) and float(chi2) == 0.0, name
+    q = torch.tensor([[-0.25, 0.5, 0.5]])
+    idx = icp._index(tgt, opts, tgt.dense)
+    c = voxel.voxel_coords(kernels.transform_plain(q, torch.eye(3), torch.zeros(3)),
+                           idx.inv_leaf, idx.origin)
+    assert c.tolist() == [[-1, 0, 0]]
+
+
 def _kernel_order_sum(A: torch.Tensor, rows_per_point: int = 1):
     """The CUDA kernels' float32 summation order, emulated on the CPU: one
     thread per point (N <= 256 * MAX_BLOCKS here) summing its rows serially
     (K3: 3 S rows, stencil-major), a 5-level warp-shuffle tree, a serial
-    sum over the block's 8 warps, then a serial sum over the blocks.
+    sum over the block's warps, then the last block's serial sum over all
+    blocks' partials in block-index order (one launch: which block comes
+    last varies, the order of its sum does not).
     Returns (H, b, count, chi2) as the kernel would."""
     n = A.shape[0] // rows_per_point
     nb = kernels.num_blocks(n)
@@ -301,15 +417,35 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("kernel,n", [("k1", 8192), ("k1", 8191), ("k1", 65536),
                                       ("k2", 8192), ("k2", 8191),
-                                      ("k3w", 8192), ("k3d", 8191), ("k3w1", 8192)])
+                                      ("k3w", 8192), ("k3d", 8191), ("k3w1", 8192),
+                                      ("k2t", 8192), ("k1t", 8191)])
 def test_card_check_accepts_kernel_order_and_rejects_planted_errors(kernel, n):
     """The per-entry check chip_smoke holds the CUDA kernels to
     (kernels.check_against_rows, with the kernel's reduction depth): a sum
     of the plain rows in the kernels' own float32 order passes, and a
     result with chi2 = 0, b's translation part dropped, one H entry off by
     1e-3, or a wrong count fails. k3w / k3d: K3 weighted / direct, S = 7;
-    k3w1: weighted, S = 1 (the p2line_vox shape)."""
+    k3w1: weighted, S = 1 (the p2line_vox shape); k2t / k1t: K2 / K1 from
+    the target (the gather inside the kernel), rows from their plain
+    versions on a small target."""
     cs = _chip_smoke()
+    if kernel in ("k2t", "k1t"):
+        method = "p2plane_vox" if kernel == "k2t" else "p2plane_vox_oct"
+        tgt, opts, src, R, t = _vox_case("p2plane_vox_oct", n)
+        args = _from_target_args(method, tgt, icp.IcpOptions(method=method, dense_dims=DIMS),
+                                 src, R, t, 0.1)
+        rows_fn, plain_fn = ((kernels.p2plane_pick_from_target_rows_plain,
+                              kernels.p2plane_pick_from_target_terms_plain) if kernel == "k2t"
+                             else (kernels.p2plane_from_target_rows_plain,
+                                   kernels.p2plane_from_target_terms_plain))
+        A = rows_fn(*args)
+        got = _kernel_order_sum(A)
+        err, ratio = cs._compare("emulated", got, plain_fn(*args), A)
+        assert ratio <= 1.0 and int(got[2]) > n // 10
+        cs._planted_errors_are_caught("emulated", got, A)
+        with pytest.raises(AssertionError):
+            cs._compare("planted", (got[0], got[1], got[2] + 1, got[3]), plain_fn(*args), A)
+        return
     rng = np.random.default_rng(n + (kernel == "k2"))
     R, t = (torch.from_numpy(a) for a in _pose(rng))
     if kernel.startswith("k3"):
@@ -366,7 +502,7 @@ def test_k3_plain_on_p2line_vox_views_matches_pallas_interpret(pose):
     to = icp.IcpOptions(method="p2line_vox", dense_dims=(64, 64, 32))
     tt = convert.icp_target_from_numpy(jax.tree_util.tree_map(
         np.asarray, jicp.set_target(jpc.from_numpy(scene, capacity=8192), jo))._asdict(), "cpu")
-    tsrc = pcm.from_numpy(src, capacity=8192)
+    tsrc = pcm.from_numpy(src, capacity=8192, device="cpu")
     w = [0.0, 0.0, 0.0] if pose == "identity" else [0.01, -0.015, 0.02]
     R = torch.from_numpy(oracles.so3_exp(np.array(w)).astype(np.float32))
     t = torch.tensor([0.0, 0.0, 0.0] if pose == "identity" else [0.15, -0.1, 0.05])

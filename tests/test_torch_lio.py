@@ -56,7 +56,8 @@ def test_numpy_generators_are_bit_identical(log):
     traj = synthetic.make_trajectory(num_frames=5)
     for a, b in zip(traj, jsyn.make_trajectory(num_frames=5)):
         np.testing.assert_array_equal(a, b)
-    pc = synthetic.render_scan(world, traj.R[2], traj.t[2], max_points=512, seed=2)
+    pc = synthetic.render_scan(world, traj.R[2], traj.t[2], max_points=512, seed=2,
+                               device="cpu")
     jpc = jsyn.render_scan(world, traj.R[2], traj.t[2], max_points=512, seed=2)
     np.testing.assert_array_equal(pc.xyz.numpy(), np.asarray(jpc.xyz))
     np.testing.assert_array_equal(pc.mask.numpy(), np.asarray(jpc.mask))
@@ -248,7 +249,8 @@ def test_health_gate_is_matcher_aware():
     world = jsynth.make_world(num_points=20000, extent=60.0, seed=0)
     traj = jsynth.make_trajectory(num_frames=12, dt=0.1, speed=2.0)
     scans = [synthetic.render_scan(world, traj.R[i], traj.t[i], max_range=35.0,
-                                   max_points=2048, noise=0.005, seed=i, capacity=2048)
+                                   max_points=2048, noise=0.005, seed=i, capacity=2048,
+                                   device="cpu")
              for i in range(8)]
     args = dict(matcher="ndt_inc", scan_capacity=2048, with_eskf=False, kf_distance=0.4)
     eng = lio.Lio(lio.LioOptions(ndt=ndt.NdtOptions(method="incremental", voxel_size=1.0),

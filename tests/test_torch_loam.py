@@ -35,6 +35,11 @@ import oracles
 
 torch.set_num_threads(2)
 
+
+def _from_numpy(*args, **kwargs):
+    """pointcloud.from_numpy on the CPU (its default device is the card)."""
+    return pcm.from_numpy(*args, device="cpu", **kwargs)
+
 ULP = 2.0 ** -23
 
 
@@ -60,7 +65,7 @@ def _rendered(k, capacity=8192):
     world = jsyn.make_world(num_points=120000, extent=40.0, seed=3)
     traj = jsyn.make_trajectory(num_frames=2, dt=0.1, speed=2.0)
     pc = synthetic.render_scan(world, traj.R[k], traj.t[k], max_points=capacity, noise=0.01,
-                               seed=k, capacity=capacity)
+                               seed=k, capacity=capacity, device="cpu")
     jp = jsyn.render_scan(world, traj.R[k], traj.t[k], max_points=capacity, noise=0.01,
                           seed=k, capacity=capacity)
     return jsyn.annotate_rings(jp, num_rings=16), synthetic.annotate_rings(pc, num_rings=16,
@@ -123,7 +128,7 @@ def test_extract_features_matches_jax(scene):
     if scene == "l_shaped":
         xyz, ring = _l_shaped_rings()
         jr = jpc.from_numpy(xyz, capacity=4096, ring=ring)
-        tr = pcm.from_numpy(xyz, capacity=4096, ring=ring)
+        tr = _from_numpy(xyz, capacity=4096, ring=ring)
         jo, to = jloam.LoamFeatureOptions(num_scan=8), loam.LoamFeatureOptions(num_scan=8)
     else:
         jr, tr = _rendered(0)
@@ -174,7 +179,7 @@ def test_line_table_matches_jax():
     jo = jicp.IcpOptions(method="p2line_vox", dense_dims=(64, 64, 32))
     to = icp.IcpOptions(method="p2line_vox", dense_dims=(64, 64, 32))
     jt = jicp.set_target(jpc.from_numpy(pts, capacity=8192), jo)
-    tt = icp.set_target(pcm.from_numpy(pts, capacity=8192), to)
+    tt = icp.set_target(_from_numpy(pts, capacity=8192), to)
     np.testing.assert_array_equal(tt.grid.voxel_keys.numpy(), np.asarray(jt.grid.voxel_keys))
     jp, tp = np.asarray(jt.line_packed), tt.line_packed.numpy()
     np.testing.assert_allclose(tp[:, 0:3], jp[:, 0:3], atol=1e-5)
@@ -201,7 +206,7 @@ def test_line_table_matches_jax():
 
 def _stats(pts, to):
     from loc_lib_tpu_torch.ops import voxel
-    _, st = voxel.build_hash_grid_with_stats(pcm.from_numpy(pts, capacity=8192), to.grid_leaf,
+    _, st = voxel.build_hash_grid_with_stats(_from_numpy(pts, capacity=8192), to.grid_leaf,
                                              to.bucket_size)
     return st
 

@@ -34,6 +34,11 @@ import oracles
 
 torch.set_num_threads(2)
 
+
+def _from_numpy(*args, **kwargs):
+    """pointcloud.from_numpy on the CPU (its default device is the card)."""
+    return pcm.from_numpy(*args, device="cpu", **kwargs)
+
 CAP = 2048
 WORLD_KW = dict(world_points=20000, extent=60.0, max_range=35.0)
 
@@ -123,7 +128,7 @@ def test_crop_local_map_matches_jax(capacity):
     """Box crop: inside points first, in map order, padded to the capacity;
     a capacity above the map's padded size keeps the map's size, as in JAX."""
     world = _world()
-    gm_j, gm_t = jpc.from_numpy(world), pcm.from_numpy(world)
+    gm_j, gm_t = jpc.from_numpy(world), _from_numpy(world)
     center = np.array([3.25, -1.5, 1.5], np.float32)
     jc = jloc.crop_local_map(gm_j.xyz, gm_j.mask, jnp.asarray(center), 20.0, capacity)
     tc = loc.crop_local_map(gm_t.xyz, gm_t.mask, torch.from_numpy(center), 20.0, capacity)

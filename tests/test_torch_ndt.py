@@ -41,6 +41,11 @@ import oracles
 
 torch.set_num_threads(2)
 
+
+def _from_numpy(*args, **kwargs):
+    """pointcloud.from_numpy on the CPU (its default device is the card)."""
+    return pcm.from_numpy(*args, device="cpu", **kwargs)
+
 U = 2.0 ** -24
 
 
@@ -67,7 +72,7 @@ def _opts(method, **kw):
 
 
 def _build(method, jo, to, pts):
-    jc, tc = jpc.from_numpy(pts, capacity=2048), pcm.from_numpy(pts, capacity=2048)
+    jc, tc = jpc.from_numpy(pts, capacity=2048), _from_numpy(pts, capacity=2048)
     if method == "direct":
         return jndt.build_direct(jc, jo), ndt.build_direct(tc, to)
     return (jndt.update_incremental(jndt.empty_incremental(jo), jc, jo),
@@ -182,7 +187,7 @@ def test_incremental_epochs_with_eviction_match_jax():
                                             noise=0.005, seed=i, capacity=1024))
         pts = (pts @ traj.R[i].T + traj.t[i]).astype(np.float32)
         jm = jndt.update_incremental(jm, jpc.from_numpy(pts, capacity=1024), jo)
-        tm = ndt.update_incremental(tm, pcm.from_numpy(pts, capacity=1024), to)
+        tm = ndt.update_incremental(tm, _from_numpy(pts, capacity=1024), to)
         _assert_maps_agree(jm, tm)
     live = tm.keys != voxel.INVALID_KEY
     assert int(live.sum()) == 1024                      # at capacity: eviction fired
@@ -198,8 +203,8 @@ def test_rebuild_from_moments_matches_update_and_jax():
     jo, to = (m.NdtOptions(method="incremental", voxel_size=1.0, map_capacity=512)
               for m in (jndt, ndt))
     pts = rng.uniform(-4, 4, (600, 3)).astype(np.float32)
-    ref = ndt.update_incremental(ndt.empty_incremental(to), pcm.from_numpy(pts, capacity=1024), to)
-    parts = [voxel.voxel_stats(pcm.from_numpy(pts[lo:hi], capacity=1024), to.voxel_size,
+    ref = ndt.update_incremental(ndt.empty_incremental(to), _from_numpy(pts, capacity=1024), to)
+    parts = [voxel.voxel_stats(_from_numpy(pts[lo:hi], capacity=1024), to.voxel_size,
                                torch.zeros(3), mode=to.bin_mode)
              for lo, hi in ((0, 150), (150, 400), (400, 600))]
     keys, cnt, mean, cov = (torch.cat([getattr(p, f) for p in parts])
@@ -233,7 +238,7 @@ def test_terms_on_carried_map_match_jax(scene, method, use_fused):
     t = np.array([0.05, -0.02, 0.01], np.float32)
     Hj, bj, nj, cj = (np.asarray(a) for a in jndt._ndt_terms(
         jm, jo, jpc.from_numpy(src, capacity=2048), jnp.asarray(R), jnp.asarray(t), weighted))
-    Ht, bt, nt, ct = ndt._ndt_terms(cm, to, pcm.from_numpy(src, capacity=2048), _t(R), _t(t),
+    Ht, bt, nt, ct = ndt._ndt_terms(cm, to, _from_numpy(src, capacity=2048), _t(R), _t(t),
                                     weighted)
     assert int(nt) == int(nj) > 100
     atol = 1e-4 * max(1.0, np.abs(Hj).max())
@@ -249,10 +254,10 @@ def test_port_fused_terms_match_port_oracle(scene, method):
     tgt, src, _ = scene
     _, to_f = _opts(method)
     to_o = dataclasses.replace(to_f, use_fused=False)
-    tc = pcm.from_numpy(tgt, capacity=2048)
+    tc = _from_numpy(tgt, capacity=2048)
     m = ndt.build_direct(tc, to_f) if method == "direct" else \
         ndt.update_incremental(ndt.empty_incremental(to_f), tc, to_f)
-    sc = pcm.from_numpy(src, capacity=2048)
+    sc = _from_numpy(src, capacity=2048)
     weighted = method == "incremental"
     R, t = torch.eye(3), torch.tensor([0.05, -0.02, 0.01])
     Hf, bf, nf, cf = ndt._ndt_terms(m, to_f, sc, R, t, weighted)
@@ -271,7 +276,7 @@ def test_scan_match_on_carried_map_matches_jax(scene, method):
     jo, to = _opts(method)
     jm, tm = _build(method, jo, to, tgt)
     jr = jndt.scan_match(jm, jo, jpc.from_numpy(src, capacity=2048), jnp.eye(3), jnp.zeros(3))
-    sc = pcm.from_numpy(src, capacity=2048)
+    sc = _from_numpy(src, capacity=2048)
     tr = ndt.scan_match(_carried(jm), to, sc, torch.eye(3), torch.zeros(3))
     assert tr.iterations == int(jr.iterations)
     assert bool(tr.converged) == bool(jr.converged)
@@ -299,10 +304,10 @@ def test_empty_map_is_inert(scene, method):
                            mask=torch.zeros(1024, dtype=torch.bool))
     m = ndt.build_direct(empty, to) if method == "direct" else ndt.empty_incremental(to)
     t0 = torch.tensor([0.5, -0.5, 0.25])
-    res = ndt.scan_match(m, to, pcm.from_numpy(src, capacity=2048), torch.eye(3), t0)
+    res = ndt.scan_match(m, to, _from_numpy(src, capacity=2048), torch.eye(3), t0)
     assert torch.isfinite(res.t).all() and torch.equal(res.t, t0)
     assert int(res.num_effective) == 0 and float(res.chi2) == 0.0
-    assert float(ndt.get_fitness_score(m, to, pcm.from_numpy(src, capacity=2048),
+    assert float(ndt.get_fitness_score(m, to, _from_numpy(src, capacity=2048),
                                        torch.eye(3), t0)) == float("inf")
 
 
@@ -341,7 +346,7 @@ def test_target_from_moment_table_matches_jax(scene):
     np.testing.assert_array_equal(tt.grid.voxel_keys.numpy(), np.asarray(jt.grid.voxel_keys))
     assert int(tt.grid.num_voxels) == int(jt.grid.num_voxels)
     jr = jicp.scan_match(jt, jio, jpc.from_numpy(src, capacity=2048), jnp.eye(3), jnp.zeros(3))
-    tr = icp.scan_match(tt, tio, pcm.from_numpy(src, capacity=2048), torch.eye(3), torch.zeros(3))
+    tr = icp.scan_match(tt, tio, _from_numpy(src, capacity=2048), torch.eye(3), torch.zeros(3))
     assert tr.iterations == int(jr.iterations)
     np.testing.assert_allclose(tr.t.numpy(), np.asarray(jr.t), atol=1e-3)
     assert jvoxel.INVALID_KEY == voxel.INVALID_KEY

@@ -1,6 +1,6 @@
 """Static checks on the port package: it must run where jax is absent, so no
-module under loc_lib_tpu_torch/ (nor chip_smoke.py) may import jax or the
-JAX package, and every module must import with torch alone."""
+module under loc_lib_tpu_torch/ (nor chip_smoke.py, nor chip_kernel_study.py)
+may import jax or the JAX package, and every module must import with torch alone."""
 import ast
 import importlib
 import pathlib
@@ -25,7 +25,7 @@ def _imports(path):
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_kernel_study.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))

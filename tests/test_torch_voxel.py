@@ -12,11 +12,16 @@ from loc_lib_tpu_torch.ops import pointcloud as pcm, voxel
 
 torch.set_num_threads(2)
 
+
+def _from_numpy(*args, **kwargs):
+    """pointcloud.from_numpy on the CPU (its default device is the card)."""
+    return pcm.from_numpy(*args, device="cpu", **kwargs)
+
 ATOL = 1e-5
 
 
 def _clouds(pts, capacity):
-    return jpc.from_numpy(pts, capacity=capacity), pcm.from_numpy(pts, capacity=capacity)
+    return jpc.from_numpy(pts, capacity=capacity), _from_numpy(pts, capacity=capacity)
 
 
 def _np(x):
@@ -33,7 +38,7 @@ def test_pointcloud_round_trip_and_padding():
     np.testing.assert_array_equal(pcm.to_numpy(t), jpc.to_numpy(j))
     assert int(t.count()) == 299 and t.capacity == 512
     with pytest.raises(ValueError):
-        pcm.from_numpy(pts, capacity=16)
+        _from_numpy(pts, capacity=16)
 
 
 def test_keys_coords_and_segments_match_jax():
@@ -139,7 +144,7 @@ def test_segment_sums_are_bit_equal_to_index_add(what):
     is unchanged."""
     rng = np.random.default_rng(12)
     pts = (rng.uniform(-8, 8, size=(1500, 3)) * [1, 1, 0.1]).astype(np.float32)
-    t = pcm.from_numpy(pts, capacity=2048)
+    t = _from_numpy(pts, capacity=2048)
     inv = torch.tensor(1.0)
     origin = torch.tensor([0.25, -0.5, 0.0])
     keys = voxel.coords_to_key(voxel.voxel_coords(t.xyz, inv, origin), t.mask)
@@ -195,3 +200,39 @@ def test_segment_sums_are_bit_equal_to_index_add(what):
         assert torch.equal(m.count[:int(live.sum())], c_sum[live])
         assert torch.equal(m.mean[:int(live.sum())],
                            (s1 / torch.clamp(c_sum, min=1.0)[:, None])[live])
+
+
+def test_nearby6_and_center1_are_made_once_per_device():
+    """The stencils are cached per device: the hot loop gets the same tensor
+    back and copies nothing from the host."""
+    dev = torch.device("cpu")
+    a, b = voxel.nearby6(dev), voxel.nearby6(torch.zeros(1).device)
+    assert a is b and a.dtype == torch.int32
+    assert a.tolist() == [[0, 0, 0], [-1, 0, 0], [1, 0, 0], [0, 1, 0], [0, -1, 0],
+                          [0, 0, -1], [0, 0, 1]]
+    assert voxel.center1(dev) is voxel.center1(dev)
+
+
+def test_from_numpy_and_render_scan_default_to_the_card():
+    """Without a device argument the cloud goes to the first CUDA card;
+    where there is none that raises: no silent fall back to the CPU.
+    device="cpu" is how the CPU is asked for."""
+    from loc_lib_tpu_torch.io import synthetic
+
+    pts = np.random.default_rng(0).uniform(-1, 1, (50, 3)).astype(np.float32)
+    world = synthetic.make_world(num_points=2000, extent=20.0, seed=1)
+    traj = synthetic.make_trajectory(num_frames=1)
+    render = lambda **kw: synthetic.render_scan(world, traj.R[0], traj.t[0], max_points=256, **kw)
+    if torch.cuda.is_available():
+        assert pcm.from_numpy(pts).device == torch.device("cuda", 0)
+        assert render().device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pcm.from_numpy(pts)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            render()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pcm.card_device()
+    assert pcm.from_numpy(pts, device="cpu").device.type == "cpu"
+    assert render(device="cpu").device.type == "cpu"
+    assert pcm.card_device("cpu") == torch.device("cpu")
