@@ -6,9 +6,13 @@
 Both trees' port packages are loaded in ONE process under two module names
 and alternated (host times spread too widely between processes): the
 wrappers' host time per call, the linearizations (gather + kernel) per
-call, launches and ms per headline match, and per-scan times of LIO `icp`
-and Loc with both methods. PARENT_DIR holds a checkout of the parent commit
-(e.g. unpacked with `git archive`).
+call for p2plane_vox, p2plane_vox_oct, NDT (`ndt._ndt_terms`) and
+p2line_vox, launches and ms per headline match and per 3-iteration NDT
+match, and per-scan times of LIO `icp`, LIO `ndt_inc`, LOAM and Loc with
+both methods. Every timing comes before the first profiler session. Rows
+whose code is the same in both trees are the control: they show what the
+comparison reads for no change. PARENT_DIR holds a checkout of the parent
+commit (e.g. unpacked with `git archive`).
 
 Every line of output carries the card's name and power limit. Exits
 non-zero without a CUDA device.
@@ -39,19 +43,36 @@ def _load_tree(alias, root):
     return lambda sub: importlib.import_module(f"{alias}.{sub}")
 
 
-def _lio_p50(get, device, log):
-    lio, icp = get("pipeline.lio"), get("models.icp")
-    opts = lio.LioOptions(matcher="icp", icp=icp.IcpOptions(method="p2plane_vox"),
-                          scan_capacity=8192, with_eskf=True)
+def _lio_p50(get, device, log, matcher="icp", ringed=None):
+    """p50 ms per scan and the poses of one 40-frame LIO run of the tree
+    `get` loads: chip_smoke's options for `matcher` ("icp", "ndt_inc", or
+    "loam" on the ring-annotated scans `ringed`, features extracted outside
+    the timed step)."""
+    lio, icp, ndt, loam = (get(m) for m in ("pipeline.lio", "models.icp", "models.ndt",
+                                            "models.loam"))
+    if matcher == "loam":
+        fo = loam.LoamFeatureOptions(num_scan=16, min_ring_pts=64)
+        opts = lio.LioOptions(matcher="loam", loam=loam.LoamOption(feature=fo),
+                              scan_capacity=8192, with_eskf=True)
+    else:
+        opts = lio.LioOptions(matcher=matcher, icp=icp.IcpOptions(method="p2plane_vox"),
+                              ndt=ndt.NdtOptions(method="incremental", voxel_size=1.0),
+                              scan_capacity=8192, with_eskf=True)
     eng = lio.Lio(opts, device=device)
     for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
         eng.init_imu(g, a, t)
     times = []
     for mg in log.measures(imu_capacity=64):
-        scan = log.frame(mg.scan_index, device)
+        edge = None
+        if matcher == "loam":
+            f = loam.extract_features(ringed[mg.scan_index], opts.loam.feature)
+            scan, edge = f.surf, f.edge
+        else:
+            scan = log.frame(mg.scan_index, device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.add_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+        eng.add_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid,
+                        edge_scan=edge)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.percentile(times[cs.LIO_WARMUP:], 50)), np.stack(eng.poses)
@@ -94,11 +115,17 @@ def ab(device, card, parent_dir, reps=10):
     # per call: the wrappers alone (rows / plane given: the interface both
     # trees have) and the whole linearization (gather + kernel)
     calls = {}
+    tgt_edges, src_edges = cs._loam_style_edges(tgt_pc, device), cs._loam_style_edges(src, device)
     for side, get in trees.items():
-        icp, kernels = get("models.icp"), get("ops.kernels")
+        icp, ndt, kernels = get("models.icp"), get("models.ndt"), get("ops.kernels")
         pc = get("ops.pointcloud")
         mk = lambda c: pc.PointCloud(xyz=c.xyz, mask=c.mask)
         s, T = mk(src), mk(tgt_pc)
+        no = ndt.NdtOptions(method="incremental", voxel_size=1.0)
+        n3 = ndt.NdtOptions(method="incremental", voxel_size=1.0, max_iteration=3)
+        nmap = ndt.update_incremental(ndt.empty_incremental(no, device=device), T, no)
+        ol = icp.IcpOptions(method="p2line_vox")
+        line_tgt, e = icp.set_target(mk(tgt_edges), ol), mk(src_edges)
         oo = icp.IcpOptions(method="p2plane_vox_oct")
         ov = icp.IcpOptions(method="p2plane_vox")
         target = icp.set_target(T, oo)
@@ -115,6 +142,12 @@ def ab(device, card, parent_dir, reps=10):
                 i._p2plane_vox_terms(tg, o, s, R, t, gate=g),
             "p2plane_vox_oct linearization": lambda i=icp, tg=target, o=oo, s=s, g=gate:
                 i._p2plane_vox_oct_terms(tg, o, s, R, t, gate=g),
+            "NDT linearization (ndt._ndt_terms, weighted, S=7)":
+                lambda d=ndt, m=nmap, o=no, s=s: d._ndt_terms(m, o, s, R, t, True),
+            "p2line_vox linearization": lambda i=icp, tg=line_tgt, o=ol, e=e:
+                i._p2line_vox_terms(tg, o, e, R, t),
+            "match ndt incremental, max 3 iterations":
+                lambda d=ndt, m=nmap, o=n3, s=s: d.scan_match(m, o, s, R, t),
             "match p2plane_vox": lambda i=icp, tg=target, o=ov, s=s: i.scan_match(tg, o, s, R, t),
             "match p2plane_vox_oct": lambda i=icp, tg=target, o=oo, s=s:
                 i.scan_match(tg, o, s, R, t),
@@ -156,11 +189,16 @@ def ab(device, card, parent_dir, reps=10):
 
 
 def per_scan(device, card, trees, order, reps):
-    """LIO icp and Loc with both methods, 40 frames each, per tree in turns."""
+    """LIO ndt_inc, LOAM, LIO icp and Loc with both methods, 40 frames each,
+    per tree in turns."""
     log = cs.demo_log()
     from loc_lib_tpu_torch.io import synthetic
     world = synthetic.make_world(num_points=120000, extent=80.0, seed=0)
-    runs = {"LIO icp p50": lambda get: _lio_p50(get, device, log),
+    ringed = [synthetic.annotate_rings(log.frame(k, device), num_rings=16, device=device)
+              for k in range(log.scan_xyz.shape[0])]
+    runs = {"LIO ndt_inc p50": lambda get: _lio_p50(get, device, log, "ndt_inc"),
+            "LOAM p50": lambda get: _lio_p50(get, device, log, "loam", ringed),
+            "LIO icp p50": lambda get: _lio_p50(get, device, log),
             "Loc p2plane_vox p50": lambda get: _loc_p50(get, device, log, world, "p2plane_vox"),
             "Loc p2plane_vox_oct p50": lambda get: _loc_p50(get, device, log, world,
                                                             "p2plane_vox_oct")}

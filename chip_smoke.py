@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from csrc/, holds each against its plain
-PyTorch version on the card (K1 and K2 in both modes: plane / rows given,
-and from the target with the gather inside the kernel), then drives the
+Builds the hand-written kernels from csrc/ (failing if a body spills
+registers), holds each against its plain PyTorch version on the card (every
+kernel in all its modes: plane / rows given, and from the target or the map
+with the gather inside the kernel, where K3 must also give the bits of the
+torch gather followed by the rows-given kernel), then drives the
 port's paths through the entry points a user calls: the headline scan-to-map match (set_target +
 scan_match, p2plane_vox_oct, 65,536-point target, 8,192-point source), 40
 frames of LIO mapping (Lio.add_measure, p2plane_vox + ESKF, scan capacity
@@ -16,7 +18,8 @@ on every run, and drives LOAM odometry (annotate_rings + extract_features +
 Lio.add_measure with edge_scan) and localization against a prior map
 (Loc.update_measure with p2plane_vox and p2plane_vox_oct, and two runs
 that re-crop). Launch counters, set to 0 before each path and read after
-it, show each path went through its kernels. Then it compares a match with
+it, show each path went through its kernels (one K3 launch per NDT or
+p2line_vox linearization). Then it compares a match with
 the gather in torch ops against the shipped one (same bits; launches per
 Gauss-Newton iteration), and only then opens the profiler: device time per
 kernel call, and the time of the paths broken down per layer
@@ -32,6 +35,7 @@ before doing anything.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -112,8 +116,13 @@ def phase_build() -> None:
             report.append(line.split("'")[1] if "'" in line else line.strip())
         elif "registers" in line or "spill" in line:
             report.append(line.replace("ptxas info    :", "").strip())
-    print(f"phase 2 build: {info.path.name} in {secs:.1f} s "
-          f"({'compiled' if info.built_now else 'cached'}); ptxas: " + " | ".join(report),
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info.log)
+    if not spills or any(int(a) or int(b) for a, b in spills):
+        raise AssertionError("a kernel body spills registers (or ptxas reported none):\n"
+                             + "\n".join(report))
+    print(f"phase 2 build: {info.path.name} in {secs:.1f} s ({len(spills)} kernel bodies, "
+          f"none spills; "
+          f"{'compiled' if info.built_now else 'cached'}); ptxas: " + " | ".join(report),
           flush=True)
 
 
@@ -242,6 +251,12 @@ def _compare(name, got, plain, A, rows_per_point=1):
     return err, chk.ratio
 
 
+def _gram_is_zero(got) -> bool:
+    H, b, cnt, chi2 = got
+    return int(cnt) == 0 and not torch.any(H != 0) and not torch.any(b != 0) \
+        and float(chi2) == 0.0
+
+
 def _planted_errors_are_caught(name, got, A, rows_per_point=1):
     """The check must reject a result with chi2 = 0, with b's translation
     part dropped, or with one H entry off by 1e-3 of itself."""
@@ -345,8 +360,7 @@ def phase_kernels(device, card, workload):
                               torch.zeros((n, 4), device=device)),
                              ("p2plane_pick_fused_terms", K2,
                               torch.zeros((n, 7, 8), device=device))):
-        H, bb, cnt, chi2 = fn(pad_q, extra, zero_w, R, t, 0.1)
-        if int(cnt) != 0 or torch.any(H != 0) or torch.any(bb != 0) or float(chi2) != 0:
+        if not _gram_is_zero(fn(pad_q, extra, zero_w, R, t, 0.1)):
             raise AssertionError(f"{kname}: all-masked input did not give G = 0")
     cases.append("all-masked G=0 ok")
 
@@ -475,8 +489,10 @@ def _lattice_target(device, side=16):
     centre, its plane through the centroid with the normal along the axis
     (cx + cy + cz) mod 3, so face neighbours carry different planes. A point
     on a voxel corner (integer coordinates) is then exactly equidistant from
-    its own centroid and those of its -x, -y and -z neighbours. Returns
-    (target with the octant tables, options)."""
+    its own centroid and those of its -x, -y and -z neighbours. The same
+    cells carry a line through the centroid along that axis (line_packed:
+    W = [v0 v1 0], the two other axes). Returns (target with the octant
+    tables and the line table, options)."""
     from loc_lib_tpu_torch.models import icp
     from loc_lib_tpu_torch.ops import voxel
 
@@ -500,8 +516,12 @@ def _lattice_target(device, side=16):
         inv_leaf=torch.ones((), device=device), origin=torch.zeros(3, device=device))
     dense = voxel.build_dense_index(keys, dims=opts.dense_dims)
     dense_oct, oct_table, packed_ext = icp._build_oct_tables(grid, dense, packed, opts)
+    v0, v1 = normal.roll(1, dims=1), normal.roll(2, dims=1)
+    W = torch.stack([v0, v1, torch.zeros_like(v0)], dim=2).reshape(v, 9)
+    line_packed = torch.cat([mu, W, torch.ones((v, 1), device=device)], dim=1).contiguous()
     return icp.IcpTarget(grid=grid, packed=packed, dense=dense, dense_oct=dense_oct,
-                         oct_table=oct_table, packed_ext=packed_ext), opts
+                         oct_table=oct_table, packed_ext=packed_ext,
+                         line_packed=line_packed), opts
 
 
 def phase_kernels_from_target(device, card, workload):
@@ -546,8 +566,7 @@ def phase_kernels_from_target(device, card, workload):
         torch.cuda.synchronize()
         A = rows_fn(*args)
         e, r = _compare(f"{kname} from target, {label}", got, plain(*args), A)
-        if expect_zero and (int(got[2]) != 0 or torch.any(got[0] != 0) or torch.any(got[1] != 0)
-                            or float(got[3]) != 0):
+        if expect_zero and not _gram_is_zero(got):
             raise AssertionError(f"{kname} from target, {label}: expected G = 0")
         if not expect_zero and int(got[2]) < opts.min_effective_pts:
             raise AssertionError(f"{kname} from target, {label}: kept {int(got[2])} points")
@@ -724,10 +743,9 @@ def phase_kernels_k3(device, card):
     pad = torch.full((n, 3), 1e6, device=device)
     zrows = torch.zeros((n, S, 13), device=device)
     for weighted in (True, False):
-        H, bb, cnt, chi2 = K3(pad, pad, zrows[..., 0:3], zrows[..., 3:12],
-                              torch.zeros((n, S), device=device), torch.eye(3, device=device),
-                              torch.zeros(3, device=device), NDT_TH, weighted)
-        if int(cnt) != 0 or torch.any(H != 0) or torch.any(bb != 0) or float(chi2) != 0:
+        if not _gram_is_zero(K3(pad, pad, zrows[..., 0:3], zrows[..., 3:12],
+                                torch.zeros((n, S), device=device), torch.eye(3, device=device),
+                                torch.zeros(3, device=device), NDT_TH, weighted)):
             raise AssertionError("K3: all-invalid input did not give G = 0")
     cases.append("all-invalid G=0 ok")
 
@@ -746,6 +764,250 @@ def phase_kernels_k3(device, card):
                      "K3 plain": (lambda: K3p(*args, R, t, NDT_TH, True), False)}
     return {"ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": bound_by,
             "err": err}, profile_later
+
+
+def _k3_map_bound(q, mask, R, t, packed, index, S, bin_mode, valid):
+    """(bound_ms, bound_by, bytes, float32 operations) of K3 finding its own
+    voxels, for these inputs: points and mask, each distinct table cell
+    (4 B) and packed row the stencils touch, the pose and index scalars, the
+    outputs; qs and the voxel coordinates per point and K3's rows per valid
+    (point, voxel) pair (`valid` of them)."""
+    from loc_lib_tpu_torch.ops import kernels, voxel
+
+    c = voxel.voxel_coords(kernels.transform_plain(q, R, t), index.inv_leaf, index.origin,
+                           mode=bin_mode)
+    st = voxel.nearby6(q.device) if S == 7 else voxel.center1(q.device)
+    cells, slots = _cells_and_slots(index, voxel.coords_to_key(c[:, None, :] + st[None],
+                                                               mask[:, None]))
+    n_bytes = (q.shape[0] * 13 + cells * 4 + torch.unique(slots).numel() * packed.shape[1] * 4
+               + POSE_BYTES + INDEX_BYTES + OUT_BYTES)
+    flops = q.shape[0] * (18 + 9) + int(valid) * FLOPS_K3_VOXEL
+    return (*_bound(n_bytes, flops), n_bytes, flops)
+
+
+def _loam_style_edges(cloud, device):
+    """The edge points of a cloud as the LOAM path finds them: ring
+    annotation (16 rings), then extract_features with bench_loam's options."""
+    from loc_lib_tpu_torch.io import synthetic
+    from loc_lib_tpu_torch.models import loam
+
+    fo = loam.LoamFeatureOptions(num_scan=16, min_ring_pts=64)
+    return loam.extract_features(synthetic.annotate_rings(cloud, num_rings=16, device=device),
+                                 fo).edge
+
+
+def phase_kernels_k3_from_map(device, card, workload):
+    """K3 finding its own voxels (the modes the matchers run) against its
+    plain versions and against the composition it replaces, which must give
+    the same bits: the gather (and, for p2line, the election) in torch ops,
+    then K3 with the rows given.
+
+    From the map: every built body (S = 7 and 1, weighted on an
+    update_incremental map and direct on a build_direct map, trunc and floor
+    binning), N = 8192 and 8191, maps from the headline's 65,536-point target,
+    the 8,192-point source at the headline's initial pose; all masked, an
+    empty map, all outside the key window, all off the table (G = 0). p2line:
+    a line target over the LOAM-style edge points of the headline target,
+    the source's edge points; the same rejections; a lattice target with
+    points on voxel corners (4-way ties: the point's own voxel must win).
+    Counts exact, every entry within the per-entry bound; planted errors
+    rejected; 50 repeats bit-equal; an S or binning the kernel was not built
+    for raises. Then times at the main path's shape, in turns.
+    Returns ({"ndt_fused_terms": dict of ms, plain_ms, bound, err}, the calls
+    to profile at the end of the run)."""
+    from loc_lib_tpu_torch.models import icp, ndt
+    from loc_lib_tpu_torch.ops import kernels
+
+    tgt_pc, src, _, _, R_init, t_init = workload
+    odd = src._replace(xyz=src.xyz[:8191].contiguous(), mask=src.mask[:8191].contiguous())
+    nobody = src._replace(xyz=torch.full_like(src.xyz, 1e6), mask=torch.zeros_like(src.mask))
+    eye, zero = torch.eye(3, device=device), torch.zeros(3, device=device)
+    state = {"err": 0.0, "ratio": 0.0}
+    cases = []
+
+    def same_bits(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def hold(label, got, plain, A, rows_per_point, composed, expect_zero, min_count):
+        torch.cuda.synchronize()
+        e, r = _compare(label, got, plain, A, rows_per_point)
+        if not same_bits(got, composed):
+            raise AssertionError(f"{label}: differs from the torch gather + rows-given kernel")
+        if expect_zero and not _gram_is_zero(got):
+            raise AssertionError(f"{label}: expected G = 0")
+        if not expect_zero and int(got[2]) < min_count:
+            raise AssertionError(f"{label}: kept only {int(got[2])} residuals")
+        state["err"], state["ratio"] = max(state["err"], e), max(state["ratio"], r)
+        cases.append(f"{label} ok (cnt {int(got[2])}, err {e:.3g}, err/bound {r:.3g})")
+
+    def check_map(label, args, expect_zero=False):
+        q, mask, R, t, th, weighted, packed, index, S, bin_mode = args
+        got = kernels.ndt_fused_terms_from_map(*args)
+        qs, mu, W, valid = kernels.ndt_stencil_rows_plain(q, mask, R, t, packed, index, S,
+                                                          bin_mode)
+        composed = kernels.ndt_fused_terms(q, qs, mu, W, valid, R, t, th, weighted)
+        hold(f"K3 from map, {label}", got, kernels.ndt_from_map_terms_plain(*args),
+             kernels.ndt_from_map_rows_plain(*args), 3 * S, composed, expect_zero, 100)
+        return got
+
+    def check_line(label, args, expect_zero=False, min_count=100):
+        q, mask, R, t, gate, packed, index = args
+        got = kernels.p2line_fused_terms_from_target(*args)
+        qs, mu, W, w = kernels.p2line_elect_plain(q, mask, R, t, packed, index)
+        composed = kernels.ndt_fused_terms(q, qs, mu, W, w, R, t, float(gate) ** 2, True)
+        hold(f"K3 p2line, {label}", got, kernels.p2line_from_target_terms_plain(*args),
+             kernels.p2line_from_target_rows_plain(*args), 3, composed, expect_zero, min_count)
+        return got
+
+    # from the map: every built body
+    main = direct_main = None
+    for bin_mode in ("trunc", "floor"):
+        for method, weighted in (("incremental", True), ("direct", False)):
+            for nearby, S in (("nearby6", 7), ("center", 1)):
+                o = ndt.NdtOptions(method=method, voxel_size=1.0, nearby=nearby,
+                                   bin_mode=bin_mode)
+                m = (ndt.update_incremental(ndt.empty_incremental(o, device=device), tgt_pc, o)
+                     if weighted else ndt.build_direct(tgt_pc, o))
+                what = f"{'weighted' if weighted else 'direct'} S={S} {bin_mode}"
+                args = ndt._from_map_args(m, o, src, R_init, t_init, weighted)
+                got = check_map(f"{what} N={src.capacity}", args)
+                check_map(f"{what} N={odd.capacity}",
+                          ndt._from_map_args(m, o, odd, R_init, t_init, weighted))
+                if (bin_mode, weighted, S) == ("trunc", False, 7):
+                    direct_main = (m, o)
+                if (bin_mode, weighted, S) == ("trunc", True, 7):
+                    main = (m, o, args)
+                    _planted_errors_are_caught("K3 from map", got,
+                                               kernels.ndt_from_map_rows_plain(*args), 3 * S)
+                    for _ in range(50):     # the ticket must be back at 0 after every call
+                        again = kernels.ndt_fused_terms_from_map(*args)
+                    if not same_bits(got, again):
+                        raise AssertionError("K3 from map: repeated calls differ")
+    m, o, main_args = main
+    for weighted in (True, False):
+        check_map(f"all masked, weighted={weighted}",
+                  ndt._from_map_args(m, o, nobody, R_init, t_init, weighted), expect_zero=True)
+        check_map(f"empty map, weighted={weighted}",
+                  ndt._from_map_args(ndt.empty_incremental(o, device=device), o, src, R_init,
+                                     t_init, weighted), expect_zero=True)
+    check_map("all outside the key window",
+              ndt._from_map_args(m, o, src._replace(xyz=src.xyz + 5000.0), eye, zero, True),
+              expect_zero=True)
+    check_map("all off the table",
+              ndt._from_map_args(m, o, src._replace(xyz=src.xyz + 400.0), eye, zero, True),
+              expect_zero=True)
+    launched = kernels.LAUNCHES["ndt_fused_terms"]
+    for bad in ((*main_args[:8], 5, "trunc"), (*main_args[:8], 7, "round")):
+        try:
+            kernels.ndt_fused_terms_from_map(*bad)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"K3 from map with S={bad[8]}, {bad[9]} binning did not raise")
+    if kernels.LAUNCHES["ndt_fused_terms"] != launched:
+        raise AssertionError("a refused K3 call counted a launch")
+    cases.append("planted chi2 / b / H errors rejected; 50 repeats bit-equal; S=5 and "
+                 "'round' binning raise")
+
+    # p2line: a line target over LOAM-style edge points
+    lo = icp.IcpOptions(method="p2line_vox")
+    line_tgt = icp.set_target(_loam_style_edges(tgt_pc, device), lo)
+    edges = _loam_style_edges(src, device)
+
+    def line_args(target, opts, cloud, R, t, gate):
+        return (cloud.xyz, cloud.mask, R, t, gate, target.line_packed,
+                icp._index(target, opts, target.dense))
+
+    line_main = line_args(line_tgt, lo, edges, R_init, t_init, lo.max_line_distance)
+    got = check_line(f"headline edge points ({int(edges.mask.sum())} of N={edges.capacity}, "
+                     f"{int(line_tgt.line_packed[:, 12].sum())} valid lines)", line_main,
+                     min_count=lo.min_effective_pts)
+    _planted_errors_are_caught("K3 p2line", got,
+                               kernels.p2line_from_target_rows_plain(*line_main), 3)
+    for _ in range(50):
+        again = kernels.p2line_fused_terms_from_target(*line_main)
+    if not same_bits(got, again):
+        raise AssertionError("K3 p2line: repeated calls differ")
+    odd_edges = edges._replace(xyz=edges.xyz[:8191].contiguous(),
+                               mask=edges.mask[:8191].contiguous())
+    check_line("N=8191, wide gate", line_args(line_tgt, lo, odd_edges, R_init, t_init, 2.5),
+               min_count=lo.min_effective_pts)
+    check_line("all masked", line_args(line_tgt, lo, nobody, R_init, t_init, 0.5),
+               expect_zero=True)
+    check_line("all outside the key window",
+               line_args(line_tgt, lo, edges._replace(xyz=edges.xyz + 5000.0), eye, zero, 0.5),
+               expect_zero=True)
+    check_line("all off the table",
+               line_args(line_tgt, lo, edges._replace(xyz=edges.xyz + 400.0), eye, zero, 0.5),
+               expect_zero=True)
+    # voxel corners: 4-way ties, the point's own voxel (the centre gather) must win
+    lattice, lopts = _lattice_target(device)
+    g = torch.Generator().manual_seed(2)
+    corners = src._replace(
+        xyz=torch.randint(-7, 7, (8192, 3), generator=g).to(torch.float32).to(device),
+        mask=torch.ones(8192, dtype=torch.bool, device=device))
+    largs = line_args(lattice, lopts, corners, eye, zero, 1.0)
+    tie = check_line("points on voxel corners", largs)
+    own = kernels.ndt_fused_terms(corners.xyz, *kernels.ndt_stencil_rows_plain(
+        corners.xyz, corners.mask, eye, zero, lattice.line_packed, largs[6], 1, "floor"),
+        eye, zero, 1.0, True)
+    if int(tie[2]) != 8192 or not same_bits(tie, own):
+        raise AssertionError("K3 p2line: on a 4-way tie the point's own voxel did not win")
+    cases.append("8192 election ties: the point's own voxel wins")
+
+    # times at the main path's shape, in turns
+    def composed_map():
+        q, mask, R, t, th, weighted, packed, index, S, bin_mode = main_args
+        qs, mu, W, valid = kernels.ndt_stencil_rows_plain(q, mask, R, t, packed, index, S,
+                                                          bin_mode)
+        return kernels.ndt_fused_terms(q, qs, mu, W, valid, R, t, th, weighted)
+
+    def composed_line():
+        q, mask, R, t, gate, packed, index = line_main
+        qs, mu, W, w = kernels.p2line_elect_plain(q, mask, R, t, packed, index)
+        return kernels.ndt_fused_terms(q, qs, mu, W, w, R, t, float(gate) ** 2, True)
+
+    out, profile_later = {}, {}
+    valid_pairs = kernels.ndt_stencil_rows_plain(*main_args[:4], *main_args[6:])[3].sum()
+    line_valid = kernels.p2line_elect_plain(*line_main[:4], *line_main[5:])[3].sum()
+    for short, fns, bound in (
+            ("K3 from map", {
+                "plain": lambda: kernels.ndt_from_map_terms_plain(*main_args),
+                "torch gather + kernel": composed_map,
+                "from map": lambda: kernels.ndt_fused_terms_from_map(*main_args)},
+             _k3_map_bound(*main_args[:4], *main_args[6:], valid_pairs)),
+            ("K3 p2line", {
+                "plain": lambda: kernels.p2line_from_target_terms_plain(*line_main),
+                "torch gather + election + kernel": composed_line,
+                "from target": lambda: kernels.p2line_fused_terms_from_target(*line_main)},
+             _k3_map_bound(*line_main[:4], *line_main[5:], 7, "floor", line_valid))):
+        ms = _time_in_turns(fns)
+        host = {label: _enqueue_us(f) for label, f in fns.items() if label != "plain"}
+        bound_ms, bound_by, n_bytes, flops = bound
+        print(f"phase 3 {short} at the headline inputs (N={src.capacity}) [{card}]: per-call "
+              f"CUDA-event medians of {2 * TIMING_REPS} in turns: "
+              + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + " | host time to enqueue one call: "
+              + "; ".join(f"{k} {v:.1f} us" for k, v in host.items())
+              + f" | bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} B, {flops} float32 ops)",
+              flush=True)
+        kernel_label = list(fns)[-1]
+        out[short] = {"ms": ms[kernel_label], "plain_ms": ms["plain"], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "err": state["err"]}
+        for label, f in fns.items():
+            profile_later[f"{short}: {label}"] = (f, label == kernel_label)
+    # the matchers' own linearizations: each must be ONE launch
+    profile_later["ndt._ndt_terms weighted"] = (
+        lambda: ndt._ndt_terms(m, o, src, R_init, t_init, True), True)
+    profile_later["ndt._ndt_terms direct"] = (
+        lambda: ndt._ndt_terms(*direct_main, src, R_init, t_init, False), True)
+    profile_later["icp._p2line_vox_terms"] = (
+        lambda: icp._p2line_vox_terms(line_tgt, lo, edges, R_init, t_init), True)
+    print("phase 3 K3 from the map / p2line vs plain and vs torch gather + rows given "
+          "(bit-equal): " + "; ".join(cases), flush=True)
+    print(f"phase 3 K3 from the map / p2line, largest error / per-entry bound: "
+          f"{state['ratio']:.4g}", flush=True)
+    return out, profile_later
 
 
 # ---------------------------------------------------------------------------
@@ -925,7 +1187,7 @@ def phase_lio(device, card, matcher="icp", label="phase 5", ate_limit=ATE_LIMIT_
     """LIO_FRAMES frames of the demo log (capacity 8192, yaw rate 0, 2 m/s)
     through Lio.add_measure after a static IMU init from the first 150
     samples. Returns (options, the state the last scan was matched against,
-    the last scan, its StepResult)."""
+    the last scan, its StepResult, the GN iterations of the whole run)."""
     from loc_lib_tpu_torch.eval import metrics
 
     log = demo_log()
@@ -952,7 +1214,7 @@ def phase_lio(device, card, matcher="icp", label="phase 5", ate_limit=ATE_LIMIT_
           f"p50 {np.percentile(steady, 50):.2f} ms/scan, p95 "
           f"{np.percentile(steady, 95):.2f} ms/scan over frames {LIO_WARMUP}-"
           f"{LIO_FRAMES - 1} (host clock) [{card}]", flush=True)
-    return opts, before, scan, out
+    return opts, before, scan, out, int(np.sum(iters))
 
 
 def _modes_on_map(kernel, name, target, opts, scan, modes):
@@ -1012,7 +1274,7 @@ def phase_lio_k2_check(lio_last):
     """K2 against its plain version, in both modes, on the LIO path's own
     target: the local map the last scan was matched to, at that scan's
     final pose."""
-    lio_opts, before, scan, out = lio_last
+    lio_opts, before, scan, out = lio_last[:4]
     err, text = _k2_on_map("the LIO local map", before.icp_target, lio_opts.icp, scan,
                            out.R, out.t)
     print(f"phase 5 {text}", flush=True)
@@ -1020,29 +1282,39 @@ def phase_lio_k2_check(lio_last):
 
 
 def phase_lio_k3_check(ndt_last, label):
-    """K3 against its plain version on an NDT LIO path's own inputs: the map
-    the last scan was matched to (incremental for ndt_inc, weighted; direct
-    for ndt), that scan, its final pose."""
+    """K3 against its plain versions on an NDT LIO path's own inputs: the
+    map the last scan was matched to (incremental for ndt_inc, weighted;
+    direct for ndt), that scan, its final pose. From the map (what the path
+    runs) and with the rows given (the gather in torch ops): the two must
+    give the same bits."""
     from loc_lib_tpu_torch.models import ndt
     from loc_lib_tpu_torch.ops import kernels
 
-    lio_opts, before, scan, out = ndt_last
+    lio_opts, before, scan, out = ndt_last[:4]
     m = before.ndt_map
     opts = lio_opts.ndt_inc if lio_opts.matcher == "ndt_inc" else lio_opts.ndt
     weighted = opts.method == "incremental"
-    args = (*ndt._fused_inputs(m, opts, scan, out.R, out.t), out.R, out.t,
-            opts.res_outlier_th, weighted)
-    got = kernels.ndt_fused_terms(*args)
-    S = args[4].shape[1]
+    args = ndt._from_map_args(m, opts, scan, out.R, out.t, weighted)
+    S = args[8]
     name = f"K3 on the LIO {lio_opts.matcher} map"
-    err, ratio = _compare(name, got, kernels.ndt_fused_terms_plain(*args),
-                          kernels.ndt_rows_plain(*args), 3 * S)
+    got = kernels.ndt_fused_terms_from_map(*args)
+    err, ratio = _compare(f"{name}, from map", got, kernels.ndt_from_map_terms_plain(*args),
+                          kernels.ndt_from_map_rows_plain(*args), 3 * S)
+    given = (scan.xyz, *kernels.ndt_stencil_rows_plain(*args[:4], *args[6:]), out.R, out.t,
+             opts.res_outlier_th, weighted)
+    got_given = kernels.ndt_fused_terms(*given)
+    err_g, ratio_g = _compare(f"{name}, rows given", got_given,
+                              kernels.ndt_fused_terms_plain(*given),
+                              kernels.ndt_rows_plain(*given), 3 * S)
+    if not all(torch.equal(x, y) for x, y in zip(got, got_given)):
+        raise AssertionError(f"{name}: from map and rows given differ")
     if int(got[2]) < opts.min_effective_pts:
         raise AssertionError(f"{name} kept only {int(got[2])} residuals")
     print(f"{label} {name} vs plain ({int(m.estimated.sum())} estimated voxels, "
-          f"N={scan.capacity}, S={S}, {'weighted' if weighted else 'direct'}): "
-          f"cnt {int(got[2])}, err {err:.3g}, err/bound {ratio:.3g}", flush=True)
-    return err
+          f"N={scan.capacity}, S={S}, {'weighted' if weighted else 'direct'}, {opts.bin_mode}): "
+          f"from map: cnt {int(got[2])}, err {err:.3g}, err/bound {ratio:.3g}; rows given: "
+          f"err {err_g:.3g}, err/bound {ratio_g:.3g}; same bits", flush=True)
+    return max(err, err_g)
 
 
 # ---------------------------------------------------------------------------
@@ -1113,7 +1385,8 @@ def phase_loam(device, card):
     (as the bench does: a sensor delivers the ring), then extract_features
     (timed on its own) and Lio.add_measure(surf, ..., edge_scan=edge) (the
     step time). Returns (options, the state the last scan was matched
-    against, its surf and edge clouds, its StepResult)."""
+    against, its surf and edge clouds, its StepResult, the GN iterations of
+    the whole run)."""
     from loc_lib_tpu_torch.eval import metrics
     from loc_lib_tpu_torch.io import synthetic
     from loc_lib_tpu_torch.models import loam
@@ -1159,32 +1432,41 @@ def phase_loam(device, card):
     print(f"phase 5e LOAM extract_features: p50 {np.percentile(fe, 50):.2f} ms, p95 "
           f"{np.percentile(fe, 95):.2f} ms per scan (host clock), {np.mean(n_edge):.0f} edge "
           f"points per scan [{card}]", flush=True)
-    return opts, before, surf, edge, out
+    return opts, before, surf, edge, out, int(np.sum(iters))
 
 
 def phase_loam_checks(loam_last):
-    """K3 at S = 1, weighted (the p2line_vox shape) on the LOAM path's own
-    edge map, and K2 on its own surf map: the maps the last scan was matched
-    to, at that scan's final pose. Returns (K3 error, K2 error)."""
+    """K3 in p2line mode (what the path runs) and at S = 1, weighted, with
+    the elected rows given, on the LOAM path's own edge map (same bits), and
+    K2 on its own surf map: the maps the last scan was matched to, at that
+    scan's final pose. Returns (K3 error, K2 error)."""
     from loc_lib_tpu_torch.models import icp
     from loc_lib_tpu_torch.ops import kernels
 
-    opts, before, surf, edge, out = loam_last
+    opts, before, surf, edge, out = loam_last[:5]
     tgt, eo, so = before.loam_target, opts.loam.edge_icp, opts.loam.surf_icp
-    qs, rows, w = icp._p2line_vox_rows(tgt.edge, eo, edge, out.R, out.t)
-    args = (edge.xyz, qs, rows[..., 0:3], rows[..., 3:12], w, out.R, out.t,
-            eo.max_line_distance ** 2, True)
-    got = kernels.ndt_fused_terms(*args)
-    k3_err, r3 = _compare("K3 S=1 on the LOAM edge map", got, kernels.ndt_fused_terms_plain(*args),
-                          kernels.ndt_rows_plain(*args), 3)
+    args = (edge.xyz, edge.mask, out.R, out.t, eo.max_line_distance, tgt.edge.line_packed,
+            icp._index(tgt.edge, eo, tgt.edge.dense))
+    got = kernels.p2line_fused_terms_from_target(*args)
+    k3_err, r3 = _compare("K3 p2line on the LOAM edge map", got,
+                          kernels.p2line_from_target_terms_plain(*args),
+                          kernels.p2line_from_target_rows_plain(*args), 3)
+    given = (edge.xyz, *icp._p2line_vox_rows(tgt.edge, eo, edge, out.R, out.t), out.R, out.t,
+             eo.max_line_distance ** 2, True)
+    got_given = kernels.ndt_fused_terms(*given)
+    e_g, r_g = _compare("K3 S=1 on the LOAM edge map", got_given,
+                        kernels.ndt_fused_terms_plain(*given), kernels.ndt_rows_plain(*given), 3)
+    if not all(torch.equal(x, y) for x, y in zip(got, got_given)):
+        raise AssertionError("K3 on the LOAM edge map: p2line mode and rows given differ")
     if int(got[2]) < eo.min_effective_pts:
         raise AssertionError(f"K3 on the LOAM edge map kept only {int(got[2])} residuals")
     k2_err, k2_text = _k2_on_map("the LOAM surf map", tgt.surf, so, surf, out.R, out.t)
-    print(f"phase 5e K3 (S=1, weighted) vs plain on the LOAM edge map "
+    print(f"phase 5e K3 vs plain on the LOAM edge map "
           f"({int(tgt.edge.line_packed[:, 12].sum())} valid lines, N={edge.capacity}, "
-          f"{int(edge.mask.sum())} edge points): cnt {int(got[2])}, err {k3_err:.3g}, "
-          f"err/bound {r3:.3g}; {k2_text}", flush=True)
-    return k3_err, k2_err
+          f"{int(edge.mask.sum())} edge points): p2line from target: cnt {int(got[2])}, err "
+          f"{k3_err:.3g}, err/bound {r3:.3g}; S=1 weighted, rows given: err {e_g:.3g}, "
+          f"err/bound {r_g:.3g}; same bits; {k2_text}", flush=True)
+    return max(k3_err, e_g), k2_err
 
 
 # ---------------------------------------------------------------------------
@@ -1318,7 +1600,7 @@ def phase_kernel_device_times(card, calls):
 
 def phase_profile(device, card, workload, target, out_dir):
     """Per-layer breakdown of the headline match, set_target and one LIO
-    step of the icp and ndt_inc paths. Writes torch.profiler tables to
+    step of the icp, ndt_inc and ndt paths. Writes torch.profiler tables to
     out_dir and prints one line per path."""
     from loc_lib_tpu_torch.models import icp
 
@@ -1339,7 +1621,7 @@ def phase_profile(device, card, workload, target, out_dir):
     print(f"phase 6 profile set_target: {n:.0f} device launches, device {dev_ms:.3f} ms vs host "
           f"{host_ms:.3f} ms (profiler on) [{card}]", flush=True)
 
-    for matcher in ("icp", "ndt_inc"):
+    for matcher in ("icp", "ndt_inc", "ndt"):
         _profile_lio(device, card, out_dir, matcher)
     _profile_loam_loc(device, card, out_dir)
 
@@ -1469,8 +1751,11 @@ def main() -> int:
     given_errs, to_profile = phase_kernels(device, card, workload)
     timing, calls = phase_kernels_from_target(device, card, workload)
     to_profile.update(calls)
-    timing["ndt_fused_terms"], calls = phase_kernels_k3(device, card)
+    _, calls = phase_kernels_k3(device, card)
     to_profile.update(calls)
+    k3_modes, calls = phase_kernels_k3_from_map(device, card, workload)
+    to_profile.update(calls)
+    timing["ndt_fused_terms"] = k3_modes["K3 from map"]
 
     def counted(names, fn):
         """Run one path with every counter set to 0 just before it; each
@@ -1483,6 +1768,15 @@ def main() -> int:
                 raise AssertionError(f"kernel {name} was not launched by its path")
         return result, counts
 
+    def one_launch_per_linearization(label, counts, names, iterations):
+        for name in names:
+            if counts[name] != iterations:
+                raise AssertionError(f"{label}: {counts[name]} launches of {name} for "
+                                     f"{iterations} linearizations")
+        print(f"{label} launches: {counts}: one launch of "
+              f"{' and of '.join(names)} per linearization ({iterations} GN iterations)",
+              flush=True)
+
     # the first slice's main path: the headline match and LIO (icp)
     (target, lio_last), launches = counted(
         ("p2plane_fused_terms", "p2plane_pick_fused_terms"),
@@ -1492,12 +1786,12 @@ def main() -> int:
     ndt_last, c = counted(("ndt_fused_terms",), lambda: phase_lio(
         device, card, "ndt_inc", "phase 5b", ATE_LIMIT_NDT_INC_M))
     launches["ndt_fused_terms"] = c["ndt_fused_terms"]
-    print(f"phase 5b launches: {c}", flush=True)
+    one_launch_per_linearization("phase 5b", c, ("ndt_fused_terms",), ndt_last[4])
     k3_err = phase_lio_k3_check(ndt_last, "phase 5b")
     # the other two matchers of the NDT family on the same log
     direct_last, c = counted(("ndt_fused_terms",), lambda: phase_lio(
         device, card, "ndt", "phase 5c", ATE_LIMIT_NDT_M))
-    print(f"phase 5c launches: {c}", flush=True)
+    one_launch_per_linearization("phase 5c", c, ("ndt_fused_terms",), direct_last[4])
     k3_err = max(k3_err, phase_lio_k3_check(direct_last, "phase 5c"))
     _, c = counted(("p2plane_pick_fused_terms",), lambda: phase_lio(
         device, card, "icp_vox_inc", "phase 5d", ATE_LIMIT_VOX_INC_M))
@@ -1507,7 +1801,8 @@ def main() -> int:
     phase_determinism(device, card, workload)
     loam_last, c = counted(("p2plane_pick_fused_terms", "ndt_fused_terms"),
                            lambda: phase_loam(device, card))
-    print(f"phase 5e launches: {c}", flush=True)
+    one_launch_per_linearization("phase 5e", c, ("p2plane_pick_fused_terms", "ndt_fused_terms"),
+                                 loam_last[5])
     e3, e2 = phase_loam_checks(loam_last)
     k3_err, k2_err = max(k3_err, e3), max(k2_err, e2)
     loc_vox, c = counted(("p2plane_pick_fused_terms",), lambda: phase_loc(
@@ -1537,7 +1832,7 @@ def main() -> int:
     dev_ms = phase_kernel_device_times(card, to_profile)
     for name, label in (("p2plane_fused_terms", "K1 from target"),
                         ("p2plane_pick_fused_terms", "K2 from target"),
-                        ("ndt_fused_terms", "K3")):
+                        ("ndt_fused_terms", "K3 from map: from map")):
         timing[name]["device_ms"] = dev_ms[label]
     phase_profile(device, card, workload, target,
                   Path(__file__).resolve().parent / "chiprun_out")
@@ -1556,8 +1851,10 @@ def main() -> int:
     errs["ndt_fused_terms"] = max(errs["ndt_fused_terms"], k3_err)
     print("library_ms is null for all three kernels: no single PyTorch call computes one of "
           "them (each builds its rows from a gather, an election and a gate, then reduces "
-          "them); ms, plain_ms and device_ms of K1 and K2 are those of the from-target mode "
-          "the paths run, at the headline inputs", flush=True)
+          "them); ms, plain_ms, device_ms and bound_ms of K1 and K2 are those of the "
+          "from-target mode and, since this revision, those of K3 are those of the from-map "
+          "mode (S = 7, weighted, trunc, on an update_incremental map of the headline target): "
+          "the modes the paths run, at the headline inputs", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
          "launches": launches[name], "max_abs_err": errs[name],

@@ -164,6 +164,40 @@ __device__ __forceinline__ int dense_slot(const VoxelIndex& v, const VoxelIndexR
   return ok ? slot : -1;
 }
 
+// Voxel coordinate of the scaled offset u = (qs - origin) * inv_leaf, as
+// ops/voxel.py voxel_coords: floor (the ICP grids), or truncation toward
+// zero (NDT's default binning, the reference's C++ cast: the cells around 0
+// are two voxels wide). The float-to-int cast saturates.
+template <bool kTrunc>
+__device__ __forceinline__ int voxel_coord(float u) {
+  return static_cast<int>(kTrunc ? truncf(u) : floorf(u));
+}
+
+constexpr int kStencil = 7;   // a point's voxel and its 6 face neighbours
+
+// Slots of the point's own voxel (cx, cy, cz), then its 6 face neighbours,
+// in the order of ops/voxel.py _NEARBY6 (ties in an election go to the
+// first); wrapping sums, as int32 tensors add. The 7 table reads do not
+// depend on each other.
+__device__ __forceinline__ void stencil_slots(const VoxelIndex& v, const VoxelIndexRegs& r,
+                                              int cx, int cy, int cz, bool valid,
+                                              int slot[kStencil]) {
+  const auto look = [&](int dx, int dy, int dz) {
+    return dense_slot(v, r,
+                      static_cast<int>(static_cast<unsigned>(cx) + static_cast<unsigned>(dx)),
+                      static_cast<int>(static_cast<unsigned>(cy) + static_cast<unsigned>(dy)),
+                      static_cast<int>(static_cast<unsigned>(cz) + static_cast<unsigned>(dz)),
+                      valid);
+  };
+  slot[0] = look(0, 0, 0);
+  slot[1] = look(-1, 0, 0);
+  slot[2] = look(1, 0, 0);
+  slot[3] = look(0, 1, 0);
+  slot[4] = look(0, -1, 0);
+  slot[5] = look(0, 0, -1);
+  slot[6] = look(0, 0, 1);
+}
+
 // Writes the outputs from the 36 summed entries g (shared memory): threads
 // e < kOutWords of the block each write one word.
 __device__ __forceinline__ void write_outputs(const float* g, float* __restrict__ out) {

@@ -55,8 +55,6 @@
 
 namespace loc_fused {
 
-constexpr int kStencil = 7;   // candidates a point: its voxel and 6 face neighbours
-
 // Candidate s of a point: plane = [n, d], cen = [mu, valid].
 struct Candidate {
   float4 plane, cen;
@@ -132,21 +130,10 @@ pick_from_target_kernel(const float* __restrict__ q, const unsigned char* __rest
     float qsx, qsy, qsz;
     transform_point(p, x, y, z, qsx, qsy, qsz);
     // the point's voxel: floor((qs - origin) * inv_leaf), as voxel_coords
-    const int cx = static_cast<int>(floorf((qsx - ix.ox) * ix.inv));
-    const int cy = static_cast<int>(floorf((qsy - ix.oy) * ix.inv));
-    const int cz = static_cast<int>(floorf((qsz - ix.oz) * ix.inv));
-    // the point's own voxel, then its 6 face neighbours, in the order of
-    // ops/voxel.py _NEARBY6 (ties in the election go to the first);
-    // wrapping sums, as int32 tensors add
-    const auto look = [&](int dx, int dy, int dz) {
-      return dense_slot(index, ix,
-                        static_cast<int>(static_cast<unsigned>(cx) + static_cast<unsigned>(dx)),
-                        static_cast<int>(static_cast<unsigned>(cy) + static_cast<unsigned>(dy)),
-                        static_cast<int>(static_cast<unsigned>(cz) + static_cast<unsigned>(dz)),
-                        m);
-    };
-    const int slot[kStencil] = {look(0, 0, 0), look(-1, 0, 0), look(1, 0, 0), look(0, 1, 0),
-                         look(0, -1, 0), look(0, 0, -1), look(0, 0, 1)};
+    int slot[kStencil];
+    stencil_slots(index, ix, voxel_coord<false>((qsx - ix.ox) * ix.inv),
+                  voxel_coord<false>((qsy - ix.oy) * ix.inv),
+                  voxel_coord<false>((qsz - ix.oz) * ix.inv), m, slot);
     Candidate c[kStencil];
 #pragma unroll
     for (int s = 0; s < kStencil; ++s) {

@@ -8,8 +8,9 @@ Match side: each Gauss-Newton iteration is one fused kernel (ops/kernels.py)
 that does the dense O(1) voxel lookup and the row reads itself: K2 from the
 target for p2plane_vox (7-voxel gather and election inside the kernel), K1
 from the target for p2plane_vox_oct (one (voxel, octant) lookup inside the
-kernel). For p2line_vox the gather and the nearest-valid-centroid election
-(an argmin) stay in torch ops, then K3 at S = 1 in weighted mode. The outer
+kernel), K3 in p2line mode for p2line_vox (7-voxel gather on the line table,
+nearest-valid-centroid election and the weighted rows of the elected voxel
+inside the kernel). The outer
 loop is a Python loop with the reference's stop rule (|dx| < eps, at most
 max_iteration, never during gate warm-up); it reads one flag back per
 iteration.
@@ -291,10 +292,6 @@ class MatchResult(NamedTuple):
 # Per-method linearization (one pass over all source points)
 # ---------------------------------------------------------------------------
 
-def _transform(src: PointCloud, R, t):
-    return src.xyz @ R.T + t
-
-
 def _stencil_rows(table, target: IcpTarget, opts: IcpOptions, src: PointCloud, qs):
     """The rows of `table` for the point's voxel + 6 face neighbors: 7-key
     dense lookup + (N, 7, C) row gather. Returns (rows7, found7)."""
@@ -382,24 +379,24 @@ def _p2plane_vox_oct_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud,
 
 def _p2line_vox_rows(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t):
     """The nearest-valid-centroid line voxel among the point's voxel + 6
-    face neighbors (argmin, first stencil entry wins ties). Returns
-    (qs (N, 3), rows (N, 1, 13), w (N, 1)): K3's S = 1 inputs."""
-    qs = _transform(src, R, t)
-    rows7, found7 = _stencil_rows(target.line_packed, target, opts, src, qs)   # (N, 7, 13)
-    rows, w = _elect(rows7, found7 & (rows7[..., 12] > 0.5), rows7[..., 0:3], qs, src.mask)
-    return qs, rows, w[:, None]
+    face neighbors (first stencil entry wins ties), in torch ops: what K3
+    does inside the kernel in p2line mode; kept for holding the kernel
+    against it. Returns (qs (N, 3), mu (N, 1, 3), W (N, 1, 9), w (N, 1)):
+    K3's S = 1 inputs with the rows given."""
+    return kernels.p2line_elect_plain(src.xyz, src.mask, R, t, target.line_packed,
+                                      _index(target, opts, target.dense))
 
 
 def _p2line_vox_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t,
                       gate=None):
-    """Voxel-line P2Line linearization: the election above, then K3 at
-    S = 1, weighted, on strided views of the picked rows, gated at
-    gate^2 (gate = max_line_distance by default): the squared line
-    distance |W^T e|^2 against the reference's |e| <= max_line_distance."""
-    qs, rows, w = _p2line_vox_rows(target, opts, src, R, t)
-    g = float(opts.max_line_distance if gate is None else gate)
-    return kernels.ndt_fused_terms(src.xyz, qs, rows[..., 0:3], rows[..., 3:12], w, R, t,
-                                   g * g, weighted=True)
+    """Voxel-line P2Line linearization. One call of kernel K3 in p2line
+    mode: lookup, election, the elected voxel's weighted rows gated at
+    gate^2 (gate = max_line_distance by default: the squared line distance
+    |W^T e|^2 against the reference's |e| <= max_line_distance) and the
+    normal equations."""
+    return kernels.p2line_fused_terms_from_target(
+        src.xyz, src.mask, R, t, opts.max_line_distance if gate is None else gate,
+        target.line_packed, _index(target, opts, target.dense))
 
 
 _TERM_FNS = {"p2plane_vox": _p2plane_vox_terms,

@@ -14,10 +14,16 @@ min_pts_in_voxel, with epoch-stamped least-recently-touched eviction; the
 information-WEIGHTED system H += J^T info J.
 
 Voxel membership uses C++ truncation (mode="trunc") unless `bin_mode` says
-floor. The fused path (use_fused=True) is one dense O(1) lookup, one
-(N, S, 13) packed-row gather and kernel K3 (ops/kernels.ndt_fused_terms);
-use_fused=False keeps the searchsorted + einsum oracle the fused path is
-held to.
+floor. The fused path (use_fused=True) is ONE call of kernel K3 from the map
+(ops/kernels.ndt_fused_terms_from_map) per linearization: the kernel
+transforms the point, takes its voxel (trunc or floor), looks the S = 7 (or
+1) stencil voxels up in the dense table, reads their packed rows and sums
+the normal equations, so no (N, S, 13) row tensor is made. On the H100 a
+call is bounded by bytes (the points and the distinct table cells and rows
+they touch, under 1 MB) and costs a launch and a chain of four dependent
+loads; on the CPU the wrapper takes the plain version (the same gather in
+torch ops, kernels.ndt_stencil_rows_plain, then K3's rows). use_fused=False
+keeps the searchsorted + einsum oracle the fused path is held to.
 
 Differences from the JAX package, semantics kept:
   * `NdtMap.epoch` is a host int (the first-scan rule branches on it);
@@ -32,6 +38,7 @@ Differences from the JAX package, semantics kept:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -321,25 +328,31 @@ def _stencil_keys(m: NdtMap, opts: NdtOptions, src: PointCloud, qs):
     return voxel.coords_to_key(qc[:, None, :] + st[None, :, :], src.mask[:, None])
 
 
-def _fused_inputs(m: NdtMap, opts: NdtOptions, src: PointCloud, R, t):
-    """K3's inputs at a pose: dense O(1) lookup of the stencil voxels and one
-    (N, S, 13) packed-row gather. Returns (q, qs, mu, W, valid), mu and W as
-    strided views of the gathered rows."""
-    q = src.xyz
-    qs = q @ R.T + t
-    dense = voxel.DenseIndex(table=m.dense_table, lo=m.dense_lo)
-    slot, found = voxel.lookup_dense(dense, opts.dense_dims, _stencil_keys(m, opts, src, qs))
-    rows = m.packed[slot.to(torch.int64)]                         # (N, S, 13)
-    valid = (found & (rows[..., 12] > 0.5)).to(torch.float32)
-    return q, qs, rows[..., 0:3], rows[..., 3:12], valid
+@functools.lru_cache(maxsize=None)
+def _inv_leaf(voxel_size: float, device: torch.device) -> torch.Tensor:
+    """1 / voxel_size as a float32 scalar on `device`, made once per size and
+    device so the hot loop never copies it from the host."""
+    return torch.full((), 1.0 / voxel_size, dtype=torch.float32, device=device)
+
+
+def _index(m: NdtMap, opts: NdtOptions) -> kernels.TargetIndex:
+    """What K3 from the map needs to find a point's voxel in the map."""
+    return kernels.TargetIndex(m.dense_table, m.dense_lo, m.origin,
+                               _inv_leaf(opts.voxel_size, m.origin.device), opts.dense_dims)
+
+
+def _from_map_args(m: NdtMap, opts: NdtOptions, src: PointCloud, R, t, weighted: bool):
+    """The arguments of kernels.ndt_fused_terms_from_map (and of its plain
+    versions) for one linearization."""
+    return (src.xyz, src.mask, R, t, opts.res_outlier_th, weighted, m.packed, _index(m, opts),
+            kernels.STENCIL if opts.nearby == "nearby6" else 1, opts.bin_mode)
 
 
 def _ndt_terms(m: NdtMap, opts: NdtOptions, src: PointCloud, R, t, weighted: bool):
     """All residuals of one GN iteration, batched over points x stencil.
     Returns (H, b, n_res, chi2)."""
     if opts.use_fused and m.packed is not None:
-        return kernels.ndt_fused_terms(*_fused_inputs(m, opts, src, R, t), R, t,
-                                       opts.res_outlier_th, weighted)
+        return kernels.ndt_fused_terms_from_map(*_from_map_args(m, opts, src, R, t, weighted))
 
     q = src.xyz
     qs = q @ R.T + t

@@ -12,14 +12,17 @@ All return (H (6,6), b (6,), count () int32, chi2 ()) from one symmetric
 the P2Plane kernels K1 and K2, three rows per (point, stencil voxel) for the
 generalized-Gaussian NDT kernel K3.
 
-K1 and K2 each have two modes. With the plane (K1) or the candidate rows
-(K2) given they take the TPU kernels' interface. *From the target*
-(`p2plane_fused_terms_from_target`, `p2plane_pick_fused_terms_from_target`)
-they take the target's tables and do the correspondence gather themselves:
-the voxel lookup and row reads that the TPU kernels left to XLA, because
-Pallas on the TPU could not express a data-dependent row read. That is the
-mode the matchers run: no (N, 7, 8) or (N, 8) row tensor is made. Both modes
-of a kernel count as launches of that kernel.
+Every kernel has two kinds of mode. With the plane (K1), the candidate rows
+(K2) or the gathered voxel rows (K3) given they take the TPU kernels'
+interface. *From the target* (`p2plane_fused_terms_from_target`,
+`p2plane_pick_fused_terms_from_target`) and *from the map*
+(`ndt_fused_terms_from_map`, and `p2line_fused_terms_from_target` with the
+nearest-line election) they take the target's tables and do the
+correspondence gather themselves: the voxel lookup and row reads that the
+TPU kernels left to XLA, because Pallas on the TPU could not express a
+data-dependent row read. Those are the modes the matchers run: no (N, 7, 8),
+(N, 8) or (N, S, 13) row tensor is made. All modes of a kernel count as
+launches of that kernel.
 
 The seam replaces the JAX package's `on_tpu()` switch with the tensor's
 device: CPU tensors go to the plain PyTorch version beside each kernel; CUDA
@@ -118,6 +121,24 @@ def oct_rows_plain(q, mask, R, t, packed_ext, oct_table, index: TargetIndex):
     rows = packed_ext[row_slot.to(torch.int64)]
     w = (found & (rows[:, 7] > 0.5) & mask).to(q.dtype)
     return rows, w
+
+
+def ndt_stencil_rows_plain(q, mask, R, t, packed, index: TargetIndex, S: int, bin_mode: str):
+    """K3's gather at the pose (R, t): the rows of `packed` (V, 13) for each
+    point's voxel alone (S = 1) or with its 6 face neighbours (S = 7, the
+    point's own voxel first), the voxel taken by `bin_mode` ("trunc" or
+    "floor") from the one qs that also gives the residuals. Returns
+    (qs (N, 3), mu (N, S, 3), W (N, S, 9), valid (N, S) float32): the inputs
+    of K3 with the rows given, mu and W as views of the gathered rows, the
+    lookup hit folded into valid."""
+    qs = transform_plain(q, R, t)
+    qcoords = voxel.voxel_coords(qs, index.inv_leaf, index.origin, mode=bin_mode)
+    stencil = voxel.nearby6(q.device) if S == STENCIL else voxel.center1(q.device)
+    keys = voxel.coords_to_key(qcoords[:, None, :] + stencil[None], mask[:, None])
+    slot, found = voxel.lookup_dense(voxel.DenseIndex(index.table, index.lo), index.dims, keys)
+    rows = packed[slot.to(torch.int64)]                            # (N, S, 13)
+    valid = (found & (rows[..., 12] > 0.5)).to(torch.float32)
+    return qs, rows[..., 0:3], rows[..., 3:12], valid
 
 
 def _rows(q, R, nx, ny, nz, dis, w):
@@ -260,6 +281,59 @@ def ndt_fused_terms_plain(q, qs, mu, W, valid, R, t, outlier_th, weighted: bool)
     return _split(A.T @ A)
 
 
+def ndt_from_map_rows_plain(q, mask, R, t, outlier_th, weighted: bool, packed,
+                            index: TargetIndex, S: int, bin_mode: str):
+    """K3 from the map, rows A (N * S * 3, 8): the stencil gather, then K3's
+    rows."""
+    qs, mu, W, valid = ndt_stencil_rows_plain(q, mask, R, t, packed, index, S, bin_mode)
+    return ndt_rows_plain(q, qs, mu, W, valid, R, t, outlier_th, weighted)
+
+
+def ndt_from_map_terms_plain(q, mask, R, t, outlier_th, weighted: bool, packed,
+                             index: TargetIndex, S: int, bin_mode: str):
+    """Plain PyTorch K3 from the map: same arguments and results as
+    `ndt_fused_terms_from_map`."""
+    A = ndt_from_map_rows_plain(q, mask, R, t, outlier_th, weighted, packed, index, S, bin_mode)
+    return _split(A.T @ A)
+
+
+def p2line_elect_plain(q, mask, R, t, line_packed, index: TargetIndex):
+    """p2line_vox's correspondence at the pose (R, t): the 7-voxel gather on
+    the line table (floor binning), then the kernel's election, a running
+    strict minimum of |mu_s - qs|^2 over the valid candidates (the point's
+    own voxel first, so it wins ties; no valid candidate keeps candidate 0).
+    Returns (qs (N, 3), mu (N, 1, 3), W (N, 1, 9), w (N, 1) float32): the
+    inputs of K3 with the rows given at S = 1, w = any_valid & mask."""
+    qs, mu7, W7, valid7 = ndt_stencil_rows_plain(q, mask, R, t, line_packed, index, STENCIL,
+                                                 "floor")
+    best_d2 = torch.full_like(qs[:, 0], float("inf"))
+    pick = torch.zeros(qs.shape[0], dtype=torch.int64, device=qs.device)
+    for s in range(STENCIL):
+        dx, dy, dz = (mu7[:, s, k] - qs[:, k] for k in range(3))
+        d2 = torch.where(valid7[:, s] > 0.5, dx * dx + dy * dy + dz * dz, float("inf"))
+        take = d2 < best_d2
+        best_d2 = torch.where(take, d2, best_d2)
+        pick = torch.where(take, s, pick)
+    w = (torch.any(valid7 > 0.5, dim=1) & mask).to(torch.float32)
+    at = pick[:, None, None]
+    return qs, torch.take_along_dim(mu7, at, dim=1), torch.take_along_dim(W7, at, dim=1), w[:, None]
+
+
+def p2line_from_target_rows_plain(q, mask, R, t, gate, line_packed, index: TargetIndex):
+    """K3's p2line mode, rows A (N * 3, 8): the election, then K3's weighted
+    rows of the elected voxel gated at gate^2."""
+    qs, mu, W, w = p2line_elect_plain(q, mask, R, t, line_packed, index)
+    g = float(gate)
+    return ndt_rows_plain(q, qs, mu, W, w, R, t, g * g, True)
+
+
+def p2line_from_target_terms_plain(q, mask, R, t, gate, line_packed, index: TargetIndex):
+    """Plain PyTorch K3 in p2line mode: same arguments and results as
+    `p2line_fused_terms_from_target`."""
+    A = p2line_from_target_rows_plain(q, mask, R, t, gate, line_packed, index)
+    return _split(A.T @ A)
+
+
 # ---------------------------------------------------------------------------
 # Build and load (first use only)
 # ---------------------------------------------------------------------------
@@ -271,7 +345,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v", "-lineinfo")
 
 THREADS = 128          # kThreads in fused_terms.cuh
-STENCIL = 7            # kStencil in p2plane_pick_fused_terms.cu: K2's candidates a point
+STENCIL = 7            # kStencil in fused_terms.cuh: a point's voxel and 6 face neighbours
+NDT_STENCILS = (1, STENCIL)      # the S that K3 from the map is built for
+BIN_MODES = ("trunc", "floor")   # and its binnings
 MAX_BLOCKS = 1024
 ENTRIES = 36
 OUT_WORDS = 44         # kOutWords: H (36) | b (6) | chi2 | count (int32 bits)
@@ -334,9 +410,13 @@ def _bind(cdll: ctypes.CDLL) -> None:
     cdll.p2plane_pick_from_target_launch.argtypes = [vp, vp, vp, *index, *pose, *tail]
     cdll.ndt_fused_terms_launch.argtypes = [vp, vp, vp, ci, ci, vp, ci, ci, vp, ci, ci, ci,
                                             vp, cf, ci, *tail]
+    # R, t, th, weighted, S, trunc / R, t, th
+    cdll.ndt_from_map_launch.argtypes = [vp, vp, vp, *index, vp, vp, cf, ci, ci, ci, *tail]
+    cdll.p2line_from_target_launch.argtypes = [vp, vp, vp, *index, vp, vp, cf, *tail]
     for fn in (cdll.p2plane_fused_terms_launch, cdll.p2plane_pick_fused_terms_launch,
                cdll.p2plane_from_target_launch, cdll.p2plane_pick_from_target_launch,
-               cdll.ndt_fused_terms_launch):
+               cdll.ndt_fused_terms_launch, cdll.ndt_from_map_launch,
+               cdll.p2line_from_target_launch):
         fn.restype = ci
     cdll.loc_fused_error_string.argtypes = [ci]
     cdll.loc_fused_error_string.restype = ctypes.c_char_p
@@ -650,5 +730,62 @@ def ndt_fused_terms(q, qs, mu, W, valid, R, t, outlier_th, weighted: bool):
                    W.data_ptr(), W.stride(0), W.stride(1),
                    valid.data_ptr(), valid.stride(0), valid.stride(1), S,
                    R_ptr, th, int(bool(weighted))), n, dev)
+    LAUNCHES["ndt_fused_terms"] += 1
+    return out
+
+
+def ndt_fused_terms_from_map(q, mask, R, t, outlier_th, weighted: bool, packed,
+                             index: TargetIndex, S: int, bin_mode: str):
+    """K3 from the map: the stencil gather and the NDT linearization in one
+    launch.
+
+    q (N, 3) body points, mask (N,) bool, R (3, 3), t (3,), outlier_th the
+    chi2 gate (a number), `weighted` as for `ndt_fused_terms`; packed (V, 13)
+    rows [mu, W, est] per map slot (ndt.NdtMap.packed), index: the map's
+    dense table with its origin and 1 / voxel_size; S = 7 (the point's voxel
+    and its 6 face neighbours, the point's own first) or 1 (that voxel
+    alone); bin_mode "trunc" or "floor": how a point's voxel is taken from
+    qs = R q + t. The kernel is built for these S and binnings; any other
+    raises. Returns (H, b, count () int32 residuals, chi2)."""
+    if S not in NDT_STENCILS:
+        raise ValueError(f"S: K3 from the map is built for S in {NDT_STENCILS}, got {S}")
+    if bin_mode not in BIN_MODES:
+        raise ValueError(f"bin_mode: expected one of {BIN_MODES}, got {bin_mode!r}")
+    if q.device.type == "cpu":
+        return ndt_from_map_terms_plain(q, mask, R, t, outlier_th, weighted, packed, index, S,
+                                        bin_mode)
+    dev = _device_of(q)
+    n = _check_points(q, mask, dev)
+    _check("packed", packed, (packed.shape[0], 13), dev)
+    (R_ptr, t_ptr, _, th), _alive = _pose(R, t, float(outlier_th), dev)
+    out = _launch("ndt_from_map_launch",
+                  (q.data_ptr(), mask.data_ptr(), packed.data_ptr(),
+                   *_index_args(index, dev), R_ptr, t_ptr, th, int(bool(weighted)), S,
+                   int(bin_mode == "trunc")), n, dev)
+    LAUNCHES["ndt_fused_terms"] += 1
+    return out
+
+
+def p2line_fused_terms_from_target(q, mask, R, t, gate, line_packed, index: TargetIndex):
+    """K3 in p2line mode: the 7-voxel gather on a line table, the
+    nearest-valid-centroid election and the linearization in one launch.
+
+    q (N, 3) body points, mask (N,) bool, R (3, 3), t (3,); gate: the line
+    distance threshold, a number (the elected voxel's residual |W^T e|^2 is
+    gated at gate^2); line_packed (V, 13) rows [mu, W, valid] with
+    W W^T = I - d d^T (icp.IcpTarget.line_packed), index: the target's dense
+    table with the grid's origin and 1 / leaf (floor binning). The
+    candidates are the point's own voxel and its 6 face neighbours, the
+    point's own first. Returns (H, b, count () int32 residuals, chi2)."""
+    if q.device.type == "cpu":
+        return p2line_from_target_terms_plain(q, mask, R, t, gate, line_packed, index)
+    dev = _device_of(q)
+    n = _check_points(q, mask, dev)
+    _check("line_packed", line_packed, (line_packed.shape[0], 13), dev)
+    g = float(gate)
+    (R_ptr, t_ptr, _, th), _alive = _pose(R, t, g * g, dev)
+    out = _launch("p2line_from_target_launch",
+                  (q.data_ptr(), mask.data_ptr(), line_packed.data_ptr(),
+                   *_index_args(index, dev), R_ptr, t_ptr, th), n, dev)
     LAUNCHES["ndt_fused_terms"] += 1
     return out

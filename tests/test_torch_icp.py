@@ -330,10 +330,10 @@ def test_p2line_vox_matches_jax_on_carried_target(warmup):
         Hj, bj, nj, cj = (np.asarray(a) for a in jicp._p2line_vox_terms(
             jt, jo, jsrc, jnp.asarray(R), jnp.asarray(t)))
         out = icp.compute_h_and_b(tt, to, tsrc, torch.from_numpy(R), torch.from_numpy(t))
-        qs, rows, wt = icp._p2line_vox_rows(tt, to, tsrc, torch.from_numpy(R), torch.from_numpy(t))
         from loc_lib_tpu_torch.ops import kernels
-        A = kernels.ndt_rows_plain(tsrc.xyz, qs, rows[..., 0:3], rows[..., 3:12], wt,
-                                   torch.from_numpy(R), torch.from_numpy(t), 0.25, True).double()
+        A = kernels.p2line_from_target_rows_plain(
+            tsrc.xyz, tsrc.mask, torch.from_numpy(R), torch.from_numpy(t), to.max_line_distance,
+            tt.line_packed, icp._index(tt, to, tt.dense)).double()
         sab = (A.abs().T @ A.abs()).numpy()
         assert int(out[2]) == int(nj) > 200
         for got, want, s in ((out[0].numpy(), Hj, sab[:6, :6]), (out[1].numpy(), bj, sab[:6, 6]),
@@ -352,3 +352,63 @@ def test_p2line_vox_matches_jax_on_carried_target(warmup):
     # (voxel lines through merged centroids: 1.3 cm off on this scene)
     assert np.linalg.norm(own.t.numpy() - t_true) < 5e-2
     assert np.linalg.norm(oracles.so3_log(R_true.T @ own.R.numpy().astype(np.float64))) < 5e-3
+
+
+def test_p2line_vox_tie_goes_to_the_points_own_voxel():
+    """A hand-made line target, the same tables for both packages: every
+    1 m cell of a 12^3 block holds a line through its centre along the axis
+    (cx + cy + cz) mod 3, so face neighbours carry different lines. A point
+    on a voxel corner is exactly equidistant from its own centroid and those
+    of its -x, -y and -z neighbours: the election (JAX: argmin; the port: a
+    running strict minimum) must give the point's own voxel, the first
+    stencil entry. Held against JAX's _p2line_vox_terms and against K3 with
+    only the point's own voxel gathered (bit for bit)."""
+    from loc_lib_tpu.ops import voxel as jvoxel
+    from loc_lib_tpu_torch.ops import kernels
+
+    side, dims = 12, (16, 16, 16)
+    r = np.arange(side) - side // 2
+    c = np.stack(np.meshgrid(r, r, r, indexing="ij"), axis=-1).reshape(-1, 3).astype(np.int32)
+    keys = voxel.coords_to_key(torch.from_numpy(c), torch.ones(len(c), dtype=torch.bool))
+    assert bool(torch.all(keys[1:] > keys[:-1]))
+    v = len(c)
+    mu = c.astype(np.float32) + 0.5
+    axis = np.eye(3, dtype=np.float32)[c.sum(1) % 3]
+    W = np.stack([np.roll(axis, 1, axis=1), np.roll(axis, 2, axis=1), np.zeros_like(axis)],
+                 axis=2).reshape(v, 9)
+    line_packed = np.concatenate([mu, W, np.ones((v, 1), np.float32)], axis=1)
+    dense = voxel.build_dense_index(keys, dims=dims)
+    grid = dict(voxel_keys=keys.numpy(), bucket_xyz=np.zeros((v, 3), np.float32),
+                bucket_idx=np.full((v, 1), -1, np.int32), bucket_cnt=np.zeros(v, np.int32),
+                num_voxels=np.int32(v), overflow=np.int32(0), inv_leaf=np.float32(1.0),
+                origin=np.zeros(3, np.float32))
+    as_dict = dict(grid=grid, dense=dict(table=dense.table.numpy(), lo=dense.lo.numpy()),
+                   line_packed=line_packed)
+    tt = convert.icp_target_from_numpy(as_dict, "cpu")
+    jt = jicp.IcpTarget(
+        grid=jvoxel.HashGrid(**{k: jnp.asarray(a) for k, a in grid.items()}),
+        dense=jvoxel.DenseIndex(table=jnp.asarray(as_dict["dense"]["table"]),
+                                lo=jnp.asarray(as_dict["dense"]["lo"])),
+        line_packed=jnp.asarray(line_packed))
+    jo = jicp.IcpOptions(method="p2line_vox", dense_dims=dims, max_line_distance=1.0)
+    to = icp.IcpOptions(method="p2line_vox", dense_dims=dims, max_line_distance=1.0)
+    corners = np.random.default_rng(4).integers(-5, 5, size=(1024, 3)).astype(np.float32)
+    jsrc, tsrc = jpc.from_numpy(corners, capacity=1024), _from_numpy(corners, capacity=1024)
+    eye, zero = torch.eye(3), torch.zeros(3)
+    index = icp._index(tt, to, tt.dense)
+    qs, mu7, _, valid7 = kernels.ndt_stencil_rows_plain(tsrc.xyz, tsrc.mask, eye, zero,
+                                                        tt.line_packed, index, 7, "floor")
+    d2 = torch.sum((mu7 - qs[:, None, :]) ** 2, dim=-1)
+    assert bool(valid7.all()) and int((d2 == d2[:, :1]).sum(1).min()) == 4      # 4-way ties
+    got = icp.compute_h_and_b(tt, to, tsrc, eye, zero)
+    own = kernels.ndt_fused_terms(tsrc.xyz, *kernels.ndt_stencil_rows_plain(
+        tsrc.xyz, tsrc.mask, eye, zero, tt.line_packed, index, 1, "floor"), eye, zero, 1.0, True)
+    assert int(got[2]) == 1024
+    for a, b_ in zip(got, own):
+        assert torch.equal(a, b_)
+    Hj, bj, nj, cj = (np.asarray(a) for a in jicp._p2line_vox_terms(
+        jt, jo, jsrc, jnp.eye(3), jnp.zeros(3)))
+    assert int(nj) == 1024
+    np.testing.assert_allclose(got[0].numpy(), Hj, rtol=1e-5, atol=1e-4 * np.abs(Hj).max())
+    np.testing.assert_allclose(got[1].numpy(), bj, rtol=1e-5, atol=1e-4 * np.abs(Hj).max())
+    np.testing.assert_allclose(float(got[3]), float(cj), rtol=1e-5)

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from loc_lib_tpu.ops import pallas_kernels
-from loc_lib_tpu_torch.models import icp
+from loc_lib_tpu_torch.models import icp, ndt
 from loc_lib_tpu_torch.ops import kernels, pointcloud as pcm, voxel
 import oracles
 
@@ -96,6 +96,45 @@ def _vox_case(method, n_src, seed=21):
     cloud = pcm.from_numpy(src[: n_src - n_src // 20], capacity=n_src, device="cpu")
     R = torch.from_numpy(oracles.so3_exp(np.array([0.021, -0.029, 0.041])).astype(np.float32))
     return tgt, opts, cloud, R, torch.tensor([0.28, -0.21, 0.16])
+
+
+def _ndt_case(method, n_src, S=7, bin_mode="trunc", seed=21):
+    """An NDT map (2 m voxels; build_direct or one update_incremental) over
+    _vox_case's scene, centred on the origin so that trunc and floor bin
+    differently, and its source cloud and pose. Returns (the arguments of
+    kernels.ndt_fused_terms_from_map, map, options, source cloud)."""
+    _, _, cloud, R, t = _vox_case("p2plane_vox", n_src, seed)
+    rng = np.random.default_rng(seed)
+    n = 700
+    scene = np.concatenate([
+        np.stack([rng.uniform(-10, 10, n), rng.uniform(-10, 10, n), np.zeros(n)], 1),
+        np.stack([rng.uniform(-10, 10, n), np.full(n, -10.0), rng.uniform(0, 5, n)], 1),
+        np.stack([np.full(n, -10.0), rng.uniform(-10, 10, n), rng.uniform(0, 5, n)], 1),
+    ]).astype(np.float32)
+    opts = ndt.NdtOptions(method=method, voxel_size=2.0, dense_dims=DIMS, bin_mode=bin_mode,
+                          nearby="nearby6" if S == 7 else "center", map_capacity=4096)
+    pc = pcm.from_numpy(scene, capacity=4096, device="cpu")
+    m = ndt.build_direct(pc, opts) if method == "direct" else \
+        ndt.update_incremental(ndt.empty_incremental(opts), pc, opts)
+    return ndt._from_map_args(m, opts, cloud, R, t, method == "incremental"), m, opts, cloud
+
+
+def _line_case(n_src=4096):
+    """A p2line_vox target over test_torch_icp's line scene (the port's own
+    set_target) and the scene seen from a pose 2.6 deg / 19 cm away, at a
+    nearby pose. Returns (the arguments of
+    kernels.p2line_fused_terms_from_target, target, options, source cloud)."""
+    from test_torch_icp import _line_pair
+
+    scene, src, _, _ = _line_pair()
+    opts = icp.IcpOptions(method="p2line_vox", dense_dims=DIMS)
+    tgt = icp.set_target(pcm.from_numpy(scene, capacity=8192, device="cpu"), opts)
+    cloud = pcm.from_numpy(src[:n_src - n_src // 20], capacity=n_src, device="cpu")
+    R = torch.from_numpy(oracles.so3_exp(np.array([0.011, -0.014, 0.021])).astype(np.float32))
+    t = torch.tensor([0.14, -0.11, 0.06])
+    args = (cloud.xyz, cloud.mask, R, t, opts.max_line_distance, tgt.line_packed,
+            icp._index(tgt, opts, tgt.dense))
+    return args, tgt, opts, cloud
 
 
 def _from_target_args(method, tgt, opts, src, R, t, gate):
@@ -238,6 +277,8 @@ def test_cpu_tensors_never_touch_launch_counters():
     q2, rows, w2 = _k2_inputs(rng, 256)
     kernels.p2plane_pick_fused_terms(*_t(q2, rows, w2, R, t), 0.1)
     kernels.ndt_fused_terms(*_t(*_k3_inputs(rng, 256, 7)), 20.0, True)
+    kernels.ndt_fused_terms_from_map(*_ndt_case("incremental", 256)[0])
+    kernels.p2line_fused_terms_from_target(*_line_case(256)[0])
     tgt, opts, src, R, t = _vox_case("p2plane_vox_oct", 512)
     for method in ("p2plane_vox", "p2plane_vox_oct"):
         icp.compute_h_and_b(tgt, icp.IcpOptions(method=method, dense_dims=DIMS), src, R, t)
@@ -264,6 +305,20 @@ def test_non_cpu_non_cuda_tensors_raise():
         kernels.p2plane_fused_terms_from_target(
             q, mask, eye, zero, 0.1, packed, torch.zeros((4, 8), dtype=torch.int32, device="meta"),
             index)
+    rows13 = torch.zeros((4, 13), device="meta")
+    with pytest.raises(ValueError):
+        kernels.ndt_fused_terms_from_map(q, mask, eye, zero, 20.0, True, rows13, index, 7, "trunc")
+    with pytest.raises(ValueError):
+        kernels.p2line_fused_terms_from_target(q, mask, eye, zero, 0.5, rows13, index)
+
+
+def test_k3_from_map_refuses_other_stencils_and_binnings():
+    """K3 from the map is built for S in {1, 7} and trunc / floor binning;
+    the wrapper raises for anything else, on every device."""
+    args = _ndt_case("incremental", 256)[0]
+    for S, bin_mode in ((5, "trunc"), (0, "floor"), (7, "round")):
+        with pytest.raises(ValueError):
+            kernels.ndt_fused_terms_from_map(*args[:8], S, bin_mode)
 
 
 def test_grid_size_depends_only_on_n():
@@ -347,6 +402,102 @@ def test_from_target_plain_equals_gather_then_given_plain_bit_for_bit(method):
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("bin_mode", ["trunc", "floor"])
+@pytest.mark.parametrize("method", ["incremental", "direct"])
+@pytest.mark.parametrize("S", [7, 1])
+def test_k3_from_map_plain_equals_gather_then_given_plain_bit_for_bit(S, method, bin_mode):
+    """K3 from the map is the stencil gather followed by K3 with the rows
+    given, with ONE qs (op by op) deciding the voxel and the residuals. The
+    gather is written out here a second time, from the voxel functions, as
+    ndt._ndt_terms had it before it moved into the kernel."""
+    args, m, opts, src = _ndt_case(method, 2048, S, bin_mode)
+    q, mask, R, t, th, weighted = args[:6]
+    qs = kernels.transform_plain(q, R, t)
+    qc = voxel.voxel_coords(qs, 1.0 / opts.voxel_size, m.origin, mode=bin_mode)
+    st = voxel.nearby6(q.device) if S == 7 else voxel.center1(q.device)
+    keys = voxel.coords_to_key(qc[:, None, :] + st[None], mask[:, None])
+    slot, found = voxel.lookup_dense(voxel.DenseIndex(m.dense_table, m.dense_lo), DIMS, keys)
+    rows = m.packed[slot.long()]
+    assert rows.shape == (2048, S, 13)
+    valid = (found & (rows[..., 12] > 0.5)).float()
+    given = (q, qs, rows[..., 0:3], rows[..., 3:12], valid, R, t, th, weighted)
+    want = kernels.ndt_fused_terms_plain(*given)
+    assert torch.equal(kernels.ndt_from_map_rows_plain(*args), kernels.ndt_rows_plain(*given))
+    for a, b_ in zip(kernels.ndt_stencil_rows_plain(*args[:4], *args[6:]), given[1:5]):
+        assert torch.equal(a, b_)
+    got = kernels.ndt_fused_terms_from_map(*args)   # CPU tensors: the plain version
+    assert int(got[2]) > (400 if S == 7 else 100)
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+    # and it is what the matcher's linearization runs
+    for a, b_ in zip(ndt._ndt_terms(m, opts, src, R, t, weighted), want):
+        assert torch.equal(a, b_)
+
+
+def test_p2line_from_target_plain_equals_elect_then_given_plain_bit_for_bit():
+    """K3's p2line mode is the 7-voxel gather on the line table, the
+    nearest-valid-centroid election and K3 at S = 1, weighted, with the
+    elected row given. The gather and the election are written out here a
+    second time, as an argmin over the candidates (icp._stencil_rows,
+    icp._elect: the first stencil entry wins ties), as icp had them before
+    they moved into the kernel."""
+    args, tgt, opts, src = _line_case()
+    q, mask, R, t, gate = args[:5]
+    qs = kernels.transform_plain(q, R, t)
+    rows7, found7 = icp._stencil_rows(tgt.line_packed, tgt, opts, src, qs)
+    rows, w = icp._elect(rows7, found7 & (rows7[..., 12] > 0.5), rows7[..., 0:3], qs, mask)
+    given = (q, qs, rows[..., 0:3], rows[..., 3:12], w[:, None], R, t, gate * gate, True)
+    want = kernels.ndt_fused_terms_plain(*given)
+    for a, b_ in zip(kernels.p2line_elect_plain(*args[:4], *args[5:]), given[1:5]):
+        assert torch.equal(a, b_)
+    assert torch.equal(kernels.p2line_from_target_rows_plain(*args), kernels.ndt_rows_plain(*given))
+    got = kernels.p2line_fused_terms_from_target(*args)
+    assert int(got[2]) > 200
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+    for a, b_ in zip(icp.compute_h_and_b(tgt, opts, src, R, t), want):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("mode", ["ndt-trunc", "ndt-floor", "ndt-direct-trunc", "p2line"])
+def test_k3_from_map_rejects_what_the_lookup_rejects(mode):
+    """K3 finding its own voxels, under trunc as under floor: masked points,
+    points padded at PAD_COORD, points outside the +-512-cell key window
+    (also far enough to saturate the float-to-int cast) and points inside the
+    window but off the dense table all get weight 0: G = 0 exactly and
+    finite. Truncation bins toward zero (a point at -0.25 m lies in voxel 0,
+    the cell around the origin is two voxels wide); floor downwards."""
+    if mode == "p2line":
+        args, _, _, src = _line_case(1024)
+        call = lambda cloud: kernels.p2line_fused_terms_from_target(
+            cloud.xyz, cloud.mask, torch.eye(3), torch.zeros(3), *args[4:])
+    else:
+        _, method, bin_mode = ("ndt", "incremental", mode[4:]) if "direct" not in mode else \
+            ("ndt", "direct", "trunc")
+        args, m, opts, src = _ndt_case(method, 1024, 7, bin_mode)
+        call = lambda cloud: ndt._ndt_terms(m, opts, cloud, torch.eye(3), torch.zeros(3),
+                                            method == "incremental")
+    n = src.capacity
+    cases = {
+        "masked": src._replace(mask=torch.zeros(n, dtype=torch.bool)),
+        "padded": src._replace(xyz=torch.full((n, 3), pcm.PAD_COORD),
+                               mask=torch.zeros(n, dtype=torch.bool)),
+        "outside the key window": src._replace(xyz=src.xyz + 5000.0),
+        "past the int32 range": src._replace(xyz=src.xyz + 1e12),
+        "off the table": src._replace(xyz=src.xyz + 400.0),
+    }
+    assert int(call(src)[2]) > 100
+    for name, cloud in cases.items():
+        H, b, cnt, chi2 = call(cloud)
+        assert int(cnt) == 0, name
+        assert torch.all(H == 0) and torch.all(b == 0) and float(chi2) == 0.0, name
+    if mode != "p2line":
+        q = torch.tensor([[-0.25, 0.5, 2.5]])
+        c = voxel.voxel_coords(kernels.transform_plain(q, torch.eye(3), torch.zeros(3)),
+                               args[7].inv_leaf, args[7].origin, mode=opts.bin_mode)
+        assert c.tolist() == [[0 if opts.bin_mode == "trunc" else -1, 0, 1]]
+
+
 @pytest.mark.parametrize("method", ["p2plane_vox", "p2plane_vox_oct"])
 def test_from_target_rejects_what_the_lookup_rejects(method):
     """Masked points, points padded at PAD_COORD, points outside the
@@ -418,7 +569,8 @@ def _chip_smoke():
 @pytest.mark.parametrize("kernel,n", [("k1", 8192), ("k1", 8191), ("k1", 65536),
                                       ("k2", 8192), ("k2", 8191),
                                       ("k3w", 8192), ("k3d", 8191), ("k3w1", 8192),
-                                      ("k2t", 8192), ("k1t", 8191)])
+                                      ("k2t", 8192), ("k1t", 8191),
+                                      ("k3m", 8192), ("k3md", 8191), ("k3l", 8192)])
 def test_card_check_accepts_kernel_order_and_rejects_planted_errors(kernel, n):
     """The per-entry check chip_smoke holds the CUDA kernels to
     (kernels.check_against_rows, with the kernel's reduction depth): a sum
@@ -427,8 +579,27 @@ def test_card_check_accepts_kernel_order_and_rejects_planted_errors(kernel, n):
     1e-3, or a wrong count fails. k3w / k3d: K3 weighted / direct, S = 7;
     k3w1: weighted, S = 1 (the p2line_vox shape); k2t / k1t: K2 / K1 from
     the target (the gather inside the kernel), rows from their plain
-    versions on a small target."""
+    versions on a small target; k3m / k3md: K3 from the map, weighted /
+    direct, S = 7; k3l: K3 in p2line mode."""
     cs = _chip_smoke()
+    if kernel in ("k3m", "k3md", "k3l"):
+        if kernel == "k3l":
+            args = _line_case(n)[0]
+            rows_fn, plain_fn, per_point = (kernels.p2line_from_target_rows_plain,
+                                            kernels.p2line_from_target_terms_plain, 3)
+        else:
+            args = _ndt_case("incremental" if kernel == "k3m" else "direct", n)[0]
+            rows_fn, plain_fn, per_point = (kernels.ndt_from_map_rows_plain,
+                                            kernels.ndt_from_map_terms_plain, 21)
+        A = rows_fn(*args)
+        got = _kernel_order_sum(A, per_point)
+        err, ratio = cs._compare("emulated", got, plain_fn(*args), A, per_point)
+        assert ratio <= 1.0 and int(got[2]) > n // 10
+        cs._planted_errors_are_caught("emulated", got, A, per_point)
+        with pytest.raises(AssertionError):
+            cs._compare("planted", (got[0], got[1], got[2] + 1, got[3]), plain_fn(*args), A,
+                        per_point)
+        return
     if kernel in ("k2t", "k1t"):
         method = "p2plane_vox" if kernel == "k2t" else "p2plane_vox_oct"
         tgt, opts, src, R, t = _vox_case("p2plane_vox_oct", n)
@@ -484,9 +655,9 @@ def test_card_check_accepts_kernel_order_and_rejects_planted_errors(kernel, n):
 
 @pytest.mark.parametrize("pose", ["identity", "perturbed"])
 def test_k3_plain_on_p2line_vox_views_matches_pallas_interpret(pose):
-    """K3 at S = 1, weighted, on the inputs p2line_vox hands it: the picked
-    line rows of a real line table (JAX-built, carried across), with mu and
-    W strided views of the (N, 1, 13) rows. The Pallas kernel in interpret
+    """K3 at S = 1, weighted, on the inputs p2line_vox's election gives it:
+    the picked line rows of a real line table (JAX-built, carried across).
+    The Pallas kernel in interpret
     mode gets the same values; counts exact, entries within the K3 rule of
     this module (the bound of the other K3 cases)."""
     import jax
@@ -506,9 +677,8 @@ def test_k3_plain_on_p2line_vox_views_matches_pallas_interpret(pose):
     w = [0.0, 0.0, 0.0] if pose == "identity" else [0.01, -0.015, 0.02]
     R = torch.from_numpy(oracles.so3_exp(np.array(w)).astype(np.float32))
     t = torch.tensor([0.0, 0.0, 0.0] if pose == "identity" else [0.15, -0.1, 0.05])
-    qs, rows, wt = icp._p2line_vox_rows(tt, to, tsrc, R, t)
-    mu, W = rows[..., 0:3], rows[..., 3:12]
-    assert mu.shape == (8192, 1, 3) and W.stride() == (13, 13, 1)
+    qs, mu, W, wt = icp._p2line_vox_rows(tt, to, tsrc, R, t)
+    assert mu.shape == (8192, 1, 3) and W.shape == (8192, 1, 9) and wt.shape == (8192, 1)
     th = to.max_line_distance ** 2
     out = kernels.ndt_fused_terms(tsrc.xyz, qs, mu, W, wt, R, t, th, True)
     ref = pallas_kernels.ndt_fused_terms(

@@ -245,6 +245,41 @@ def test_loam_scan_match_matches_jax_on_carried_target():
     assert np.linalg.norm(own.t.numpy() - rel) < 0.1
 
 
+@pytest.mark.parametrize("pose", ["identity", "perturbed"])
+def test_loam_edge_and_surf_terms_match_jax_on_carried_target(pose):
+    """The two linearizations one LOAM iteration sums, on the rendered
+    pair's features and JAX's targets carried across: the edge term (K3 in
+    p2line mode: gather, election and rows in one call) and the surf term
+    (K2 from the target) against JAX's compute_h_and_b. Counts exact; H, b
+    and chi2 within rtol 1e-5, atol 1e-4 * max(1, max |H|)."""
+    from loc_lib_tpu.models import icp as jicp
+    from loc_lib_tpu_torch.models import icp
+
+    fo_j = jloam.LoamFeatureOptions(num_scan=16, min_ring_pts=64)
+    fo_t = loam.LoamFeatureOptions(num_scan=16, min_ring_pts=64)
+    jf, tf = [], []
+    for k in range(2):
+        jr, tr = _rendered(k)
+        jf.append(jloam.extract_features(jr, fo_j))
+        tf.append(loam.extract_features(tr, fo_t))
+    jo, to = jloam.LoamOption(), loam.LoamOption()
+    jt = jloam.set_target(jf[0].edge, jf[0].surf, jo)
+    tt = convert.loam_target_from_numpy(jax.tree_util.tree_map(np.asarray, jt)._asdict(), "cpu")
+    w = [0.0, 0.0, 0.0] if pose == "identity" else [0.004, -0.006, 0.005]
+    R = oracles.so3_exp(np.array(w)).astype(np.float32)
+    t = np.asarray([0.0, 0.0, 0.0] if pose == "identity" else [0.18, -0.03, 0.02], np.float32)
+    for part, jo_p, to_p in (("edge", jo.edge_icp, to.edge_icp), ("surf", jo.surf_icp, to.surf_icp)):
+        Hj, bj, nj, cj = (np.asarray(a) for a in jicp.compute_h_and_b(
+            getattr(jt, part), jo_p, getattr(jf[1], part), jnp.asarray(R), jnp.asarray(t)))
+        Ht, bt, nt, ct = icp.compute_h_and_b(getattr(tt, part), to_p, getattr(tf[1], part),
+                                             torch.from_numpy(R), torch.from_numpy(t))
+        assert int(nt) == int(nj) > 20, part
+        atol = 1e-4 * max(1.0, np.abs(Hj).max())
+        np.testing.assert_allclose(Ht.numpy(), Hj, rtol=1e-5, atol=atol, err_msg=part)
+        np.testing.assert_allclose(bt.numpy(), bj, rtol=1e-5, atol=atol, err_msg=part)
+        np.testing.assert_allclose(float(ct), float(cj), rtol=1e-5, atol=atol, err_msg=part)
+
+
 FRAMES, CAP = 8, 4096
 
 

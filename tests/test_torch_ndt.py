@@ -18,7 +18,12 @@ Stated tolerances:
     (measured), as ROADMAP section 3 records;
   * linearizations and matches on a map carried across from JAX (io/convert):
     counts exact, H/b/chi2 within rtol 1e-5, atol 1e-4 * max(1, max |H|);
-    equal iterations, pose within 1e-5 m / 1e-5 rad (measured 5e-8 m);
+    equal iterations, pose within 1e-5 m / 1e-5 rad (measured 5e-8 m). The
+    port's one qs (op by op, the kernels' order) and JAX's (XLA's product)
+    may put a point within an ulp of a voxel face (or, under trunc, of 0)
+    into different voxels: counted in
+    test_voxel_of_each_point_matches_jax_transform (0 of 4,096 on a 35 m
+    scan at a rotated pose under floor and under trunc);
   * port fused path against the port oracle: test_ndt.py:44's bounds.
 """
 import dataclasses
@@ -241,6 +246,73 @@ def test_terms_on_carried_map_match_jax(scene, method, use_fused):
     Ht, bt, nt, ct = ndt._ndt_terms(cm, to, _from_numpy(src, capacity=2048), _t(R), _t(t),
                                     weighted)
     assert int(nt) == int(nj) > 100
+    atol = 1e-4 * max(1.0, np.abs(Hj).max())
+    np.testing.assert_allclose(Ht.numpy(), Hj, rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(bt.numpy(), bj, rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(float(ct), float(cj), rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("method", ["direct", "incremental"])
+@pytest.mark.parametrize("nearby,bin_mode", [("center", "trunc"), ("nearby6", "floor"),
+                                             ("center", "floor")])
+def test_terms_from_map_other_stencil_and_binning_match_jax(scene, method, nearby, bin_mode):
+    """The other bodies of K3 from the map (S = 1, floor binning) against
+    JAX's _ndt_terms (Pallas in interpret mode) on a map carried across:
+    counts exact, entries within the module's linearization rule."""
+    tgt, src, _ = scene
+    jo, to = _opts(method, nearby=nearby, bin_mode=bin_mode)
+    jm, _ = _build(method, jo, to, tgt)
+    weighted = method == "incremental"
+    R = oracles.so3_exp(np.array([0.004, -0.006, 0.005])).astype(np.float32)
+    t = np.array([0.05, -0.02, 0.01], np.float32)
+    Hj, bj, nj, cj = (np.asarray(a) for a in jndt._ndt_terms(
+        jm, jo, jpc.from_numpy(src, capacity=2048), jnp.asarray(R), jnp.asarray(t), weighted))
+    Ht, bt, nt, ct = ndt._ndt_terms(_carried(jm), to, _from_numpy(src, capacity=2048), _t(R),
+                                    _t(t), weighted)
+    assert int(nt) == int(nj) > 50
+    atol = 1e-4 * max(1.0, np.abs(Hj).max())
+    np.testing.assert_allclose(Ht.numpy(), Hj, rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(bt.numpy(), bj, rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(float(ct), float(cj), rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("bin_mode", ["trunc", "floor"])
+def test_voxel_of_each_point_matches_jax_transform(bin_mode):
+    """K3 from the map decides a point's voxel from the same qs = R q + t it
+    takes the residuals with, evaluated op by op; JAX bins XLA's product
+    `xyz @ R.T + t`. The two qs differ in the last bit, so a point within an
+    ulp of a voxel face (under trunc also of 0, where the cell is two voxels
+    wide) may change cell. On a 35 m LiDAR scan at a rotated pose no point
+    of 4,096 does, under either binning, and the test holds that count at 0;
+    so the linearization on a JAX map carried across agrees with JAX's in
+    its residual count exactly and in its entries within the module's rule."""
+    from loc_lib_tpu.utils import lie as jlie
+    from loc_lib_tpu_torch.ops import kernels
+
+    world = jsyn.make_world(num_points=20000, extent=40.0, seed=3)
+    traj = jsyn.make_trajectory(num_frames=1)
+    pts = jpc.to_numpy(jsyn.render_scan(world, traj.R[0], traj.t[0], max_range=35.0,
+                                        max_points=4096, seed=0, capacity=4096))
+    jo, to = (m.NdtOptions(method="incremental", voxel_size=1.0, bin_mode=bin_mode,
+                           dense_dims=(128, 128, 32)) for m in (jndt, ndt))
+    jm = jndt.update_incremental(jndt.empty_incremental(jo), jpc.from_numpy(pts, capacity=4096),
+                                 jo)
+    R = np.array(jlie.so3_exp(jnp.asarray([0.011, -0.023, 0.31], jnp.float32)))
+    t = np.asarray([0.41, -0.27, 0.13], np.float32)
+    src = ((pts - t) @ R).astype(np.float32)          # R^T (p - t): lands back on the map
+    jsrc, tsrc = jpc.from_numpy(src, capacity=4096), _from_numpy(src, capacity=4096)
+    qs_j = np.asarray(jsrc.xyz @ jnp.asarray(R).T + jnp.asarray(t))   # ndt.py's own expression
+    qs_t = kernels.transform_plain(tsrc.xyz, _t(R), _t(t)).numpy()
+    valid = tsrc.mask.numpy()
+    assert np.abs(qs_j - qs_t)[valid].max() < 1e-5
+    cell = np.trunc if bin_mode == "trunc" else np.floor
+    differs = (cell(qs_j) != cell(qs_t)).any(axis=1)      # origin 0, 1 m voxels
+    n_diff = int((differs & valid).sum())
+    assert n_diff == 0, n_diff
+    Hj, bj, nj, cj = (np.asarray(a) for a in jndt._ndt_terms(
+        jm, jo, jsrc, jnp.asarray(R), jnp.asarray(t), True))
+    Ht, bt, nt, ct = ndt._ndt_terms(_carried(jm), to, tsrc, _t(R), _t(t), True)
+    assert int(nt) == int(nj) > 1000
     atol = 1e-4 * max(1.0, np.abs(Hj).max())
     np.testing.assert_allclose(Ht.numpy(), Hj, rtol=1e-5, atol=atol)
     np.testing.assert_allclose(bt.numpy(), bj, rtol=1e-5, atol=atol)
