@@ -9,7 +9,10 @@ wrappers' host time per call, the linearizations (gather + kernel) per
 call for p2plane_vox, p2plane_vox_oct, NDT (`ndt._ndt_terms`) and
 p2line_vox, launches and ms per headline match and per 3-iteration NDT
 match, and per-scan times of LIO `icp`, LIO `ndt_inc`, LOAM and Loc with
-both methods. Every timing comes before the first profiler session. Rows
+both methods, and the host synchronizations per LIO scan. One row has no
+parent side: 64 loop-registration matches as ONE `icp.scan_match_batch` call
+against 64 scalar `icp.scan_match` calls (the parent has no batched path).
+Every timing comes before the profiler is first opened. Rows
 whose code is the same in both trees are the control: they show what the
 comparison reads for no change. PARENT_DIR holds a checkout of the parent
 commit (e.g. unpacked with `git archive`).
@@ -91,6 +94,69 @@ def _loc_p50(get, device, log, world, method):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.percentile(times[4:], 50)), np.stack(eng.poses)
+
+
+def _lio_syncs(get, device, log):
+    """Host synchronizations per LIO icp scan of the tree `get` loads:
+    warnings of torch.cuda.set_sync_debug_mode("warn") over frames 4-11."""
+    import warnings
+
+    lio, icp, ndt = get("pipeline.lio"), get("models.icp"), get("models.ndt")
+    opts = lio.LioOptions(matcher="icp", icp=icp.IcpOptions(method="p2plane_vox"),
+                          ndt=ndt.NdtOptions(method="incremental", voxel_size=1.0),
+                          scan_capacity=8192, with_eskf=True)
+    eng = lio.Lio(opts, device=device)
+    for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
+        eng.init_imu(g, a, t)
+    mgs = list(log.measures(imu_capacity=64))[:12]
+    scans = [log.frame(mg.scan_index, device) for mg in mgs]
+    step = lambda k: eng.add_measure(scans[k], mgs[k].imu_gyro, mgs[k].imu_acce,
+                                     mgs[k].imu_stamp, mgs[k].imu_valid)
+    for k in range(4):
+        step(k)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for k in range(4, len(mgs)):
+                step(k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught) / (len(mgs) - 4)
+
+
+def batched_against_scalar(device, card, reps=5):
+    """This tree only: 64 loop-registration matches (chip_smoke's phase 8
+    workload, p2plane_vox and p2plane_vox_oct, fixed 20 iterations) as one
+    scan_match_batch call against 64 scalar scan_match calls, alternated."""
+    from loc_lib_tpu_torch.models import icp
+
+    bw = cs.batch_workload(device)
+    targets = icp.set_target_batch(bw["tgts"], cs._loop_icp_options("p2plane_vox_oct"))
+    B = cs.BATCH_LANES
+    for method in ("p2plane_vox", "p2plane_vox_oct"):
+        o = cs._loop_icp_options(method, max_iteration=20, eps=0.0)
+        lanes = [(icp.take_lane(targets, b), o, icp.take_lane(bw["srcs"], b), bw["R0"][b],
+                  bw["t0"][b]) for b in range(B)]
+        fns = {"scalar": lambda: [icp.scan_match(*a) for a in lanes],
+               "batched": lambda: icp.scan_match_batch(targets, o, bw["srcs"], bw["R0"],
+                                                       bw["t0"])}
+        ms = {"scalar": [], "batched": []}
+        for r in range(reps):
+            for side in (("scalar", "batched") if r % 2 == 0 else ("batched", "scalar")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[side]()
+                torch.cuda.synchronize()
+                ms[side].append((time.perf_counter() - t0) * 1e3)
+        sc, ba = np.median(ms["scalar"]), np.median(ms["batched"])
+        print(f"batched {method}, {B} matches of 20 iterations [{card}]: {B} scalar scan_match "
+              f"calls {sc:.2f} ms ({B / sc * 1e3:.0f} matches/s), one scan_match_batch call "
+              f"{ba:.2f} ms ({B / ba * 1e3:.0f} matches/s), medians of {reps} in turns; batched "
+              f"slower in {int(np.sum(np.asarray(ms['batched']) > np.asarray(ms['scalar'])))}/"
+              f"{reps} pairs (host clock; no parent side: the parent has no batched path)",
+              flush=True)
 
 
 def _pairs(name, unit, p, c, card):
@@ -181,6 +247,12 @@ def ab(device, card, parent_dir, reps=10):
             _pairs(f"{name}, per-call CUDA-event median", "ms", evt["parent"], evt["change"],
                    card)
     per_scan(device, card, trees, order, reps)
+    log12 = cs.demo_log(12)
+    syncs = {side: [_lio_syncs(get, device, log12) for _ in range(2)]
+             for side, get in trees.items()}
+    print(f"ab host synchronizations per LIO icp scan (frames 4-11, two runs each) [{card}]: "
+          f"parent {syncs['parent']} -> change {syncs['change']}", flush=True)
+    batched_against_scalar(device, card)
     for name in calls["parent"]:
         prof = {side: cs._profiled(calls[side][name], 5)[:2] for side in ("parent", "change")}
         print(f"ab {name} [{card}]: device launches {prof['parent'][0]:.0f} -> "

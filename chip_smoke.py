@@ -17,7 +17,17 @@ planes (icp_vox_inc). Then it checks that the map builds give the same bits
 on every run, and drives LOAM odometry (annotate_rings + extract_features +
 Lio.add_measure with edge_scan) and localization against a prior map
 (Loc.update_measure with p2plane_vox and p2plane_vox_oct, and two runs
-that re-crop). Launch counters, set to 0 before each path and read after
+that re-crop). Then batched matching (phase 8): the batched forms of K2 and
+K1 are held per lane against their plain versions and, bit for bit, against
+the scalar launch (B = 1, 3, 64; masked, out-of-window and off-table lanes;
+lanes switched off; a second stream), and 64 loop-registration matches
+(8,192-point targets, 2,048-point sources) run through
+icp.scan_match_batch with p2plane_vox and p2plane_vox_oct: one kernel launch
+per Gauss-Newton iteration for all lanes, every lane bit-equal to its scalar
+scan_match, the chunked call equal to the direct one, every converged lane
+under 3 cm, and matches per second at B = 1, 8 and 64. One frozen-election
+match and one match of each knn method run on the card too. Launch counters,
+set to 0 before each path and read after
 it, show each path went through its kernels (one K3 launch per NDT or
 p2line_vox linearization). Then it compares a match with
 the gather in torch ops against the shipped one (same bits; launches per
@@ -71,6 +81,13 @@ ATE_LIMIT_LOC_OCT_M = 0.073002 + 0.04        # p2plane_vox_oct, 150 m box
 ATE_LIMIT_LOC_RECROP_M = 0.073085 + 0.04     # p2plane_vox, 110 m box: one re-crop
 DETERMINISM_FRAMES = 12
 NDT_TH = 20.0             # NdtOptions.res_outlier_th
+# batched matching: bench_suite.py's throughput_batched workload
+BATCH_LANES = 64
+BATCH_TARGET_POINTS = 8192
+BATCH_SOURCE_POINTS = 2048
+BATCH_INIT_SIGMA_M = 0.05
+BATCH_TAIL_M = 0.03       # every converged lane within 3 cm of the ground truth
+BATCH_MIN_MEDIAN_EFFECTIVE = 700
 
 
 def _so3_exp(w):
@@ -1202,7 +1219,7 @@ def phase_lio(device, card, matcher="icp", label="phase 5", ate_limit=ATE_LIMIT_
     ate = metrics.ate(poses, log.gt_poses[np.asarray(idxs)])
     if not ate.rmse <= ate_limit:
         raise AssertionError(f"LIO {matcher} ATE RMSE {ate.rmse:.4f} m > {ate_limit} m")
-    if matcher != "icp" and eng.health.status == eng.health.LOST:
+    if eng.health.status == eng.health.LOST:
         raise AssertionError(f"LIO {matcher}: tracking health LOST "
                              f"({eng.health.total_bad} bad frames)")
     steady = np.asarray(times[LIO_WARMUP:])
@@ -1565,6 +1582,475 @@ def phase_loc_k2_check(loc_run):
     return err
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: batched matching
+# ---------------------------------------------------------------------------
+
+def batch_workload(device):
+    """bench_suite.py's throughput_batched workload (and the converged tail
+    of tests/test_icp.py:596) from the port's generator: world (200000
+    points, extent 80, seed 7), 65 poses of one trajectory (dt 0.1 s, 2 m/s),
+    lane b matching the 2,048-point scan of pose b + 1 (seed 2b + 1) to the
+    8,192-point scan of pose b (seed 2b), max range 70 m, noise 0.01, from
+    the true relative pose with its translation off by N(0, 5 cm). Returns a
+    dict: stacked target and source clouds, R0 (B, 3, 3), t0 (B, 3), the
+    ground-truth translations (B, 3)."""
+    from loc_lib_tpu_torch.io import synthetic
+    from loc_lib_tpu_torch.models import icp
+
+    world = synthetic.make_world(num_points=200000, extent=80.0, seed=7)
+    traj = synthetic.make_trajectory(num_frames=BATCH_LANES + 1, dt=0.1, speed=2.0)
+    rng = np.random.default_rng(3)
+    tgts, srcs, R0s, t0s, gts = [], [], [], [], []
+    for b in range(BATCH_LANES):
+        for clouds, k, n, seed in ((tgts, b, BATCH_TARGET_POINTS, 2 * b),
+                                   (srcs, b + 1, BATCH_SOURCE_POINTS, 2 * b + 1)):
+            clouds.append(synthetic.render_scan(
+                world, traj.R[k], traj.t[k], max_range=70.0, max_points=n, noise=0.01,
+                seed=seed, capacity=n, device=device)._replace(stamp=None))
+        R0s.append(traj.R[b].T @ traj.R[b + 1])
+        gts.append(traj.R[b].T @ (traj.t[b + 1] - traj.t[b]))
+        t0s.append(gts[-1] + rng.normal(0.0, BATCH_INIT_SIGMA_M, 3))
+    as_tensor = lambda a: torch.tensor(np.stack(a), dtype=torch.float32, device=device)
+    return {"tgts": icp.stack_lanes(tgts), "srcs": icp.stack_lanes(srcs), "R0": as_tensor(R0s),
+            "t0": as_tensor(t0s), "gt": np.stack(gts)}
+
+
+def _loop_icp_options(method, **kw):
+    """Slam3dOptions.loop_icp of the reference (p2plane_vox_oct, 30
+    iterations, gate 0.5 m, 2 m leaves, 4-point planes) with `method`."""
+    from loc_lib_tpu_torch.models import icp
+
+    return icp.IcpOptions(**{**dict(method=method, max_iteration=30, max_plane_distance=0.5,
+                                    grid_leaf=2.0, bucket_size=8, plane_min_pts=4), **kw})
+
+
+def _lanes(tree, B):
+    """The first B lanes of a stacked NamedTuple, contiguous."""
+    from loc_lib_tpu_torch.models import icp
+
+    return icp.tree_map(lambda x: x[:B].contiguous(), tree)
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_batch_targets(device, card, bw):
+    """The 64 stacked targets of phase 8 (octant tables included: the
+    p2plane_vox tables are a subset), and ms per set_target_batch lane for
+    both methods (host clock, second build)."""
+    from loc_lib_tpu_torch.models import icp
+
+    ms = {}
+    for method in ("p2plane_vox", "p2plane_vox_oct"):
+        o = _loop_icp_options(method)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            targets = icp.set_target_batch(bw["tgts"], o)
+            torch.cuda.synchronize()
+            ms[method] = (time.perf_counter() - t0) * 1e3 / BATCH_LANES
+    mb = sum(x.numel() * x.element_size() for x in (
+        targets.dense.table, targets.dense_oct.table, targets.oct_table, targets.packed_ext,
+        targets.packed)) / BATCH_LANES / 2 ** 20
+    print(f"phase 8 set_target_batch, {BATCH_LANES} targets of {BATCH_TARGET_POINTS} points, "
+          f"2 m leaves, default dense_dims [{card}]: p2plane_vox {ms['p2plane_vox']:.2f} ms "
+          f"per lane, p2plane_vox_oct {ms['p2plane_vox_oct']:.2f} ms per lane (lane by lane "
+          f"set_target + stack, host clock); {mb:.1f} MiB of tables a lane "
+          f"({int(targets.plane_valid[0].sum())} valid planes in lane 0)", flush=True)
+    return targets
+
+
+def phase_kernels_batch(device, card, bw, targets):
+    """K2-batch and K1-batch (one launch for B matches) against their plain
+    versions per lane and, bit for bit, against the scalar launch on each
+    lane's inputs, at B = 1, 3 and 64 on phase 8's own targets, sources and
+    poses: every lane has its own pose, tables and mask; lane 1's source is
+    all masked, lane 2's lies outside the key window, lane 3's inside it but
+    off its table (G = 0 there). With lanes switched off by `active`: the
+    others' bits unchanged, the switched-off lanes zero, every ticket back at
+    0 and a second call giving the same bits. On a second stream: its own
+    scratch, the same bits. Planted errors in one lane's result are rejected.
+    Then per-call times at B = 8 and 64 in turns with B scalar launches (and,
+    at B = 8, the plain version lane by lane), each beside its bound (the
+    bytes every lane must move over the memory rate), and B = 64 with half
+    the lanes off, skipped against all lanes computed.
+    Returns ({kernel name: max abs error}, the calls to profile later)."""
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.ops import kernels
+
+    K1, K2 = "p2plane_fused_terms", "p2plane_pick_fused_terms"
+    opts = _loop_icp_options("p2plane_vox_oct")
+    gate = opts.max_plane_distance
+    srcs = bw["srcs"]
+    xyz, mask = srcs.xyz.clone(), srcs.mask.clone()
+    mask[1] = False
+    xyz[2] += 5000.0
+    xyz[3] += 400.0
+    srcs = srcs._replace(xyz=xyz, mask=mask)
+    empty_lanes = (1, 2, 3)
+
+    def args_of(kname, tg, sc, R, t, batched):
+        index = (icp._index_batch if batched else icp._index)(
+            tg, opts, tg.dense if kname == K2 else tg.dense_oct)
+        tables = (tg.packed,) if kname == K2 else (tg.packed_ext, tg.oct_table)
+        return (sc.xyz, sc.mask, R, t, gate, *tables, index)
+
+    modes = {K2: (kernels.p2plane_pick_fused_terms_from_target_batch,
+                  kernels.p2plane_pick_fused_terms_from_target,
+                  kernels.p2plane_pick_from_target_terms_plain,
+                  kernels.p2plane_pick_from_target_rows_plain,
+                  kernels.p2plane_pick_from_target_terms_plain_batch, _k2_target_bytes),
+             K1: (kernels.p2plane_fused_terms_from_target_batch,
+                  kernels.p2plane_fused_terms_from_target,
+                  kernels.p2plane_from_target_terms_plain,
+                  kernels.p2plane_from_target_rows_plain,
+                  kernels.p2plane_from_target_terms_plain_batch, _k1_target_bytes)}
+    errs, ratio, cases, profile_later = {K1: 0.0, K2: 0.0}, 0.0, [], {}
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    for kname, short in ((K2, "K2-batch"), (K1, "K1-batch")):
+        fn_b, fn_s, plain_s, rows_s, plain_b, bytes_of = modes[kname]
+        for B in (1, 3, BATCH_LANES):
+            tg, sc = _lanes(targets, B), _lanes(srcs, B)
+            R, t = bw["R0"][:B].contiguous(), bw["t0"][:B].contiguous()
+            bargs = args_of(kname, tg, sc, R, t, True)
+            out = fn_b(*bargs)
+            torch.cuda.synchronize()
+            counts = []
+            for b in range(B):
+                sargs = args_of(kname, icp.take_lane(tg, b), icp.take_lane(sc, b), R[b], t[b],
+                                False)
+                lane = tuple(o[b] for o in out)
+                A = rows_s(*sargs)
+                e, r = _compare(f"{short} B={B} lane {b}", lane, plain_s(*sargs), A)
+                if not _same_bits(lane, fn_s(*sargs)):
+                    raise AssertionError(f"{short} B={B}: lane {b} differs from the scalar launch")
+                if (b in empty_lanes) != _gram_is_zero(lane):
+                    raise AssertionError(f"{short} B={B}: lane {b} is "
+                                         f"{'not ' if b in empty_lanes else ''}zero")
+                errs[kname], ratio = max(errs[kname], e), max(ratio, r)
+                counts.append(int(lane[2]))
+                if B == BATCH_LANES and b == 5:
+                    _planted_errors_are_caught(f"{short} lane 5", lane, A)
+            live = [c for b, c in enumerate(counts) if b not in empty_lanes]
+            cases.append(f"{short} B={B} ok ({B} lanes vs plain and bit-equal to scalar; counts "
+                         f"{min(live)}-{max(live)})")
+        # lanes switched off (B = 64 from the loop above)
+        active = torch.ones(BATCH_LANES, dtype=torch.bool, device=device)
+        active[4::3] = False
+        off = fn_b(*bargs, active)
+        for b in range(BATCH_LANES):
+            lane, full = tuple(o[b] for o in off), tuple(o[b] for o in out)
+            if not (_same_bits(lane, full) if active[b] else _gram_is_zero(lane)):
+                raise AssertionError(f"{short}: lane {b} wrong with lanes switched off")
+        again = fn_b(*bargs)
+        torch.cuda.synchronize()
+        if bool(kernels._scratch[(device.index, stream)][1].any()):
+            raise AssertionError(f"{short}: a ticket is not back at 0")
+        if not _same_bits(out, again) or not _same_bits(off, fn_b(*bargs, active)):
+            raise AssertionError(f"{short}: repeated calls differ")
+        before = len(kernels._scratch)
+        side = torch.cuda.Stream(device=device)
+        with torch.cuda.stream(side):
+            on_side = [fn_b(*bargs) for _ in range(5)][-1]
+        torch.cuda.synchronize()
+        if len(kernels._scratch) != before + 1 or not _same_bits(on_side, out):
+            raise AssertionError(f"{short}: a second stream did not get its own scratch or "
+                                 "gave other bits")
+        cases.append(f"{short}: {int((~active).sum())} of {BATCH_LANES} lanes off ok (others' "
+                     "bits unchanged, tickets 0, repeats bit-equal); second stream same bits; "
+                     "planted errors in lane 5 rejected")
+
+        # times, on the unmodified sources
+        for B in (8, BATCH_LANES):
+            tg, sc = _lanes(targets, B), _lanes(bw["srcs"], B)
+            R, t = bw["R0"][:B].contiguous(), bw["t0"][:B].contiguous()
+            bargs = args_of(kname, tg, sc, R, t, True)
+            lanes = [args_of(kname, icp.take_lane(tg, b), icp.take_lane(sc, b), R[b], t[b], False)
+                     for b in range(B)]
+            fns = {f"{B} scalar launches": lambda ls=lanes, f=fn_s: [f(*a) for a in ls],
+                   "one batched launch": lambda a=bargs, f=fn_b: f(*a)}
+            reps = 25
+            if B == 8:
+                fns = {"plain, lane by lane": lambda a=bargs, f=plain_b: f(*a), **fns}
+                reps = 10
+            ms = _time_in_turns(fns, reps)
+            host = _enqueue_us(fns["one batched launch"])
+            n_bytes = sum(bytes_of(*a[:4], *a[6:]) if kname == K2 else bytes_of(*a[:4], a[6], a[7])
+                          for a in lanes)
+            flops = (FLOPS_K2_TARGET if kname == K2 else FLOPS_K1_TARGET) * B * sc.xyz.shape[1]
+            bound_ms, bound_by = _bound(n_bytes, flops)
+            print(f"phase 8 {short} B={B}, N={sc.xyz.shape[1]} a lane [{card}]: per-call "
+                  f"CUDA-event medians of {2 * reps} in turns: "
+                  + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                  + f" | host time to enqueue the batched call {host:.1f} us | bound "
+                  f"{bound_ms:.6f} ms by {bound_by} ({n_bytes} B over all lanes, {flops} "
+                  "float32 ops)", flush=True)
+            profile_later[f"{short} B={B}"] = (fns["one batched launch"], True)
+            if B == BATCH_LANES:
+                profile_later[f"{short} B={B} as {B} scalar launches"] = (
+                    fns[f"{B} scalar launches"], False)
+                half = torch.ones(B, dtype=torch.bool, device=device)
+                half[::2] = False
+                skip = {"all lanes computed": fns["one batched launch"],
+                        "half the lanes off, skipped": lambda a=bargs, h=half, f=fn_b: f(*a, h)}
+                ms = _time_in_turns(skip, 25)
+                print(f"phase 8 {short} B={B} with half the lanes done [{card}]: "
+                      + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                      + " per call (CUDA-event medians of 50 in turns; device times in phase 3b)",
+                      flush=True)
+                profile_later[f"{short} B={B}, half the lanes off, skipped"] = (
+                    skip["half the lanes off, skipped"], True)
+    print("phase 8 batched kernels vs plain and vs the scalar launch: " + "; ".join(cases),
+          flush=True)
+    print(f"phase 8 batched kernels, largest error / per-entry bound: {ratio:.4g}", flush=True)
+    return errs, profile_later
+
+
+def _batch_lanes_equal_scalar(label, opts, targets, srcs, R0, t0, res):
+    """Every lane of a scan_match_batch result must have the bits of the
+    scalar scan_match on that lane: R, t, converged, num_effective, chi2 and
+    iterations."""
+    from loc_lib_tpu_torch.models import icp
+
+    for b in range(R0.shape[0]):
+        one = icp.scan_match(icp.take_lane(targets, b), opts, icp.take_lane(srcs, b), R0[b],
+                             t0[b])
+        same = (_same_bits((one.R, one.t, one.chi2), (res.R[b], res.t[b], res.chi2[b]))
+                and one.iterations == int(res.iterations[b])
+                and bool(one.converged) == bool(res.converged[b])
+                and int(one.num_effective) == int(res.num_effective[b]))
+        if not same:
+            raise AssertionError(f"{label}: lane {b} differs from its scalar scan_match")
+
+
+def phase_batched_match(device, card, bw, targets):
+    """The batched path at full width: 64 loop-registration matches through
+    icp.scan_match_batch. p2plane_vox (batched K2) with the fixed 20
+    iterations of the reference's throughput cell (eps = 0) at B = 8 and 64:
+    ONE K2 launch per iteration for all lanes, every lane bit-equal to its
+    scalar scan_match, scan_match_batch_chunked(chunk=8) equal to the direct
+    call; then converged (eps default) at B = 64: every lane under 3 cm,
+    median num_effective > 700. p2plane_vox_oct (batched K1) likewise, the
+    converged run at the reference's loop_icp options. Matches per second at
+    B = 1 (scalar), 8 and 64, fixed 20 iterations, host clock.
+    Returns {label: callable} of the B = 64 matches to profile later."""
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.ops import kernels
+
+    kernel_of = {"p2plane_vox": "p2plane_pick_fused_terms", "p2plane_vox_oct": "p2plane_fused_terms"}
+    srcs, R0, t0 = bw["srcs"], bw["R0"], bw["t0"]
+    to_profile = {}
+    for method, kname in kernel_of.items():
+        fixed = _loop_icp_options(method, max_iteration=20, eps=0.0)
+        converging = (icp.IcpOptions(method=method, grid_leaf=2.0, plane_min_pts=4)
+                      if method == "p2plane_vox" else _loop_icp_options(method))
+
+        def run(opts, B):
+            args = (_lanes(targets, B), opts, _lanes(srcs, B), R0[:B].contiguous(),
+                    t0[:B].contiguous())
+            before = dict(kernels.LAUNCHES)
+            res = icp.scan_match_batch(*args)
+            launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+            return args, res, launched
+
+        notes = []
+        for B in (8, BATCH_LANES):
+            args, res, launched = run(fixed, B)
+            if launched != {**dict.fromkeys(launched, 0), kname: 20} \
+                    or res.iterations.tolist() != [20] * B:
+                raise AssertionError(f"phase 8 {method} B={B}: launches {launched}, iterations "
+                                     f"{res.iterations.tolist()}; expected 20 launches of {kname}")
+            _batch_lanes_equal_scalar(f"phase 8 {method} B={B}", fixed, args[0], args[2], args[3],
+                                      args[4], res)
+            notes.append(f"B={B}: {launched[kname]} {kname} launches for 20 iterations of {B} "
+                         "lanes, every lane bit-equal to its scalar scan_match")
+        chunked = icp.scan_match_batch_chunked(*args, chunk=8)
+        if not _bits_equal(tuple(res), tuple(chunked)):
+            raise AssertionError(f"phase 8 {method}: chunked(chunk=8) differs from the direct call")
+        notes.append("scan_match_batch_chunked(chunk=8) at B=64 bit-equal to the direct call")
+
+        args, res, launched = run(converging, BATCH_LANES)
+        its = int(res.iterations.max())
+        err = np.linalg.norm(res.t.double().cpu().numpy() - bw["gt"], axis=1)
+        n_eff = float(np.median(res.num_effective.cpu().numpy()))
+        if launched[kname] != its or sum(launched.values()) != its:
+            raise AssertionError(f"phase 8 {method} converged: launches {launched} for {its} "
+                                 "iterations")
+        if not (np.isfinite(err).all() and err.max() < BATCH_TAIL_M
+                and n_eff > BATCH_MIN_MEDIAN_EFFECTIVE):
+            raise AssertionError(f"phase 8 {method} converged: worst lane {err.max():.4f} m off "
+                                 f"(lane {int(err.argmax())}), median num_effective {n_eff:.0f}")
+        _batch_lanes_equal_scalar(f"phase 8 {method} converged", converging, args[0], args[2],
+                                  args[3], args[4], res)
+        notes.append(f"converged at B=64 (eps {converging.eps}, max {converging.max_iteration} "
+                     f"iterations): {launched[kname]} launches = the slowest lane's iterations "
+                     f"(lanes took {int(res.iterations.min())}-{its}), "
+                     f"{int(res.converged.sum())}/{BATCH_LANES} converged, worst lane "
+                     f"{err.max() * 100:.2f} cm, median num_effective {n_eff:.0f}, every lane "
+                     "bit-equal to scalar")
+        print(f"phase 8 {method} batched [{card}]: " + "; ".join(notes), flush=True)
+
+        # matches per second, fixed 20 iterations
+        lane0 = (icp.take_lane(targets, 0), fixed, icp.take_lane(srcs, 0), R0[0], t0[0])
+        fns = {1: lambda a=lane0: icp.scan_match(*a)}
+        for B in (8, BATCH_LANES):
+            fns[B] = lambda a=run(fixed, B)[0]: icp.scan_match_batch(*a)
+        rates = {}
+        for B, fn in list(fns.items()) + list(fns.items())[::-1]:
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t_ = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                rates.setdefault(B, []).append((time.perf_counter() - t_) * 1e3)
+        print(f"phase 8 {method} matches per second, fixed 20 iterations "
+              f"({BATCH_TARGET_POINTS}-point targets, {BATCH_SOURCE_POINTS}-point sources; median "
+              f"of 8 calls in turns, host clock) [{card}]: "
+              + "; ".join(f"B={B}{' (scalar scan_match)' if B == 1 else ''} "
+                          f"{B / np.median(ms) * 1e3:.1f} matches/s ({np.median(ms):.3f} ms per "
+                          f"call)" for B, ms in rates.items()), flush=True)
+        to_profile[f"{method} B={BATCH_LANES}, 20 iterations"] = fns[BATCH_LANES]
+        to_profile[f"{method} B=1 (scalar), 20 iterations"] = fns[1]
+    return to_profile
+
+
+def phase_batched_profile(card, matches):
+    """Launches and device against host time of one batched match under the
+    profiler (after every host-clock timing): launches per GN iteration for
+    all lanes, and the device's busy share."""
+    for label, fn in matches.items():
+        fn()
+        n, dev_ms, host_ms, _ = _profiled(fn, 2)
+        print(f"phase 6 profile batched match, {label}: {n:.0f} device launches "
+              f"({n / 20:.1f} per GN iteration), device {dev_ms:.3f} ms vs host {host_ms:.3f} ms, "
+              f"device busy {100 * dev_ms / host_ms:.1f}% (profiler on) [{card}]", flush=True)
+
+
+def _structured_scene(rng, n=600):
+    """tests/test_icp.py's scene: a floor and two walls."""
+    a = np.stack([rng.uniform(-10, 10, n), rng.uniform(-10, 10, n), np.zeros(n)], 1)
+    b = np.stack([rng.uniform(-10, 10, n), np.full(n, -10.0), rng.uniform(0, 5, n)], 1)
+    c = np.stack([np.full(n, -10.0), rng.uniform(-10, 10, n), rng.uniform(0, 5, n)], 1)
+    return np.concatenate([a, b, c]).astype(np.float32)
+
+
+def phase_rest_of_icp(device, card, workload):
+    """The other entry points of models/icp.py on the card: one match with a
+    frozen election (freeze_election_after = 2, kernel K1 with the plane
+    given) against the default p2plane_vox on the headline inputs, timed in
+    turns, both within the headline's pose bounds and 1 cm of each other; and
+    one match of each knn method (p2plane, p2p, p2line) on the pose-recovery
+    workloads of tests/test_icp.py:37-59 within their bounds, with its
+    fitness score."""
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.ops import kernels, pointcloud
+
+    tgt_pc, src, R_gt, t_gt, R_init, t_init = workload
+    runs = {"default": icp.IcpOptions(method="p2plane_vox"),
+            "frozen": icp.IcpOptions(method="p2plane_vox", freeze_election_after=2)}
+    target = icp.set_target(tgt_pc, runs["default"])
+    res, times = {}, {k: [] for k in runs}
+    for name in ("default", "frozen", "frozen", "default"):
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t_ = time.perf_counter()
+            res[name] = icp.scan_match(target, runs[name], src, R_init, t_init)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t_) * 1e3)
+    for name, r in res.items():
+        rot_e = _rot_err(r.R.double().cpu().numpy(), R_gt)
+        trans_e = float(np.linalg.norm(r.t.double().cpu().numpy() - t_gt))
+        if not (rot_e < PARITY_ROT_RAD and trans_e < PARITY_TRANS_M and bool(r.converged)):
+            raise AssertionError(f"{name} election match off ground truth: "
+                                 f"{np.degrees(rot_e):.3f} deg / {trans_e:.4f} m")
+    gap = float(torch.linalg.vector_norm(res["default"].t - res["frozen"].t))
+    if not gap < 1e-2:
+        raise AssertionError(f"frozen election lands {gap:.4f} m from the default match")
+    before = kernels.LAUNCHES["p2plane_fused_terms"]
+    frozen = icp.scan_match(target, runs["frozen"], src, R_init, t_init)
+    k1 = kernels.LAUNCHES["p2plane_fused_terms"] - before
+    if k1 != frozen.iterations:
+        raise AssertionError(f"frozen election: {k1} K1 launches for {frozen.iterations} iterations")
+    print(f"phase 9 frozen election on the headline inputs (p2plane_vox, 65,536-point target, "
+          f"N={src.capacity}) [{card}]: default {np.median(times['default'][1:]):.3f} ms per "
+          f"match ({res['default'].iterations} iterations), freeze_election_after=2 "
+          f"{np.median(times['frozen'][1:]):.3f} ms ({frozen.iterations} iterations, {k1} K1 "
+          f"plane-given launches); poses {gap * 1000:.2f} mm apart (median of 11 in turns, host "
+          "clock)", flush=True)
+
+    lines = []
+    for z in range(5):
+        ts = np.random.default_rng(2 + 10 * z).uniform(-10, 10, 150)
+        lines.append(np.stack([ts, np.full_like(ts, z * 2.0 - 5), np.full_like(ts, z * 1.0)], 1))
+        lines.append(np.stack([np.full_like(ts, z * 2.0 - 5), ts, np.full_like(ts, z * 0.7)], 1))
+    cases = (("p2plane", _structured_scene(np.random.default_rng(0)), [0.02, -0.03, 0.04],
+              [0.3, -0.2, 0.15], 5e-3, 5e-2),
+             ("p2p", _structured_scene(np.random.default_rng(1)), [0.01, 0.02, -0.02],
+              [0.15, 0.1, -0.1], 2e-2, 1e-1),
+             ("p2line", np.concatenate(lines).astype(np.float32), [0.01, -0.01, 0.02],
+              [0.1, 0.05, -0.05], 2e-2, 5e-2))
+    out = []
+    eye, zero = torch.eye(3, device=device), torch.zeros(3, device=device)
+    for method, scene, w, trans, rot_bound, t_bound in cases:
+        R_true, t_true = _so3_exp(np.asarray(w)), np.asarray(trans)
+        opts = icp.IcpOptions(method=method)
+        tgt = icp.set_target(pointcloud.from_numpy(scene, capacity=2048, device=device), opts)
+        sc = pointcloud.from_numpy(((scene - t_true) @ R_true).astype(np.float32), capacity=2048,
+                                   device=device)
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t_ = time.perf_counter()
+            r = icp.scan_match(tgt, opts, sc, eye, zero)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t_) * 1e3)
+        rot_e = _rot_err(r.R.double().cpu().numpy(), R_true)
+        trans_e = float(np.linalg.norm(r.t.double().cpu().numpy() - t_true))
+        fit = float(icp.get_fitness_score(tgt, opts, sc, r.R, r.t))
+        if not (rot_e < rot_bound and trans_e < t_bound and np.isfinite(fit)):
+            raise AssertionError(f"knn method {method} off the true pose: {rot_e:.4f} rad / "
+                                 f"{trans_e:.4f} m (bounds {rot_bound} / {t_bound}), fitness {fit}")
+        out.append(f"{method}: {r.iterations} iterations, {rot_e:.4f} rad / {trans_e * 100:.2f} cm "
+                   f"off, n_eff {int(r.num_effective)}, fitness {fit:.5f} m^2, "
+                   f"{np.median(ms):.2f} ms per match")
+    print(f"phase 9 knn methods on the card (2,048-row clouds, plain torch ops, no kernel) "
+          f"[{card}]: " + "; ".join(out), flush=True)
+
+
+def phase_lio_syncs(device, card):
+    """Host synchronizations per LIO scan (matcher icp, ESKF on): the
+    warnings torch.cuda.set_sync_debug_mode("warn") raises over frames 4-11
+    of a 12-frame run, per scan."""
+    import warnings
+
+    from loc_lib_tpu_torch.pipeline import lio
+
+    log = demo_log(12)
+    eng = lio.Lio(lio_options("icp"), device=device)
+    for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
+        eng.init_imu(g, a, t)
+    mgs = list(log.measures(imu_capacity=64))
+    scans = [log.frame(mg.scan_index, device) for mg in mgs]
+    for mg, scan in zip(mgs[:4], scans):
+        eng.add_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for mg, scan in zip(mgs[4:], scans[4:]):
+                eng.add_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    per_scan = len(syncs) / len(mgs[4:])
+    print(f"phase 5 host synchronizations per LIO icp scan: {per_scan:.1f} ({len(syncs)} over "
+          f"frames 4-{len(mgs) - 1}, torch.cuda.set_sync_debug_mode) [{card}]", flush=True)
+    return per_scan
+
+
 def phase_kernel_device_times(card, calls):
     """Device time per call of every kernel, mode and plain version at the
     shapes phase 3 timed (torch.profiler, summed kernel time over 20 calls).
@@ -1586,7 +2072,8 @@ def phase_kernel_device_times(card, calls):
                 raise AssertionError(f"{label}: {launches} launches per call, expected 1")
             ms, launches = ms / launches, 1
         dev[label] = (ms, launches)
-    print("phase 3b device time per call at N=8192 (torch.profiler, kernels only) "
+    print("phase 3b device time per call (torch.profiler, kernels only; N=8192 scalar calls, "
+          f"{BATCH_SOURCE_POINTS}-point lanes for the batched ones) "
           f"[{card}]: " + "; ".join(
               f"{k} not measured (the profiler recorded no device event in 3 sessions)"
               if ms is None else f"{k} {ms:.4f} ms in {n:.0f} launches"
@@ -1826,10 +2313,24 @@ def main() -> int:
     for label, eng in (("110 m", rc), ("60 m", short)):
         if eng.num_recrops < 1:
             raise AssertionError(f"Loc {label} box: no re-crop")
+    # batched matching on the batched K2 / K1, then the frozen
+    # election and the knn methods
+    bw = batch_workload(device)
+    batch_targets = phase_batch_targets(device, card, bw)
+    batch_errs, calls = phase_kernels_batch(device, card, bw, batch_targets)
+    to_profile.update(calls)
+    batch_matches, c = counted(("p2plane_pick_fused_terms", "p2plane_fused_terms"),
+                               lambda: phase_batched_match(device, card, bw, batch_targets))
+    print(f"phase 8 launches (batched and scalar matches of the phase): {c}", flush=True)
+    for name in ("p2plane_pick_fused_terms", "p2plane_fused_terms"):
+        launches[name] += c[name]
+    phase_rest_of_icp(device, card, workload)
+    phase_lio_syncs(device, card)
     # every profiler run comes after the paths' host-clock timings
     phase_headline_timing(device, card, workload, target)
     phase_gather_before_after(device, card, workload, target)
     dev_ms = phase_kernel_device_times(card, to_profile)
+    phase_batched_profile(card, batch_matches)
     for name, label in (("p2plane_fused_terms", "K1 from target"),
                         ("p2plane_pick_fused_terms", "K2 from target"),
                         ("ndt_fused_terms", "K3 from map: from map")):
@@ -1845,16 +2346,19 @@ def main() -> int:
                                "loc_lib_tpu/ops/pallas_kernels.py:314")}
     errs = {k: v["err"] for k, v in timing.items()}
     errs["p2plane_fused_terms"] = max(errs["p2plane_fused_terms"], k1_err,
-                                      given_errs["p2plane_fused_terms"])
+                                      given_errs["p2plane_fused_terms"],
+                                      batch_errs["p2plane_fused_terms"])
     errs["p2plane_pick_fused_terms"] = max(errs["p2plane_pick_fused_terms"], k2_err,
-                                           given_errs["p2plane_pick_fused_terms"])
+                                           given_errs["p2plane_pick_fused_terms"],
+                                           batch_errs["p2plane_pick_fused_terms"])
     errs["ndt_fused_terms"] = max(errs["ndt_fused_terms"], k3_err)
     print("library_ms is null for all three kernels: no single PyTorch call computes one of "
           "them (each builds its rows from a gather, an election and a gate, then reduces "
           "them); ms, plain_ms, device_ms and bound_ms of K1 and K2 are those of the "
           "from-target mode and, since this revision, those of K3 are those of the from-map "
           "mode (S = 7, weighted, trunc, on an update_incremental map of the headline target): "
-          "the modes the paths run, at the headline inputs", flush=True)
+          "the modes the paths run, at the headline inputs; launches of K1 and K2 include "
+          "phase 8 (batched matching), max_abs_err their batched forms", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
          "launches": launches[name], "max_abs_err": errs[name],

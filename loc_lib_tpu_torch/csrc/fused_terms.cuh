@@ -32,6 +32,18 @@
 // ordered, two streams need two scratch buffers (ops/kernels.py keeps one per
 // device and stream).
 //
+//
+// Batched launches (one launch for B independent matches, the *_batch
+// kernels): the grid gets a lane axis, blockIdx.y = lane, and blockIdx.x
+// runs over the same num_blocks(N) blocks a scalar launch has. A lane reads
+// its own points, pose, table and rows through a lane stride and owns
+// partials[lane][gridDim.x][36], ticket[lane] and out[lane][44], so within a
+// lane every step above is the scalar launch's: out[lane] has the bits of a
+// scalar launch on that lane's inputs, whatever B is. A lane whose `active`
+// flag is 0 (a match that has already stopped) draws no ticket, so its
+// ticket stays 0; its block 0 writes zeros to out[lane] so the words are
+// defined.
+//
 // float32 throughout, no TF32 and no tensor cores: an 8-wide Gram sum in
 // full float32 fills no MMA tile. TMA and wgmma have nothing to carry here
 // (no tile is reused; every point reads its own few rows once).
@@ -196,6 +208,30 @@ __device__ __forceinline__ void stencil_slots(const VoxelIndex& v, const VoxelIn
   slot[4] = look(0, -1, 0);
   slot[5] = look(0, 0, -1);
   slot[6] = look(0, 0, 1);
+}
+
+// Lane `lane` of a batched launch's reduction (see the top).
+__device__ __forceinline__ Reduction lane_reduction(const Reduction& red, int lane) {
+  return Reduction{red.partials + static_cast<long long>(lane) * gridDim.x * kEntries,
+                   red.ticket + lane, red.out + static_cast<long long>(lane) * kOutWords};
+}
+
+// Lane `lane` of B stacked voxel tables: table (B, d0 d1 d2), lo (B, 3),
+// origin (B, 3), inv_leaf (B,).
+__device__ __forceinline__ VoxelIndex lane_index(const VoxelIndex& v, int lane) {
+  const long long cells = static_cast<long long>(v.d0) * v.d1 * v.d2;
+  return VoxelIndex{v.table + lane * cells, v.lo + 3 * lane, v.origin + 3 * lane,
+                    v.inv_leaf + lane, v.d0, v.d1, v.d2};
+}
+
+// True where the lane is switched off (active != nullptr and active[lane]
+// == 0): the whole block must then return at once. Block 0 of the lane first
+// zeroes the lane's output words. The lane's ticket is not touched.
+__device__ __forceinline__ bool lane_is_off(const unsigned char* __restrict__ active, int lane,
+                                            float* __restrict__ out) {
+  if (active == nullptr || __ldg(active + lane) != 0) return false;
+  if (blockIdx.x == 0 && threadIdx.x < kOutWords) out[threadIdx.x] = 0.f;
+  return true;
 }
 
 // Writes the outputs from the 36 summed entries g (shared memory): threads

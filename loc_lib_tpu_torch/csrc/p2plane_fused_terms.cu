@@ -41,6 +41,14 @@
 // finish reduces, fused_terms.cuh). R, t and the gate are read from the
 // device tensors the previous GN iteration wrote. No padding copy: the
 // ragged edge is masked by the loop bound.
+//
+// Batched (p2plane_from_target_batch_kernel): B matches, each with its own
+// points, pose and octant tables, in ONE launch on a (num_blocks(N), B) grid;
+// lane b runs the from-target body on its own slices and reduces into its
+// own partials, ticket and outputs (fused_terms.cuh), so out[b] has the bits
+// of the scalar launch on lane b's inputs. It is what the reference runs
+// under vmap for loop registration. The launch and the reduction tail are
+// paid once for all lanes, and B x num_blocks(N) blocks fill the card.
 #include "fused_terms.cuh"
 
 namespace loc_fused {
@@ -68,15 +76,13 @@ p2plane_kernel(const float* __restrict__ q, const float* __restrict__ plane, int
   reduce_and_finish(acc, red);
 }
 
-// Plane from the target's (voxel, octant) tables.
-static __global__ void __launch_bounds__(kThreads)
-p2plane_from_target_kernel(const float* __restrict__ q,
-                           const unsigned char* __restrict__ mask,
-                           const float4* __restrict__ packed_ext,
-                           const int* __restrict__ oct_table, VoxelIndex index,
-                           const float* __restrict__ R, const float* __restrict__ t,
-                           const float* __restrict__ gate_ptr, float gate_value, int n,
-                           Reduction red) {
+// Plane from the target's (voxel, octant) tables. One body for the scalar
+// launch and for each lane of the batched one.
+__device__ __forceinline__ void p2plane_from_target_body(
+    const float* __restrict__ q, const unsigned char* __restrict__ mask,
+    const float4* __restrict__ packed_ext, const int* __restrict__ oct_table,
+    const VoxelIndex& index, const float* __restrict__ R, const float* __restrict__ t,
+    const float* __restrict__ gate_ptr, float gate_value, int n, const Reduction& red) {
   float p[13];
   load_pose(R, t, gate_ptr, gate_value, p);
   const VoxelIndexRegs ix = load_index(index);
@@ -105,6 +111,43 @@ p2plane_from_target_kernel(const float* __restrict__ q,
     accumulate_p2plane(acc, p, x, y, z, qsx, qsy, qsz, plane.x, plane.y, plane.z, plane.w, w0);
   }
   reduce_and_finish(acc, red);
+}
+
+static __global__ void __launch_bounds__(kThreads)
+p2plane_from_target_kernel(const float* __restrict__ q,
+                           const unsigned char* __restrict__ mask,
+                           const float4* __restrict__ packed_ext,
+                           const int* __restrict__ oct_table, VoxelIndex index,
+                           const float* __restrict__ R, const float* __restrict__ t,
+                           const float* __restrict__ gate_ptr, float gate_value, int n,
+                           Reduction red) {
+  p2plane_from_target_body(q, mask, packed_ext, oct_table, index, R, t, gate_ptr, gate_value,
+                           n, red);
+}
+
+// B lanes in one launch: q (B, n, 3), mask (B, n), packed_ext (B, rows, 8),
+// oct_table (B, oct_rows, 8), the index's tensors stacked, R (B, 3, 3),
+// t (B, 3), one gate for all lanes, active (B,) or nullptr. blockIdx.y is the
+// lane.
+static __global__ void __launch_bounds__(kThreads)
+p2plane_from_target_batch_kernel(const float* __restrict__ q,
+                                 const unsigned char* __restrict__ mask,
+                                 const float4* __restrict__ packed_ext, int rows,
+                                 const int* __restrict__ oct_table, int oct_rows,
+                                 VoxelIndex index, const float* __restrict__ R,
+                                 const float* __restrict__ t,
+                                 const float* __restrict__ gate_ptr, float gate_value,
+                                 const unsigned char* __restrict__ active, int n,
+                                 Reduction red) {
+  const int lane = blockIdx.y;
+  const Reduction lane_red = lane_reduction(red, lane);
+  if (lane_is_off(active, lane, lane_red.out)) return;
+  p2plane_from_target_body(q + static_cast<long long>(lane) * n * 3,
+                           mask + static_cast<long long>(lane) * n,
+                           packed_ext + static_cast<long long>(lane) * rows * 2,
+                           oct_table + static_cast<long long>(lane) * oct_rows * 8,
+                           lane_index(index, lane), R + 9 * lane, t + 3 * lane, gate_ptr,
+                           gate_value, n, lane_red);
 }
 
 }  // namespace loc_fused
@@ -145,6 +188,28 @@ extern "C" int p2plane_from_target_launch(const void* q, const void* mask,
       static_cast<const float4*>(packed_ext), static_cast<const int*>(oct_table), index,
       static_cast<const float*>(R), static_cast<const float*>(t),
       static_cast<const float*>(gate_ptr), gate_value, n, red);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int p2plane_from_target_batch_launch(
+    const void* q, const void* mask, const void* packed_ext, int rows, const void* oct_table,
+    int oct_rows, const void* table, const void* lo, const void* origin, const void* inv_leaf,
+    int d0, int d1, int d2, const void* R, const void* t, const void* gate_ptr,
+    float gate_value, const void* active, int lanes, int n, int num_blocks, void* partials,
+    void* ticket, void* out, void* stream) {
+  using namespace loc_fused;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Reduction red{static_cast<float*>(partials), static_cast<unsigned int*>(ticket),
+                      static_cast<float*>(out)};
+  const VoxelIndex index{static_cast<const int*>(table), static_cast<const int*>(lo),
+                         static_cast<const float*>(origin),
+                         static_cast<const float*>(inv_leaf), d0, d1, d2};
+  p2plane_from_target_batch_kernel<<<dim3(num_blocks, lanes), kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const unsigned char*>(mask),
+      static_cast<const float4*>(packed_ext), rows, static_cast<const int*>(oct_table),
+      oct_rows, index, static_cast<const float*>(R), static_cast<const float*>(t),
+      static_cast<const float*>(gate_ptr), gate_value,
+      static_cast<const unsigned char*>(active), n, red);
   return static_cast<int>(cudaGetLastError());
 }
 

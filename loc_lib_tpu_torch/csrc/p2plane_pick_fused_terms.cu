@@ -49,6 +49,16 @@
 // N = 8192 where 256 filled 32; one launch (the last block to finish
 // reduces, fused_terms.cuh: 1.5 us faster than two). R, t and the gate are
 // read from the device tensors the previous GN iteration wrote.
+//
+// Batched (pick_from_target_batch_kernel): B matches, each with its own
+// points, pose and target, in ONE launch on a (num_blocks(N), B) grid; lane b
+// runs the from-target body on its own slices and reduces into its own
+// partials, ticket and outputs (fused_terms.cuh), so out[b] has the bits of
+// the scalar launch on lane b's inputs. It is what the reference runs under
+// vmap. At B = 64, N = 2048 it moves B times the scalar call's bytes (each
+// lane's points, and the cells and rows its stencils touch) in 1,024 blocks
+// that fill the card, where a scalar call's 16 blocks leave 116 SMs idle:
+// the launch and the reduction tail are paid once for all lanes.
 #include <math_constants.h>
 
 #include "fused_terms.cuh"
@@ -110,13 +120,13 @@ pick_rows_kernel(const float* __restrict__ q, const float4* __restrict__ rows,
   reduce_and_finish(acc, red);
 }
 
-// Rows from the target: the 7-voxel gather inside the kernel.
-static __global__ void __launch_bounds__(kThreads)
-pick_from_target_kernel(const float* __restrict__ q, const unsigned char* __restrict__ mask,
-                        const float4* __restrict__ packed, VoxelIndex index,
-                        const float* __restrict__ R, const float* __restrict__ t,
-                        const float* __restrict__ gate_ptr, float gate_value, int n,
-                        Reduction red) {
+// Rows from the target: the 7-voxel gather inside the kernel. One body for
+// the scalar launch and for each lane of the batched one.
+__device__ __forceinline__ void pick_from_target_body(
+    const float* __restrict__ q, const unsigned char* __restrict__ mask,
+    const float4* __restrict__ packed, const VoxelIndex& index, const float* __restrict__ R,
+    const float* __restrict__ t, const float* __restrict__ gate_ptr, float gate_value, int n,
+    const Reduction& red) {
   float p[13];
   load_pose(R, t, gate_ptr, gate_value, p);
   const VoxelIndexRegs ix = load_index(index);
@@ -145,6 +155,35 @@ pick_from_target_kernel(const float* __restrict__ q, const unsigned char* __rest
     elect_and_accumulate(acc, p, x, y, z, qsx, qsy, qsz, c, m ? 1.f : 0.f);
   }
   reduce_and_finish(acc, red);
+}
+
+static __global__ void __launch_bounds__(kThreads)
+pick_from_target_kernel(const float* __restrict__ q, const unsigned char* __restrict__ mask,
+                        const float4* __restrict__ packed, VoxelIndex index,
+                        const float* __restrict__ R, const float* __restrict__ t,
+                        const float* __restrict__ gate_ptr, float gate_value, int n,
+                        Reduction red) {
+  pick_from_target_body(q, mask, packed, index, R, t, gate_ptr, gate_value, n, red);
+}
+
+// B lanes in one launch: q (B, n, 3), mask (B, n), packed (B, rows, 8), the
+// index's tensors stacked, R (B, 3, 3), t (B, 3), one gate for all lanes,
+// active (B,) or nullptr. blockIdx.y is the lane.
+static __global__ void __launch_bounds__(kThreads)
+pick_from_target_batch_kernel(const float* __restrict__ q,
+                              const unsigned char* __restrict__ mask,
+                              const float4* __restrict__ packed, int rows, VoxelIndex index,
+                              const float* __restrict__ R, const float* __restrict__ t,
+                              const float* __restrict__ gate_ptr, float gate_value,
+                              const unsigned char* __restrict__ active, int n, Reduction red) {
+  const int lane = blockIdx.y;
+  const Reduction lane_red = lane_reduction(red, lane);
+  if (lane_is_off(active, lane, lane_red.out)) return;
+  pick_from_target_body(q + static_cast<long long>(lane) * n * 3,
+                        mask + static_cast<long long>(lane) * n,
+                        packed + static_cast<long long>(lane) * rows * 2,
+                        lane_index(index, lane), R + 9 * lane, t + 3 * lane, gate_ptr,
+                        gate_value, n, lane_red);
 }
 
 }  // namespace loc_fused
@@ -184,5 +223,25 @@ extern "C" int p2plane_pick_from_target_launch(const void* q, const void* mask,
       static_cast<const float*>(q), static_cast<const unsigned char*>(mask),
       static_cast<const float4*>(packed), index, static_cast<const float*>(R),
       static_cast<const float*>(t), static_cast<const float*>(gate_ptr), gate_value, n, red);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int p2plane_pick_from_target_batch_launch(
+    const void* q, const void* mask, const void* packed, int rows, const void* table,
+    const void* lo, const void* origin, const void* inv_leaf, int d0, int d1, int d2,
+    const void* R, const void* t, const void* gate_ptr, float gate_value, const void* active,
+    int lanes, int n, int num_blocks, void* partials, void* ticket, void* out, void* stream) {
+  using namespace loc_fused;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Reduction red{static_cast<float*>(partials), static_cast<unsigned int*>(ticket),
+                      static_cast<float*>(out)};
+  const VoxelIndex index{static_cast<const int*>(table), static_cast<const int*>(lo),
+                         static_cast<const float*>(origin),
+                         static_cast<const float*>(inv_leaf), d0, d1, d2};
+  pick_from_target_batch_kernel<<<dim3(num_blocks, lanes), kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const unsigned char*>(mask),
+      static_cast<const float4*>(packed), rows, index, static_cast<const float*>(R),
+      static_cast<const float*>(t), static_cast<const float*>(gate_ptr), gate_value,
+      static_cast<const unsigned char*>(active), n, red);
   return static_cast<int>(cudaGetLastError());
 }

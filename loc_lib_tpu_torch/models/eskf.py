@@ -12,6 +12,7 @@ select would keep), so a scan costs one small launch chain per IMU sample.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
@@ -70,14 +71,19 @@ def init_state(bg=None, ba=None, gravity=None, cov_scale: float = 1e-4,
 
 
 def process_noise(opts: EskfOptions, device) -> torch.Tensor:
-    """Process noise: the reference uses the variances directly."""
-    return _diag_on(device, [0.0] * 3 + [opts.acce_var] * 3 + [opts.gyro_var] * 3
-                    + [opts.bias_gyro_var] * 3 + [opts.bias_acce_var] * 3 + [0.0] * 3)
+    """Process noise: the reference uses the variances directly. Q depends
+    only on (opts, device), so it is built once per pair and shared: callers
+    read it, never write it."""
+    return _diag_on(device, (0.0,) * 3 + (opts.acce_var,) * 3 + (opts.gyro_var,) * 3
+                    + (opts.bias_gyro_var,) * 3 + (opts.bias_acce_var,) * 3 + (0.0,) * 3)
 
 
-def _diag_on(device, values) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _diag_on(device, values: tuple) -> torch.Tensor:
     """diag(values) made on the device by fills (no host-to-device copy,
-    which would wait for the stream on the card)."""
+    which would wait for the stream on the card), once per (device, values):
+    the element fills are a host round trip each on the card, and the
+    filter asks for the same two matrices on every scan."""
     d = torch.zeros(len(values), dtype=torch.float32, device=device)
     for i, v in enumerate(values):
         if v:
@@ -172,7 +178,7 @@ def observe_se3(s: EskfState, R_obs, t_obs, opts: EskfOptions,
     H = torch.zeros((6, 18), dtype=torch.float32, device=dev)
     H[0:3, 0:3] = torch.eye(3, dtype=torch.float32, device=dev)
     H[3:6, 6:9] = torch.eye(3, dtype=torch.float32, device=dev)
-    V = _diag_on(dev, [trans_noise] * 3 + [ang_noise_rad] * 3)
+    V = _diag_on(dev, (trans_noise,) * 3 + (ang_noise_rad,) * 3)
     innov = torch.cat([t_obs - s.p, lie.so3_log(s.R.T @ R_obs)])
     return _update_and_reset(s, H, V, innov, opts)
 

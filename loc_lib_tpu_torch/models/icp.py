@@ -1,8 +1,9 @@
-"""Voxel ICP scan matching (port of the p2plane_vox, p2plane_vox_oct and
-p2line_vox paths of loc_lib_tpu/models/icp.py).
+"""ICP scan matching (port of loc_lib_tpu/models/icp.py): the voxel methods
+p2plane_vox, p2plane_vox_oct and p2line_vox, the knn oracle methods p2p,
+p2line and p2plane, the frozen election, and batched matching.
 
-Target side: per-voxel planes (or lines) from neighbor-merged Gaussian
-moments (VGICP-style) are precomputed once at `set_target`, plus (for
+Voxel methods, target side: per-voxel planes (or lines) from neighbor-merged
+Gaussian moments (VGICP-style) are precomputed once at `set_target`, plus (for
 p2plane_vox_oct) the correspondence pre-elected per (voxel, octant) cell.
 Match side: each Gauss-Newton iteration is one fused kernel (ops/kernels.py)
 that does the dense O(1) voxel lookup and the row reads itself: K2 from the
@@ -14,6 +15,18 @@ inside the kernel). The outer
 loop is a Python loop with the reference's stop rule (|dx| < eps, at most
 max_iteration, never during gate warm-up); it reads one flag back per
 iteration.
+
+The knn methods search the target's hash grid per probe (voxel.knn: 3x3x3
+bucket gather + top-k), fit a plane or a line to the 5 neighbours and
+assemble H and b with a matrix product: plain torch ops, no kernel, as in
+the reference, where they are the oracle the voxel methods are held to.
+
+Batched matching (`set_target_batch`, `scan_match_batch`,
+`scan_match_batch_chunked`): B independent (target, source, init) matches
+with a leading B axis on every tensor run one GN loop; each iteration is ONE
+launch of the batched K2 or K1 for all lanes, one batched 6x6 solve and
+retraction, and one host read. A lane that has stopped keeps its state.
+Lane b of the result has the bits of the scalar `scan_match` on lane b.
 
 P2Plane residual and Jacobian (right perturbation):
     e = n.(R q + t) + d      J = [-n^T R hat(q), n^T]
@@ -33,6 +46,7 @@ from ..ops import kernels, voxel
 from ..utils import lie, mathx
 
 _VOX_METHODS = ("p2plane_vox", "p2plane_vox_oct", "p2line_vox")
+_KNN_METHODS = ("p2p", "p2line", "p2plane")
 
 
 def not_ported(what: str, slice_: str):
@@ -43,18 +57,20 @@ def not_ported(what: str, slice_: str):
 
 @dataclasses.dataclass(frozen=True)
 class IcpOptions:
-    """Mirror of the JAX package's IcpOptions (same names and defaults) for
-    the fields the ported methods read; the fields of the other methods
-    (max_nn_distance, elect_*) come with them.
+    """Mirror of the JAX package's IcpOptions: same names and defaults.
 
-    This port runs method="p2plane_vox", "p2plane_vox_oct" and
-    "p2line_vox"; the knn methods (p2p, p2line, p2plane) and
-    freeze_election_after > 0 raise NotImplementedError naming the roadmap
-    slice they wait for."""
+    method: "p2plane_vox", "p2plane_vox_oct", "p2line_vox" (the fused voxel
+    methods) or "p2p", "p2line", "p2plane" (per-probe knn search, the
+    oracles). freeze_election_after > 0 (p2plane_vox only) re-elects
+    correspondences for the first k iterations and whenever the pose has
+    moved more than elect_dx_threshold (metres; rotation as angle *
+    elect_rot_scale) since the last election, and otherwise reuses them: an
+    opt-in for one-shot registrations, as in the reference."""
 
     method: str = "p2plane"
     use_initial_translation: bool = True
     max_iteration: int = 20
+    max_nn_distance: float = 1.0     # SQUARED-distance gate of p2p
     max_plane_distance: float = 0.1
     max_line_distance: float = 0.5
     min_effective_pts: int = 10
@@ -68,13 +84,15 @@ class IcpOptions:
     line_ratio: float = 3.0
     dense_dims: tuple = (256, 256, 64)
     freeze_election_after: int = 0
+    elect_dx_threshold: float = 0.15
+    elect_rot_scale: float = 30.0    # m of drift per rad at scene scale
     gate_warmup_iters: int = 0
     gate_warmup_scale: float = 5.0
 
 
 def _check_method(opts: IcpOptions):
-    if opts.method not in _VOX_METHODS:
-        not_ported(f"ICP method {opts.method!r}", "2")
+    if opts.method not in _VOX_METHODS + _KNN_METHODS:
+        raise ValueError(f"unknown ICP method {opts.method!r}")
 
 
 class IcpTarget(NamedTuple):
@@ -256,9 +274,13 @@ def _masked_centroid(pc: PointCloud) -> torch.Tensor:
 
 
 def set_target(pc: PointCloud, opts: IcpOptions, origin=None) -> IcpTarget:
-    """Build the voxel-plane target over a cloud (on the cloud's device)."""
+    """Build the target over a cloud (on the cloud's device): the hash grid
+    for the knn methods, the voxel plane or line tables for the others."""
     _check_method(opts)
     cen = _masked_centroid(pc)
+    if opts.method in _KNN_METHODS:
+        return IcpTarget(grid=voxel.build_hash_grid(pc, opts.grid_leaf, opts.bucket_size,
+                                                    origin), centroid=cen)
     # the grid and the per-voxel Gaussians share floor binning and origin:
     # one key sort feeds both
     grid, stats = voxel.build_hash_grid_with_stats(pc, opts.grid_leaf,
@@ -280,6 +302,9 @@ def set_target(pc: PointCloud, opts: IcpOptions, origin=None) -> IcpTarget:
 
 
 class MatchResult(NamedTuple):
+    """One match, or B of them (`scan_match_batch`): every tensor then has a
+    leading B axis and `iterations` is a (B,) int32 tensor."""
+
     R: torch.Tensor
     t: torch.Tensor
     converged: torch.Tensor      # () bool: |dx| < eps reached
@@ -291,6 +316,79 @@ class MatchResult(NamedTuple):
 # ---------------------------------------------------------------------------
 # Per-method linearization (one pass over all source points)
 # ---------------------------------------------------------------------------
+
+def _assemble(J: torch.Tensor, e: torch.Tensor, w: torch.Tensor):
+    """Masked H = sum J^T J, b = -sum J^T e as float32 matrix products.
+    J (N, r, 6), e (N, r), w (N,) validity weights."""
+    n, r, _ = J.shape
+    Jw = (J * w[:, None, None]).reshape(n * r, 6)
+    ew = (e * w[:, None]).reshape(n * r)
+    return Jw.T @ Jw, -(Jw.T @ ew)
+
+
+def _R_hat_q(R, q):
+    """R hat(q) per point: (N, 3, 3)."""
+    return torch.einsum("ij,njk->nik", R, lie.hat(q))
+
+
+def _count(eff: torch.Tensor) -> torch.Tensor:
+    return eff.to(torch.int32).sum()
+
+
+def _p2p_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t, gate=None):
+    """Point-to-point: nearest target point within the 3x3x3 stencil, gated
+    on the SQUARED distance (max_nn_distance)."""
+    q = src.xyz
+    qs = kernels.transform_plain(q, R, t)
+    p, _, d2, valid = voxel.nn1(target.grid, qs, src.mask)
+    eff = valid & (d2 <= opts.max_nn_distance)
+    e = p - qs
+    Rhatq = _R_hat_q(R, q)
+    J = torch.cat([Rhatq, (-torch.eye(3, dtype=q.dtype, device=q.device)).expand(Rhatq.shape)],
+                  dim=-1)                                           # (N, 3, 6)
+    w = eff.to(q.dtype)
+    H, b = _assemble(J, e, w)
+    return H, b, _count(eff), torch.sum(torch.sum(e * e, dim=-1) * w)
+
+
+def _p2line_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t, gate=None):
+    """Point-to-line: a line fitted to the 5 nearest target points (all 5
+    required); effective = found 5 and the fit holds; the norm gate only
+    skips accumulation."""
+    q = src.xyz
+    qs = kernels.transform_plain(q, R, t)
+    nn_pts, _, _, valid = voxel.knn(target.grid, qs, src.mask, 5)
+    got5 = valid.to(torch.int32).sum(dim=1) == 5
+    p0, d, fit_ok = mathx.fit_line(nn_pts, valid, eps=opts.max_line_distance)
+    hat_d = lie.hat(d)                                              # (N, 3, 3)
+    e = torch.einsum("nij,nj->ni", hat_d, qs - p0)
+    eff = got5 & fit_ok
+    accum = eff & (torch.sqrt(torch.sum(e * e, dim=-1)) <= opts.max_line_distance)
+    Jrot = -torch.einsum("nij,njk->nik", hat_d, _R_hat_q(R, q))
+    J = torch.cat([Jrot, hat_d], dim=-1)                            # (N, 3, 6)
+    w = accum.to(q.dtype)
+    H, b = _assemble(J, e, w)
+    return H, b, _count(eff), torch.sum(torch.sum(e * e, dim=-1) * w)
+
+
+def _p2plane_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t, gate=None):
+    """Point-to-plane: a plane fitted to the 5 nearest target points (more
+    than 3 required); the plane-distance gate only skips accumulation."""
+    q = src.xyz
+    qs = kernels.transform_plain(q, R, t)
+    nn_pts, _, _, valid = voxel.knn(target.grid, qs, src.mask, 5)
+    got = valid.to(torch.int32).sum(dim=1) > 3
+    coeffs, fit_ok = mathx.fit_plane(nn_pts, valid)                 # (N, 4)
+    nvec = coeffs[:, :3]
+    dis = torch.sum(nvec * qs, dim=-1) + coeffs[:, 3]
+    eff = got & fit_ok
+    accum = eff & (torch.abs(dis) <= opts.max_plane_distance)
+    Jrot = -torch.einsum("ni,nik->nk", nvec, _R_hat_q(R, q))
+    J = torch.cat([Jrot, nvec], dim=-1)[:, None, :]                 # (N, 1, 6)
+    w = accum.to(q.dtype)
+    H, b = _assemble(J, dis[:, None], w)
+    return H, b, _count(eff), torch.sum(dis * dis * w)
+
 
 def _stencil_rows(table, target: IcpTarget, opts: IcpOptions, src: PointCloud, qs):
     """The rows of `table` for the point's voxel + 6 face neighbors: 7-key
@@ -399,7 +497,8 @@ def _p2line_vox_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t
         target.line_packed, _index(target, opts, target.dense))
 
 
-_TERM_FNS = {"p2plane_vox": _p2plane_vox_terms,
+_TERM_FNS = {"p2p": _p2p_terms, "p2line": _p2line_terms, "p2plane": _p2plane_terms,
+             "p2plane_vox": _p2plane_vox_terms,
              "p2plane_vox_oct": _p2plane_vox_oct_terms,
              "p2line_vox": _p2line_vox_terms}
 
@@ -410,12 +509,53 @@ def compute_h_and_b(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t):
     return _TERM_FNS[opts.method](target, opts, src, R, t)
 
 
+def get_fitness_score(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t,
+                      max_range: float = 1.0) -> torch.Tensor:
+    """The PCL-convention fitness: mean squared nearest-neighbour distance of
+    the transformed source against the target cloud, over correspondences
+    within `max_range`. Lower is better; +inf when nothing matches. Works for
+    every method: the hash grid is always built at `set_target`."""
+    qs = kernels.transform_plain(src.xyz, R, t)
+    _, _, d2, valid = voxel.nn1(target.grid, qs, src.mask)
+    eff = valid & (d2 <= max_range * max_range)
+    n = torch.sum(eff.to(torch.float32))
+    return torch.where(n > 0, torch.sum(torch.where(eff, d2, 0.0)) / torch.clamp(n, min=1.0),
+                       float("inf"))
+
+
 def scan_match(target: IcpTarget, opts: IcpOptions, src: PointCloud, R0, t0) -> MatchResult:
     """Full Gauss-Newton alignment of `src` to the target from (R0, t0)."""
     _check_method(opts)
+    if not opts.use_initial_translation:
+        # translation init = target - source centroid difference
+        t0 = target.centroid - _masked_centroid(src)
     if opts.method == "p2plane_vox" and opts.freeze_election_after > 0:
-        not_ported("freeze_election_after > 0 (frozen election)", "2")
+        return _scan_match_vox_frozen(target, opts, src, R0, t0)
     return _gauss_newton(_TERM_FNS[opts.method], target, opts, src, R0, t0)
+
+
+def _gates(opts: IcpOptions, dev):
+    """(gate, wide warm-up gate, warm-up iterations) of a GN loop. The knn
+    methods read their gates from the options and have no warm-up."""
+    if opts.method in _KNN_METHODS:
+        return None, None, 0
+    if opts.method == "p2line_vox":
+        # K3 takes its threshold by value: host floats, nothing to copy
+        gate = opts.max_line_distance
+        return gate, gate * opts.gate_warmup_scale, opts.gate_warmup_iters
+    gate = torch.full((1,), opts.max_plane_distance, dtype=torch.float32, device=dev)
+    wide_gate = torch.full((1,), opts.max_plane_distance * opts.gate_warmup_scale,
+                           dtype=torch.float32, device=dev)
+    return gate, wide_gate, opts.gate_warmup_iters
+
+
+def _step_norm(dx: torch.Tensor) -> torch.Tensor:
+    """|dx| over the last axis (6), summed in one written-out order, so that
+    a lane's stop test does not depend on the batch it runs in (a library
+    reduction may pick its order by the tensor's shape)."""
+    sq = dx * dx
+    s3 = sq[..., 0:3] + sq[..., 3:6]
+    return torch.sqrt(s3[..., 0] + s3[..., 1] + s3[..., 2])
 
 
 def _gauss_newton(terms, target: IcpTarget, opts: IcpOptions, src: PointCloud, R0,
@@ -423,18 +563,7 @@ def _gauss_newton(terms, target: IcpTarget, opts: IcpOptions, src: PointCloud, R
     """The GN loop of `scan_match` over the linearization
     `terms(target, opts, src, R, t, gate=...)`."""
     dev = src.device
-    if not opts.use_initial_translation:
-        # translation init = target - source centroid difference
-        t0 = target.centroid - _masked_centroid(src)
-    warmup = opts.gate_warmup_iters
-    if opts.method == "p2line_vox":
-        # K3 takes its threshold by value: host floats, nothing to copy
-        gate = opts.max_line_distance
-        wide_gate = gate * opts.gate_warmup_scale
-    else:
-        gate = torch.full((1,), opts.max_plane_distance, dtype=torch.float32, device=dev)
-        wide_gate = torch.full((1,), opts.max_plane_distance * opts.gate_warmup_scale,
-                               dtype=torch.float32, device=dev)
+    gate, wide_gate, warmup = _gates(opts, dev)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
 
     R = torch.as_tensor(R0, dtype=torch.float32, device=dev)
@@ -458,10 +587,226 @@ def _gauss_newton(terms, target: IcpTarget, opts: IcpOptions, src: PointCloud, R
         dx = torch.where(ok, dx, 0.0)
         dx = torch.where(torch.isfinite(dx), dx, 0.0)
         R, t = lie.se3_retract(R, t, dx)
-        converged = ok & (torch.sqrt(torch.sum(dx * dx)) < opts.eps) & (not warm)
+        converged = ok & (_step_norm(dx) < opts.eps) & (not warm)
         it += 1
         if bool(converged):     # the one host sync per iteration
             break
     # pin the output on SO(3) (lie.so3_renormalize)
     return MatchResult(R=lie.so3_renormalize(R), t=t, converged=converged,
                        num_effective=n_eff, iterations=it, chi2=chi2)
+
+
+def _scan_match_vox_frozen(target: IcpTarget, opts: IcpOptions, src: PointCloud, R0,
+                           t0) -> MatchResult:
+    """p2plane_vox GN with election freezing (freeze_election_after > 0):
+    the first k iterations elect correspondences at the current pose
+    (`_p2plane_vox_elect`); later ones reuse the (plane, weight) assignment
+    unless the pose has moved more than elect_dx_threshold since the last
+    election (|t - t_e| + elect_rot_scale |log(R_e^T R)|). Every iteration
+    linearizes with kernel K1, plane given, whose plane-distance gate stays
+    live. No gate warm-up on this path, as in the reference.
+
+    Past the first k iterations the `elect` decision is one more host read
+    per iteration (the alternative, computing both branches and selecting,
+    would run the election every time, which is what freezing avoids)."""
+    dev = src.device
+    n = src.capacity
+    R = torch.as_tensor(R0, dtype=torch.float32, device=dev)
+    t = torch.as_tensor(t0, dtype=torch.float32, device=dev)
+    plane = torch.zeros((n, 4), dtype=torch.float32, device=dev)
+    w = torch.zeros((n,), dtype=torch.float32, device=dev)
+    R_e = torch.eye(3, dtype=torch.float32, device=dev)
+    t_e = torch.full((3,), 1e9, dtype=torch.float32, device=dev)   # far: iteration 0 elects
+    converged = torch.zeros((), dtype=torch.bool, device=dev)
+    n_eff = torch.zeros((), dtype=torch.int32, device=dev)
+    chi2 = torch.zeros((), dtype=torch.float32, device=dev)
+    it = 0
+    while it < opts.max_iteration:
+        elect = it < opts.freeze_election_after
+        if not elect:
+            dt = t - t_e
+            rot = lie.so3_log(lie.matmul3(R_e.T, R))
+            moved = torch.sqrt(torch.sum(dt * dt)) \
+                + opts.elect_rot_scale * torch.sqrt(torch.sum(rot * rot))
+            elect = bool(moved > opts.elect_dx_threshold)
+        if elect:
+            plane, w = _p2plane_vox_elect(target, opts, src, R, t)
+            R_e, t_e = R, t
+        H, b, n_eff, chi2 = kernels.p2plane_fused_terms(src.xyz, plane, w, R, t,
+                                                        opts.max_plane_distance)
+        ok = n_eff >= opts.min_effective_pts
+        dx = torch.where(ok, mathx.solve_gn_6x6(H, b), 0.0)
+        dx = torch.where(torch.isfinite(dx), dx, 0.0)
+        R, t = lie.se3_retract(R, t, dx)
+        converged = ok & (_step_norm(dx) < opts.eps)
+        it += 1
+        if bool(converged):
+            break
+    return MatchResult(R=lie.so3_renormalize(R), t=t, converged=converged,
+                       num_effective=n_eff, iterations=it, chi2=chi2)
+
+
+# ---------------------------------------------------------------------------
+# Batched matching: B independent matches in one GN loop
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, *trees):
+    """`fn` over the tensor leaves of (nested) NamedTuples of one structure;
+    a None leaf stays None."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    return type(first)(*(tree_map(fn, *leaves) for leaves in zip(*trees)))
+
+
+def stack_lanes(trees):
+    """B same-shape NamedTuples (targets, clouds) -> one with a leading B
+    axis on every leaf."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def take_lane(tree, b: int):
+    """Lane b of a stacked NamedTuple."""
+    return tree_map(lambda x: x[b], tree)
+
+
+def set_target_batch(pcs: PointCloud, opts: IcpOptions, origins=None) -> IcpTarget:
+    """B independent targets with a leading B axis on every leaf: `pcs` has
+    xyz (B, N, 3) and mask (B, N), `origins` None or (B, 3). Lane b equals
+    `set_target(lane b of pcs, opts, origins[b])`: the lanes are built one
+    after the other by `set_target` (its moments summed through
+    voxel.segment_sum, so the tables repeat bit for bit) and stacked."""
+    B = pcs.xyz.shape[0]
+    return stack_lanes([set_target(take_lane(pcs, b), opts,
+                                   None if origins is None else origins[b])
+                        for b in range(B)])
+
+
+def _index_batch(targets: IcpTarget, opts: IcpOptions,
+                 dense: voxel.DenseIndex) -> kernels.TargetIndex:
+    """`_index` of a stacked target: every tensor with the B axis."""
+    return kernels.TargetIndex(dense.table, dense.lo, targets.grid.origin,
+                               targets.grid.inv_leaf, opts.dense_dims)
+
+
+def _p2plane_vox_terms_batch(targets, opts, srcs, R, t, gate, active):
+    """B p2plane_vox linearizations: one launch of the batched K2."""
+    return kernels.p2plane_pick_fused_terms_from_target_batch(
+        srcs.xyz, srcs.mask, R, t, _gate(opts, gate), targets.packed,
+        _index_batch(targets, opts, targets.dense), active)
+
+
+def _p2plane_vox_oct_terms_batch(targets, opts, srcs, R, t, gate, active):
+    """B p2plane_vox_oct linearizations: one launch of the batched K1."""
+    return kernels.p2plane_fused_terms_from_target_batch(
+        srcs.xyz, srcs.mask, R, t, _gate(opts, gate), targets.packed_ext, targets.oct_table,
+        _index_batch(targets, opts, targets.dense_oct), active)
+
+
+def _lane_by_lane(terms):
+    """A batched linearization out of a scalar one: lane after lane, every
+    lane computed (what has stopped is discarded by the loop). For the
+    methods with no batched kernel: p2line_vox (B launches of the scalar K3;
+    the reference has no batched caller of it) and the knn methods."""
+    def batched(targets, opts, srcs, R, t, gate, active):
+        outs = [terms(take_lane(targets, b), opts, take_lane(srcs, b), R[b], t[b], gate=gate)
+                for b in range(R.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*outs))
+    return batched
+
+
+_BATCH_TERM_FNS = {"p2plane_vox": _p2plane_vox_terms_batch,
+                   "p2plane_vox_oct": _p2plane_vox_oct_terms_batch}
+
+
+def scan_match_batch(targets: IcpTarget, opts: IcpOptions, srcs: PointCloud, R0,
+                     t0) -> MatchResult:
+    """B independent scan matches in one GN loop.
+
+    targets: an IcpTarget with a leading B axis on every leaf (from
+    `set_target_batch`, or `stack_lanes` of same-shape targets); srcs: xyz
+    (B, N, 3), mask (B, N); R0 (B, 3, 3); t0 (B, 3). Returns a MatchResult
+    whose every leaf has the B axis (`iterations` a (B,) int32 tensor), lane b
+    bit-identical to `scan_match` on lane b.
+
+    For p2plane_vox and p2plane_vox_oct an iteration is one launch of the
+    batched K2 / K1 for all lanes, then one 6x6 solve, damping, retraction,
+    finite filter and stop test over (B, ...) tensors, and one host read
+    (is any lane still active). A lane is active while it has iterations
+    left and has not converged; an inactive lane's state stops changing.
+    All active lanes share the iteration number, so one gate serves a call.
+    The other methods run the same loop with their scalar linearization
+    lane by lane; a frozen election (freeze_election_after > 0) runs
+    `scan_match` lane by lane, its loop being a host decision per lane."""
+    _check_method(opts)
+    B = R0.shape[0]
+    dev = srcs.xyz.device
+    if not opts.use_initial_translation:
+        t0 = torch.stack([targets.centroid[b] - _masked_centroid(take_lane(srcs, b))
+                          for b in range(B)])
+    if opts.method == "p2plane_vox" and opts.freeze_election_after > 0:
+        fixed = dataclasses.replace(opts, use_initial_translation=True)
+        lanes = [scan_match(take_lane(targets, b), fixed, take_lane(srcs, b), R0[b], t0[b])
+                 for b in range(B)]
+        return stack_lanes([r._replace(iterations=torch.tensor(
+            r.iterations, dtype=torch.int32, device=dev)) for r in lanes])
+    terms = _BATCH_TERM_FNS.get(opts.method) or _lane_by_lane(_TERM_FNS[opts.method])
+    gate, wide_gate, warmup = _gates(opts, dev)
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+
+    R = torch.as_tensor(R0, dtype=torch.float32, device=dev)
+    t = torch.as_tensor(t0, dtype=torch.float32, device=dev)
+    converged = torch.zeros((B,), dtype=torch.bool, device=dev)
+    n_eff = torch.zeros((B,), dtype=torch.int32, device=dev)
+    chi2 = torch.zeros((B,), dtype=torch.float32, device=dev)
+    iterations = torch.zeros((B,), dtype=torch.int32, device=dev)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    it = 0
+    while it < opts.max_iteration:
+        warm = it < warmup
+        H, b, n_new, chi2_new = terms(targets, opts, srcs, R, t, wide_gate if warm else gate,
+                                      active)
+        ok = n_new >= opts.min_effective_pts
+        if warm:
+            lam = 1e-2 * torch.amax(torch.diagonal(H, dim1=-2, dim2=-1), dim=-1) + 1e-6
+            dx = mathx.solve_gn_6x6(H + lam[:, None, None] * eye6, b)
+        else:
+            dx = mathx.solve_gn_6x6(H, b)
+        dx = torch.where(ok[:, None], dx, 0.0)
+        dx = torch.where(torch.isfinite(dx), dx, 0.0)
+        R_new, t_new = lie.se3_retract(R, t, dx)
+        conv_new = ok & (_step_norm(dx) < opts.eps) & (not warm)
+        # a lane that has stopped keeps its state
+        R = torch.where(active[:, None, None], R_new, R)
+        t = torch.where(active[:, None], t_new, t)
+        converged = torch.where(active, conv_new, converged)
+        n_eff = torch.where(active, n_new, n_eff)
+        chi2 = torch.where(active, chi2_new, chi2)
+        iterations = iterations + active.to(torch.int32)
+        it += 1
+        active = active & ~converged
+        if not bool(active.any()):     # the one host read per iteration
+            break
+    return MatchResult(R=lie.so3_renormalize(R), t=t, converged=converged,
+                       num_effective=n_eff, iterations=iterations, chi2=chi2)
+
+
+def scan_match_batch_chunked(targets: IcpTarget, opts: IcpOptions, srcs: PointCloud, R0, t0,
+                             chunk: int = 8) -> MatchResult:
+    """`scan_match_batch` over sub-batches of `chunk` lanes, one after the
+    other, re-stacked: the last sub-batch is padded with lanes from the
+    front (wrap-around) and the padding dropped. B <= chunk falls through to
+    the direct call. It bounds what one call holds at a time (a lane's dense
+    tables are 16 MB at the default dense_dims, twice that with the octant
+    tables), for sweeps over many large targets off the hot path."""
+    B = R0.shape[0]
+    if B <= chunk:
+        return scan_match_batch(targets, opts, srcs, R0, t0)
+    outs = []
+    for s0 in range(0, B, chunk):
+        idx = torch.tensor([(s0 + i) % B for i in range(chunk)], device=R0.device)
+        take = lambda tree: tree_map(lambda x: x[idx], tree)
+        outs.append(scan_match_batch(take(targets), opts, take(srcs), R0[idx], t0[idx]))
+    return tree_map(lambda *xs: torch.cat(xs)[:B], *outs)

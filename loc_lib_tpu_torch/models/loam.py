@@ -45,14 +45,19 @@ class LoamFeatureOptions:
 
 @dataclasses.dataclass(frozen=True)
 class LoamOption:
-    """Mirror of the JAX package's LoamOption, with only the fields the port
-    reads: surf on p2plane_vox, edge on p2line_vox, eps 1e-3. Both feature
-    kinds always take part in the match."""
+    """Mirror of the JAX package's LoamOption, with the fields its matcher
+    reads: surf on p2plane_vox, edge on p2line_vox, eps 1e-3 (the knn
+    methods "p2plane" / "p2line" are the per-probe 5-NN oracle). A feature
+    kind switched off by `use_surf_points` / `use_edge_points` adds nothing
+    to the system and launches no kernel; the step threshold stays the sum
+    of both matchers' min_effective_pts."""
 
     feature: LoamFeatureOptions = LoamFeatureOptions()
     surf_icp: icp.IcpOptions = icp.IcpOptions(method="p2plane_vox")
     edge_icp: icp.IcpOptions = icp.IcpOptions(method="p2line_vox")
     max_iteration: int = 20
+    use_edge_points: bool = True
+    use_surf_points: bool = True
     eps: float = 1e-3
 
 
@@ -169,7 +174,11 @@ def scan_match(target: LoamTarget, opts: LoamOption, edge_src: PointCloud,
     n_eff = torch.zeros((), dtype=torch.int32, device=dev)
     chi2 = torch.zeros((), dtype=torch.float32, device=dev)
     min_eff = opts.surf_icp.min_effective_pts + opts.edge_icp.min_effective_pts
-    parts = ((target.surf, opts.surf_icp, surf_src), (target.edge, opts.edge_icp, edge_src))
+    parts = []
+    if opts.use_surf_points:
+        parts.append((target.surf, opts.surf_icp, surf_src))
+    if opts.use_edge_points:
+        parts.append((target.edge, opts.edge_icp, edge_src))
     it = 0
     while it < opts.max_iteration:
         H = torch.zeros((6, 6), dtype=torch.float32, device=dev)

@@ -31,9 +31,16 @@ launched (there is no fallback). The kernels are compiled with nvcc on first
 use into `csrc/build/<hash of sources and flags>/` and loaded with ctypes;
 nothing here touches nvcc or ctypes at import time.
 
+*Batched* (`p2plane_pick_fused_terms_from_target_batch`,
+`p2plane_fused_terms_from_target_batch`): the from-target modes of K2 and K1
+over B independent matches (every argument with a leading B axis) in ONE
+launch, the form the reference runs under `jax.vmap`. Lane b of the results
+has the bits of the scalar call on lane b's inputs.
+
 `LAUNCHES` counts kernel launches per kernel (never plain-version calls),
 so a run can show that its main path went through the kernels. Each call is
-ONE launch: the last block to finish reduces the per-block partial sums.
+ONE launch, a batched call too: the last block of a lane to finish reduces
+that lane's per-block partial sums.
 """
 
 from __future__ import annotations
@@ -81,13 +88,19 @@ def transform_plain(q, R, t):
 class TargetIndex(NamedTuple):
     """What a from-target kernel needs to find a point's voxel: the dense
     slot table over `dims` cells anchored at `lo`, and the grid's origin and
-    1 / leaf (IcpTarget.dense / dense_oct and IcpTarget.grid)."""
+    1 / leaf (IcpTarget.dense / dense_oct and IcpTarget.grid). For the
+    batched kernels every tensor carries a leading B axis."""
 
     table: torch.Tensor      # (dims[0] * dims[1] * dims[2],) int32, -1 empty
     lo: torch.Tensor         # (3,) int32
     origin: torch.Tensor     # (3,) float32
     inv_leaf: torch.Tensor   # () float32
     dims: tuple
+
+    def lane(self, b: int) -> "TargetIndex":
+        """Lane b of a batched index."""
+        return TargetIndex(self.table[b], self.lo[b], self.origin[b], self.inv_leaf[b],
+                           self.dims)
 
 
 def stencil_rows_plain(q, mask, R, t, packed, index: TargetIndex):
@@ -234,6 +247,46 @@ def p2plane_pick_from_target_terms_plain(q, mask, R, t, gate, packed, index: Tar
     return _split(A.T @ A)
 
 
+def _stack_lanes(outs):
+    """[(H, b, count, chi2) per lane] -> ((B, 6, 6), (B, 6), (B,), (B,))."""
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def p2plane_pick_from_target_rows_plain_batch(q, mask, R, t, gate, packed,
+                                              index: TargetIndex):
+    """K2 from the target over B lanes, per-point rows A (B, N, 8): lane b is
+    `p2plane_pick_from_target_rows_plain` on lane b's inputs."""
+    return torch.stack([p2plane_pick_from_target_rows_plain(
+        q[b], mask[b], R[b], t[b], gate, packed[b], index.lane(b)) for b in range(q.shape[0])])
+
+
+def p2plane_pick_from_target_terms_plain_batch(q, mask, R, t, gate, packed,
+                                               index: TargetIndex):
+    """Plain PyTorch K2-batch: same arguments and results as
+    `p2plane_pick_fused_terms_from_target_batch` (every lane computed), lane
+    b bit-equal to the plain scalar call on lane b's inputs."""
+    return _stack_lanes([p2plane_pick_from_target_terms_plain(
+        q[b], mask[b], R[b], t[b], gate, packed[b], index.lane(b)) for b in range(q.shape[0])])
+
+
+def p2plane_from_target_rows_plain_batch(q, mask, R, t, gate, packed_ext, oct_table,
+                                         index: TargetIndex):
+    """K1 from the target over B lanes, per-point rows A (B, N, 8)."""
+    return torch.stack([p2plane_from_target_rows_plain(
+        q[b], mask[b], R[b], t[b], gate, packed_ext[b], oct_table[b], index.lane(b))
+        for b in range(q.shape[0])])
+
+
+def p2plane_from_target_terms_plain_batch(q, mask, R, t, gate, packed_ext, oct_table,
+                                          index: TargetIndex):
+    """Plain PyTorch K1-batch: same arguments and results as
+    `p2plane_fused_terms_from_target_batch` (every lane computed), lane b
+    bit-equal to the plain scalar call on lane b's inputs."""
+    return _stack_lanes([p2plane_from_target_terms_plain(
+        q[b], mask[b], R[b], t[b], gate, packed_ext[b], oct_table[b], index.lane(b))
+        for b in range(q.shape[0])])
+
+
 def ndt_rows_plain(q, qs, mu, W, valid, R, t, outlier_th, weighted: bool):
     """K3's rows A (N * S * 3, 8) in the kernel's order (point, then stencil
     voxel s, then residual row i), op by op as the kernel evaluates them.
@@ -349,6 +402,7 @@ STENCIL = 7            # kStencil in fused_terms.cuh: a point's voxel and 6 face
 NDT_STENCILS = (1, STENCIL)      # the S that K3 from the map is built for
 BIN_MODES = ("trunc", "floor")   # and its binnings
 MAX_BLOCKS = 1024
+MAX_LANES = 65535      # gridDim.y
 ENTRIES = 36
 OUT_WORDS = 44         # kOutWords: H (36) | b (6) | chi2 | count (int32 bits)
 
@@ -362,7 +416,7 @@ class Library(NamedTuple):
 
 _lock = threading.Lock()
 _library: Optional[Library] = None
-# (device index, stream) -> (partials, ticket): the reduction's scratch
+# (device index, stream) -> (partials, tickets): the reduction's scratch
 _scratch: dict = {}
 
 
@@ -408,6 +462,11 @@ def _bind(cdll: ctypes.CDLL) -> None:
     cdll.p2plane_pick_fused_terms_launch.argtypes = [vp, vp, vp, *pose, *tail]
     cdll.p2plane_from_target_launch.argtypes = [vp, vp, vp, vp, *index, *pose, *tail]
     cdll.p2plane_pick_from_target_launch.argtypes = [vp, vp, vp, *index, *pose, *tail]
+    # ..., pose, active, lanes, then the tail
+    cdll.p2plane_from_target_batch_launch.argtypes = [vp, vp, vp, ci, vp, ci, *index, *pose,
+                                                      vp, ci, *tail]
+    cdll.p2plane_pick_from_target_batch_launch.argtypes = [vp, vp, vp, ci, *index, *pose,
+                                                           vp, ci, *tail]
     cdll.ndt_fused_terms_launch.argtypes = [vp, vp, vp, ci, ci, vp, ci, ci, vp, ci, ci, ci,
                                             vp, cf, ci, *tail]
     # R, t, th, weighted, S, trunc / R, t, th
@@ -415,8 +474,9 @@ def _bind(cdll: ctypes.CDLL) -> None:
     cdll.p2line_from_target_launch.argtypes = [vp, vp, vp, *index, vp, vp, cf, *tail]
     for fn in (cdll.p2plane_fused_terms_launch, cdll.p2plane_pick_fused_terms_launch,
                cdll.p2plane_from_target_launch, cdll.p2plane_pick_from_target_launch,
-               cdll.ndt_fused_terms_launch, cdll.ndt_from_map_launch,
-               cdll.p2line_from_target_launch):
+               cdll.p2plane_from_target_batch_launch,
+               cdll.p2plane_pick_from_target_batch_launch, cdll.ndt_fused_terms_launch,
+               cdll.ndt_from_map_launch, cdll.p2line_from_target_launch):
         fn.restype = ci
     cdll.loc_fused_error_string.argtypes = [ci]
     cdll.loc_fused_error_string.restype = ctypes.c_char_p
@@ -521,17 +581,18 @@ def _f32_on(x, device):
     return x.to(device=device, dtype=torch.float32).contiguous()
 
 
-def _pose(R, t, gate, device):
+def _pose(R, t, gate, device, lanes=()):
     """Pointers to R (3, 3) and t (3,) as contiguous float32 tensors on
-    `device`, the gate's pointer (a 1-element device tensor) or None, and
+    `device` (for a batched call `lanes` = (B,): R (B, 3, 3) and t (B, 3)),
+    the gate's pointer (a 1-element device tensor) or None, and
     the gate's value where it is a number; then the tensors themselves, for
     the caller to keep alive until the launch is enqueued. R, t and a tensor
     gate come from the previous GN iteration and are already in this form,
     so nothing is copied and nothing waits for the host."""
     R, t = _f32_on(R, device), _f32_on(t, device)
-    if R.shape != (3, 3) or t.shape != (3,):
-        raise ValueError(f"R, t: expected shapes (3, 3) and (3,), got {tuple(R.shape)} "
-                         f"and {tuple(t.shape)}")
+    if R.shape != (*lanes, 3, 3) or t.shape != (*lanes, 3):
+        raise ValueError(f"R, t: expected shapes {(*lanes, 3, 3)} and {(*lanes, 3)}, got "
+                         f"{tuple(R.shape)} and {tuple(t.shape)}")
     if isinstance(gate, torch.Tensor):
         g = _f32_on(gate, device)
         if g.numel() != 1:
@@ -540,16 +601,17 @@ def _pose(R, t, gate, device):
     return (R.data_ptr(), t.data_ptr(), None, float(gate)), (R, t)
 
 
-def _index_args(index: TargetIndex, device):
-    """The kernels' view of a TargetIndex, checked: pointers and dims."""
+def _index_args(index: TargetIndex, device, lanes=()):
+    """The kernels' view of a TargetIndex, checked: pointers and dims. For a
+    batched call `lanes` = (B,) and every tensor has that leading axis."""
     d0, d1, d2 = (int(d) for d in index.dims)
     if not 0 < d0 * d1 * d2 < 2 ** 31:
         raise ValueError(f"index.dims: {index.dims} does not fit an int32 cell index")
-    _check("index.table", index.table, (d0 * d1 * d2,), device, dtype=torch.int32)
-    _check("index.lo", index.lo, (3,), device, dtype=torch.int32)
-    _check("index.origin", index.origin, (3,), device)
-    if index.inv_leaf.numel() != 1:
-        raise ValueError("index.inv_leaf: expected one element")
+    _check("index.table", index.table, (*lanes, d0 * d1 * d2), device, dtype=torch.int32)
+    _check("index.lo", index.lo, (*lanes, 3), device, dtype=torch.int32)
+    _check("index.origin", index.origin, (*lanes, 3), device)
+    if index.inv_leaf.numel() != (lanes[0] if lanes else 1):
+        raise ValueError("index.inv_leaf: expected one element per lane")
     _check("index.inv_leaf", index.inv_leaf, index.inv_leaf.shape, device)
     return (index.table.data_ptr(), index.lo.data_ptr(), index.origin.data_ptr(),
             index.inv_leaf.data_ptr(), d0, d1, d2)
@@ -568,34 +630,45 @@ def _check_rows8(name, x, device):
         raise ValueError(f"{name}: must be 16-byte aligned")
 
 
-def _launch(fn_name, args, n, device):
-    """One launch of `fn_name` on the current stream of `device`.
+def _launch(fn_name, args, n, device, lanes=None):
+    """One launch of `fn_name` on the current stream of `device`: a scalar
+    call (`lanes` None), or `lanes` matches on a (num_blocks(n), lanes) grid.
 
     The reduction's scratch (per-block partial sums and the ticket the
-    blocks draw) is kept per device AND stream and reused: calls on one
-    stream are ordered, so one buffer serves them all, and two streams get
-    two buffers. The kernel leaves the ticket at 0; a scratch whose launch
-    failed is dropped, so the next call starts from a fresh one. The four
-    results are views of one allocation."""
+    blocks draw, one ticket and num_blocks(n) x 36 sums a lane) is kept per
+    device AND stream and reused: calls on one stream are ordered, so one
+    buffer serves them all, and two streams get two buffers. It starts at
+    the most a scalar call can need and grows to lanes x num_blocks(n) (not
+    lanes x MAX_BLOCKS: 64 lanes of 2,048 points need 144 KB, not 9 MB) when
+    a batched call needs more; the buffer it replaces stays alive until the
+    stream's earlier launches are done with it (the allocator reuses memory
+    in stream order). The kernel leaves every ticket at 0; a scratch whose
+    launch failed is dropped, so the next call starts from a fresh one. The
+    four results are views of one allocation."""
     lib = build()
     nb = num_blocks(n)
+    B = 1 if lanes is None else lanes
     # the current stream's handle without building a Stream object
     stream = torch._C._cuda_getCurrentRawStream(device.index)
     key = (device.index, stream)
     scratch = _scratch.get(key)
-    if scratch is None:
+    if scratch is None or scratch[0].numel() < B * nb * ENTRIES or scratch[1].numel() < B:
         scratch = _scratch[key] = (
-            torch.empty((MAX_BLOCKS * ENTRIES,), dtype=torch.float32, device=device),
-            torch.zeros((1,), dtype=torch.int32, device=device))
-    out = torch.empty((OUT_WORDS,), dtype=torch.float32, device=device)
+            torch.empty((max(MAX_BLOCKS, B * nb) * ENTRIES,), dtype=torch.float32,
+                        device=device),
+            torch.zeros((B,), dtype=torch.int32, device=device))
+    out = torch.empty((B, OUT_WORDS), dtype=torch.float32, device=device)
     err = getattr(lib.cdll, fn_name)(*args, n, nb, scratch[0].data_ptr(),
                                      scratch[1].data_ptr(), out.data_ptr(), stream)
     if err != 0:
         _scratch.pop(key, None)
         raise RuntimeError(f"{fn_name}: CUDA error {err}: "
                            f"{lib.cdll.loc_fused_error_string(err).decode()}")
-    return (out.as_strided((6, 6), (6, 1)), out.as_strided((6,), (1,), 36),
-            out.view(torch.int32).as_strided((), (), 43), out.as_strided((), (), 42))
+    if lanes is None:
+        return (out.as_strided((6, 6), (6, 1)), out.as_strided((6,), (1,), 36),
+                out.view(torch.int32).as_strided((), (), 43), out.as_strided((), (), 42))
+    return (out[:, :36].unflatten(1, (6, 6)), out[:, 36:42], out.view(torch.int32)[:, 43],
+            out[:, 42])
 
 
 def _device_of(q: torch.Tensor) -> torch.device:
@@ -699,6 +772,96 @@ def p2plane_pick_fused_terms_from_target(q, mask, R, t, gate, packed, index: Tar
                    *_index_args(index, dev), *pose), n, dev)
     LAUNCHES["p2plane_pick_fused_terms"] += 1
     return out
+
+
+def _check_batch(q, mask, active, device):
+    """Shapes of a batched call's points: q (B, N, 3), mask (B, N), active
+    (B,) bool or None. Returns (B, N, active's pointer or None)."""
+    if q.dim() != 3:
+        raise ValueError(f"q: expected (B, N, 3), got {tuple(q.shape)}")
+    B, n = q.shape[0], q.shape[1]
+    if not 0 < B <= MAX_LANES:
+        raise ValueError(f"q: a batched launch takes 1 to {MAX_LANES} lanes, got {B}")
+    _check("q", q, (B, n, 3), device)
+    _check("mask", mask, (B, n), device, dtype=torch.bool)
+    if active is None:
+        return B, n, None
+    _check("active", active, (B,), device, dtype=torch.bool)
+    return B, n, active.data_ptr()
+
+
+def _check_rows8_batch(name, x, B, device):
+    if x.dim() != 3:
+        raise ValueError(f"{name}: expected (B, rows, 8), got {tuple(x.shape)}")
+    _check(name, x, (B, x.shape[1], 8), device)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def p2plane_pick_fused_terms_from_target_batch(q, mask, R, t, gate, packed,
+                                               index: TargetIndex, active=None):
+    """K2-batch: `p2plane_pick_fused_terms_from_target` for B independent
+    matches in ONE launch.
+
+    q (B, N, 3), mask (B, N) bool, R (B, 3, 3), t (B, 3), gate one number or
+    1-element tensor for all lanes, packed (B, V, 8), index: a TargetIndex
+    whose tensors carry the B axis (table (B, cells), lo (B, 3), origin
+    (B, 3), inv_leaf (B,)). `active` (B,) bool switches lanes off: an
+    inactive lane does no work and its results are zeros; None runs every
+    lane. Returns (H (B, 6, 6), b (B, 6), count (B,) int32, chi2 (B,)), views
+    of one allocation; lane b has the bits of the scalar call on lane b's
+    inputs. On the CPU: the plain version lane by lane (inactive lanes
+    zeroed)."""
+    if q.device.type == "cpu":
+        return _zero_inactive(p2plane_pick_from_target_terms_plain_batch(
+            q, mask, R, t, gate, packed, index), active)
+    dev = _device_of(q)
+    B, n, active_ptr = _check_batch(q, mask, active, dev)
+    _check_rows8_batch("packed", packed, B, dev)
+    pose, _alive = _pose(R, t, gate, dev, (B,))
+    out = _launch("p2plane_pick_from_target_batch_launch",
+                  (q.data_ptr(), mask.data_ptr(), packed.data_ptr(), packed.shape[1],
+                   *_index_args(index, dev, (B,)), *pose, active_ptr, B), n, dev, lanes=B)
+    LAUNCHES["p2plane_pick_fused_terms"] += 1
+    return out
+
+
+def p2plane_fused_terms_from_target_batch(q, mask, R, t, gate, packed_ext, oct_table,
+                                          index: TargetIndex, active=None):
+    """K1-batch: `p2plane_fused_terms_from_target` for B independent matches
+    in ONE launch.
+
+    q (B, N, 3), mask (B, N) bool, R (B, 3, 3), t (B, 3), gate one number or
+    1-element tensor for all lanes, packed_ext (B, V + 1, 8), oct_table
+    (B, V7, 8) int32, index: the dilated tables with the B axis; `active` as
+    for `p2plane_pick_fused_terms_from_target_batch`. Returns (H (B, 6, 6),
+    b (B, 6), count (B,) int32, chi2 (B,)); lane b has the bits of the scalar
+    call on lane b's inputs."""
+    if q.device.type == "cpu":
+        return _zero_inactive(p2plane_from_target_terms_plain_batch(
+            q, mask, R, t, gate, packed_ext, oct_table, index), active)
+    dev = _device_of(q)
+    B, n, active_ptr = _check_batch(q, mask, active, dev)
+    _check_rows8_batch("packed_ext", packed_ext, B, dev)
+    if oct_table.dim() != 3:
+        raise ValueError(f"oct_table: expected (B, rows, 8), got {tuple(oct_table.shape)}")
+    _check("oct_table", oct_table, (B, oct_table.shape[1], 8), dev, dtype=torch.int32)
+    pose, _alive = _pose(R, t, gate, dev, (B,))
+    out = _launch("p2plane_from_target_batch_launch",
+                  (q.data_ptr(), mask.data_ptr(), packed_ext.data_ptr(), packed_ext.shape[1],
+                   oct_table.data_ptr(), oct_table.shape[1], *_index_args(index, dev, (B,)),
+                   *pose, active_ptr, B), n, dev, lanes=B)
+    LAUNCHES["p2plane_fused_terms"] += 1
+    return out
+
+
+def _zero_inactive(out, active):
+    """The batched kernels' results for switched-off lanes: zeros."""
+    if active is None:
+        return out
+    H, b, count, chi2 = out
+    return (torch.where(active[:, None, None], H, 0.0), torch.where(active[:, None], b, 0.0),
+            torch.where(active, count, 0), torch.where(active, chi2, 0.0))
 
 
 def ndt_fused_terms(q, qs, mu, W, valid, R, t, outlier_th, weighted: bool):

@@ -1,5 +1,5 @@
-"""Voxel hashing: downsample, hash grid, segment statistics and the dense
-O(1) voxel index (port of loc_lib_tpu/ops/voxel.py).
+"""Voxel hashing: downsample, hash grid with its gather-style kNN, segment
+statistics and the dense O(1) voxel index (port of loc_lib_tpu/ops/voxel.py).
 
 Voxel coordinates are offset into a bounded window of 1024 cells per axis
 (+-512 around a caller-supplied origin) and packed into one positive int32
@@ -47,6 +47,14 @@ def nearby6(device: torch.device) -> torch.Tensor:
 def center1(device: torch.device) -> torch.Tensor:
     """(1, 3) int32 single-voxel stencil (NDT nearby="center")."""
     return torch.zeros((1, 3), dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def nearby27(device: torch.device) -> torch.Tensor:
+    """(27, 3) int32 full 3x3x3 stencil (x slowest): exact kNN within one
+    cell radius."""
+    r = torch.arange(-1, 2, dtype=torch.int32, device=device)
+    return torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(-1, 3)
 
 
 def voxel_coords(xyz: torch.Tensor, inv_leaf, origin=None, mode: str = "floor") -> torch.Tensor:
@@ -196,6 +204,16 @@ def build_hash_grid_with_stats(pc: PointCloud, leaf_size: float,
     return grid, stats
 
 
+def build_hash_grid(pc: PointCloud, leaf_size: float, bucket_size: int = 8,
+                    origin: Optional[torch.Tensor] = None) -> HashGrid:
+    """The hash grid alone (floor binning): sort by voxel key, scatter the
+    per-voxel buckets. What the knn matchers search."""
+    inv = _inv_leaf(pc, leaf_size)
+    origin = _default_origin(pc, origin)
+    keys = coords_to_key(voxel_coords(pc.xyz, inv, origin), pc.mask)
+    return _grid_from_segments(pc, _segment_by_key(keys), inv, origin, bucket_size)
+
+
 def _grid_from_segments(pc: PointCloud, seg: _Segments, inv, origin,
                         bucket_size: int) -> HashGrid:
     n = pc.capacity
@@ -283,6 +301,72 @@ def lookup_dense(dense: DenseIndex, dims, query_keys: torch.Tensor):
     slot = dense.table[flat.to(torch.int64)]
     found = in_win & (slot >= 0)
     return torch.clamp(slot, min=0), found
+
+
+def lookup_voxels(grid: HashGrid, query_keys: torch.Tensor):
+    """Slot of each query key in the grid's sorted keys (binary search).
+    Returns (slot int32, found)."""
+    slot = torch.searchsorted(grid.voxel_keys, query_keys)
+    slot = torch.clamp(slot, max=grid.voxel_keys.shape[0] - 1)
+    found = (grid.voxel_keys[slot] == query_keys) & (query_keys != INVALID_KEY)
+    return slot.to(torch.int32), found
+
+
+def _topk_small(d2: torch.Tensor, k: int):
+    """k masked argmin passes over the last axis; among equal distances the
+    lowest candidate position comes first, as in the reference. Returns
+    (positions (Q, k) int64, values (Q, k))."""
+    work = d2
+    cols = torch.arange(d2.shape[1], device=d2.device)[None, :]
+    poss, vals = [], []
+    for _ in range(k):
+        v, p = torch.min(work, dim=1)
+        poss.append(p)
+        vals.append(v)
+        work = torch.where(cols == p[:, None], float("inf"), work)
+    return torch.stack(poss, dim=1), torch.stack(vals, dim=1)
+
+
+def knn(grid: HashGrid, queries: torch.Tensor, query_mask: torch.Tensor, k: int,
+        max_radius: Optional[float] = None, stencil: Optional[torch.Tensor] = None):
+    """k nearest neighbours by a neighbour-voxel bucket gather and a masked
+    top-k: candidates = stencil voxels (default 3x3x3) x bucket capacity,
+    exact within one cell radius while no bucket overflowed.
+
+    queries (Q, 3). Returns (pts (Q, k, 3) neighbour coordinates, idx (Q, k)
+    int32 original point ids, dist2 (Q, k), valid (Q, k))."""
+    if stencil is None:
+        stencil = nearby27(queries.device)
+    q = queries.shape[0]
+    c = grid.bucket_size
+    qcoords = voxel_coords(queries, grid.inv_leaf, grid.origin)
+    nb_keys = coords_to_key(qcoords[:, None, :] + stencil[None, :, :], query_mask[:, None])
+    slot, found = lookup_voxels(grid, nb_keys)                 # (Q, S)
+    slot = slot.to(torch.int64)
+    rows = grid.bucket_xyz[slot]                               # (Q, S, 3C)
+    s = rows.shape[1]
+    bx = rows[:, :, 0 * c:1 * c].reshape(q, s * c)
+    by = rows[:, :, 1 * c:2 * c].reshape(q, s * c)
+    bz = rows[:, :, 2 * c:3 * c].reshape(q, s * c)
+    d2 = ((bx - queries[:, 0:1]) ** 2 + (by - queries[:, 1:2]) ** 2
+          + (bz - queries[:, 2:3]) ** 2)
+    valid = torch.repeat_interleave(found, c, dim=1) & (bx < PAD_COORD * 0.5)
+    if max_radius is not None:
+        valid = valid & (d2 <= max_radius * max_radius)
+    d2 = torch.where(valid, d2, float("inf"))
+    pos, top_d2 = _topk_small(d2, k)
+    take = lambda x: torch.take_along_dim(x, pos, dim=1)
+    top_pts = torch.stack([take(bx), take(by), take(bz)], dim=-1)
+    top_valid = take(valid) & query_mask[:, None]
+    top_idx = take(grid.bucket_idx[slot].reshape(q, s * c))
+    return top_pts, top_idx, torch.where(top_valid, top_d2, float("inf")), top_valid
+
+
+def nn1(grid: HashGrid, queries: torch.Tensor, query_mask: torch.Tensor,
+        max_radius: Optional[float] = None, stencil: Optional[torch.Tensor] = None):
+    """Single nearest neighbour (the P2P correspondence)."""
+    pts, idx, d2, valid = knn(grid, queries, query_mask, 1, max_radius, stencil)
+    return pts[:, 0], idx[:, 0], d2[:, 0], valid[:, 0]
 
 
 class VoxelStats(NamedTuple):

@@ -33,6 +33,20 @@ def vee(W: torch.Tensor) -> torch.Tensor:
     return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
+def matmul3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for (..., 3, 3) matrices, written op by op over the leading
+    axes: entry (i, j) is (a_i0 b_0j + a_i1 b_1j) + a_i2 b_2j, each product
+    and sum rounded on its own (one multiply for all 27 products, two adds).
+    On CUDA `@` takes one library route for a (3, 3) pair and another for a
+    (B, 3, 3) batch, and the two differ in the last bit (measured on an H100:
+    R @ so3_exp(w) and so3_renormalize differ between the two, and the
+    batched route's bits depend on B); here a matrix's bits do not depend on
+    how many others are multiplied with it, which is what lets a batched
+    match equal B scalar ones bit for bit."""
+    P = A[..., :, :, None] * B[..., None, :, :]        # P[..., i, k, j] = a_ik b_kj
+    return (P[..., :, 0, :] + P[..., :, 1, :]) + P[..., :, 2, :]
+
+
 def _eye_like(W: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
 
@@ -47,7 +61,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     b = torch.where(small, 0.5 - theta2 / 24.0,
                     (1.0 - torch.cos(theta_safe)) / theta2_safe)
     W = hat(w)
-    W2 = W @ W
+    W2 = matmul3(W, W)
     return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * W2
 
 
@@ -103,7 +117,7 @@ def se3_inverse(R, t):
 def se3_retract(R, t, dx):
     """The reference GN update: right-multiply SO3 by exp(dx[:3]), add dx[3:]
     to the translation."""
-    return R @ so3_exp(dx[..., :3]), t + dx[..., 3:]
+    return matmul3(R, so3_exp(dx[..., :3])), t + dx[..., 3:]
 
 
 def so3_renormalize(R: torch.Tensor) -> torch.Tensor:
@@ -113,6 +127,6 @@ def so3_renormalize(R: torch.Tensor) -> torch.Tensor:
     constant-velocity / ESKF prediction and grow."""
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
     for _ in range(2):
-        RtR = R.transpose(-1, -2) @ R
-        R = 0.5 * (R @ (3.0 * eye - RtR))
+        RtR = matmul3(R.transpose(-1, -2), R)
+        R = 0.5 * matmul3(R, 3.0 * eye - RtR)
     return R

@@ -94,3 +94,30 @@ def test_static_imu_init_matches_jax(gated):
     for name in ("bg", "ba", "gravity", "cov_gyro", "cov_acce"):
         np.testing.assert_allclose(getattr(tr, name).numpy(), np.asarray(getattr(jr, name)),
                                    atol=ATOL, rtol=1e-5, err_msg=name)
+
+
+def test_process_noise_is_built_once_per_options_and_device():
+    """Q depends only on (opts, device): predict_scan asks for it on every
+    scan and must get the one tensor built at the first call (on the card the
+    element fills that build it are a host round trip each), with the bits a
+    fresh build has; observe_se3's V likewise; other options, another Q."""
+    opts = eskf.EskfOptions()
+    dev = torch.device("cpu")
+    Q = eskf.process_noise(opts, dev)
+    assert eskf.process_noise(eskf.EskfOptions(), dev) is Q
+    fresh = torch.diag(torch.tensor([0.0] * 3 + [opts.acce_var] * 3 + [opts.gyro_var] * 3
+                                    + [opts.bias_gyro_var] * 3 + [opts.bias_acce_var] * 3
+                                    + [0.0] * 3))
+    assert torch.equal(Q, fresh)
+    other = eskf.process_noise(eskf.EskfOptions(gyro_var=2e-5), dev)
+    assert other is not Q and float(other[6, 6]) == np.float32(2e-5)
+    # a scan's propagation reads Q and leaves it as it was; two scans give the same bits
+    _, ts = _state_pair()
+    g, a, s, v = _packet()
+    builds = eskf._diag_on.cache_info().misses
+    one = eskf.predict_scan(ts, g, a, s, v, opts)
+    two = eskf.predict_scan(ts, g, a, s, v, opts)
+    assert eskf._diag_on.cache_info().misses == builds
+    assert torch.equal(Q, fresh)
+    for name in eskf.EskfState._fields:
+        assert torch.equal(getattr(one, name), getattr(two, name)), name

@@ -19,8 +19,17 @@ Stated tolerances:
     voxels: counted in test_voxel_of_each_point_matches_jax_transform
     (0 of 4,096 on a 35 m scan at a rotated pose; at most 2 allowed);
   * scan_match: pose within 1e-4 rad / 1e-4 m of JAX, equal iterations;
-    p2line_vox on a carried-across line table: within 2e-6 m / 2e-6 rad.
+    p2line_vox on a carried-across line table: within 2e-6 m / 2e-6 rad;
+  * the knn methods (p2p, p2line, p2plane: plain torch ops on the hash
+    grid, which is bit-equal to JAX's): effective counts exact; H, b, chi2
+    within rtol 1e-4, atol 1e-4 * max(1, max |H|) (a 5-NN fit per probe in
+    float32: the closed-form eigenvectors round differently under XLA);
+    scan_match within 1e-4 rad / 1e-4 m with equal iterations; the fitness
+    score within rtol 1e-5; the frozen election within 1e-4 rad / 1e-4 m of
+    JAX's frozen run with equal iterations.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -284,17 +293,25 @@ def test_empty_target_and_out_of_window_source_leave_pose_unmoved(method):
 
 
 def test_unported_methods_name_their_slice():
-    """The knn oracle methods and the frozen election wait for slice 2;
-    p2line_vox is ported and builds its line table."""
+    """Slice 2 is ported: no ICP method or option raises NotImplementedError
+    any more. The knn oracle methods build a hash-grid target (no voxel
+    tables), the frozen election runs, p2line_vox builds its line table; an
+    unknown method is a ValueError; `not_ported` still names the slice of
+    what the pipelines wait for."""
     scene = _from_numpy(_pair(7)[0])
     for method in ("p2p", "p2line", "p2plane"):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            icp.set_target(scene, icp.IcpOptions(method=method))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        opts = icp.IcpOptions(method="p2plane_vox", freeze_election_after=2, dense_dims=DIMS)
-        icp.scan_match(icp.set_target(scene, opts), opts, scene, torch.eye(3), torch.zeros(3))
+        tgt = icp.set_target(scene, icp.IcpOptions(method=method))
+        assert tgt.packed is None and tgt.dense is None and tgt.centroid is not None
+        assert tgt.grid.bucket_xyz.shape == (scene.capacity, 3 * 8)
+    opts = icp.IcpOptions(method="p2plane_vox", freeze_election_after=2, dense_dims=DIMS)
+    res = icp.scan_match(icp.set_target(scene, opts), opts, scene, torch.eye(3), torch.zeros(3))
+    assert bool(res.converged) and torch.isfinite(res.t).all()
     tgt = icp.set_target(scene, icp.IcpOptions(method="p2line_vox", dense_dims=DIMS))
     assert tgt.line_packed.shape == (scene.capacity, 13) and tgt.packed is None
+    with pytest.raises(ValueError, match="unknown ICP method"):
+        icp.set_target(scene, icp.IcpOptions(method="p2plane_kd"))
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        icp.not_ported("Lio(pipelined=True)", "3")
 
 
 def _line_pair():
@@ -412,3 +429,206 @@ def test_p2line_vox_tie_goes_to_the_points_own_voxel():
     np.testing.assert_allclose(got[0].numpy(), Hj, rtol=1e-5, atol=1e-4 * np.abs(Hj).max())
     np.testing.assert_allclose(got[1].numpy(), bj, rtol=1e-5, atol=1e-4 * np.abs(Hj).max())
     np.testing.assert_allclose(float(got[3]), float(cj), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The knn oracle methods, the fitness score and the frozen election
+# ---------------------------------------------------------------------------
+
+def _line_rich_scene():
+    """test_icp.py:59's scene: a grid of straight edges along x and y."""
+    rng = np.random.default_rng(2)
+    lines = []
+    for z in range(5):
+        ts = rng.uniform(-10, 10, 150)
+        lines.append(np.stack([ts, np.full_like(ts, z * 2.0 - 5), np.full_like(ts, z * 1.0)], 1))
+        lines.append(np.stack([np.full_like(ts, z * 2.0 - 5), ts, np.full_like(ts, z * 0.7)], 1))
+    scene = np.concatenate(lines).astype(np.float32)
+    R_true = oracles.so3_exp(np.array([0.01, -0.01, 0.02]))
+    t_true = np.array([0.1, 0.05, -0.05])
+    return scene, ((scene - t_true) @ R_true).astype(np.float32), R_true, t_true
+
+
+def _knn_pair(method):
+    """The pose-recovery workloads of test_icp.py:37 (p2plane), :48 (p2p)
+    and :59 (p2line), with their bounds (rot rad, trans m)."""
+    if method == "p2line":
+        return (*_line_rich_scene(), 2e-2, 5e-2)
+    rng = np.random.default_rng(0 if method == "p2plane" else 1)
+    scene = _structured_scene(rng)
+    w, trans = (([0.02, -0.03, 0.04], [0.3, -0.2, 0.15]) if method == "p2plane"
+                else ([0.01, 0.02, -0.02], [0.15, 0.1, -0.1]))
+    R_true, t_true = oracles.so3_exp(np.asarray(w)), np.asarray(trans, np.float64)
+    src = ((scene - t_true) @ R_true).astype(np.float32)
+    return (scene, src, R_true, t_true) + ((5e-3, 5e-2) if method == "p2plane" else (2e-2, 1e-1))
+
+
+@pytest.mark.parametrize("method", ["p2plane", "p2p", "p2line"])
+def test_knn_methods_recover_pose_and_match_jax(method):
+    scene, src, R_true, t_true, rot_bound, t_bound = _knn_pair(method)
+    jo, to = jicp.IcpOptions(method=method), icp.IcpOptions(method=method)
+    jt = jicp.set_target(jpc.from_numpy(scene, capacity=2048), jo)
+    tt = icp.set_target(_from_numpy(scene, capacity=2048), to)
+    for name in voxel.HashGrid._fields:       # the search structure is bit-equal
+        np.testing.assert_array_equal(getattr(tt.grid, name).numpy(),
+                                      np.asarray(getattr(jt.grid, name)), name)
+    jsrc, tsrc = jpc.from_numpy(src, capacity=2048), _from_numpy(src, capacity=2048)
+    for w, trans in (([0.0, 0.0, 0.0], [0.0, 0.0, 0.0]), ([0.01, -0.02, 0.03], [0.1, -0.05, 0.2])):
+        R = np.array(jlie.so3_exp(jnp.asarray(w, jnp.float32)))
+        t = np.asarray(trans, np.float32)
+        Hj, bj, nj, cj = (np.asarray(a) for a in jicp.compute_h_and_b(
+            jt, jo, jsrc, jnp.asarray(R), jnp.asarray(t)))
+        Ht, bt, nt, ct = icp.compute_h_and_b(tt, to, tsrc, torch.from_numpy(R), torch.from_numpy(t))
+        assert int(nt) == int(nj) and int(nj) > 100
+        atol = 1e-4 * max(1.0, np.abs(Hj).max())
+        np.testing.assert_allclose(Ht.numpy(), Hj, rtol=1e-4, atol=atol)
+        np.testing.assert_allclose(bt.numpy(), bj, rtol=1e-4, atol=atol)
+        np.testing.assert_allclose(float(ct), float(cj), rtol=1e-4, atol=atol)
+    jr = jicp.scan_match(jt, jo, jsrc, jnp.eye(3), jnp.zeros(3))
+    tr = icp.scan_match(tt, to, tsrc, torch.eye(3), torch.zeros(3))
+    assert tr.iterations == int(jr.iterations) and bool(tr.converged) == bool(jr.converged)
+    assert int(tr.num_effective) == int(jr.num_effective)
+    rot = np.linalg.norm(oracles.so3_log(np.asarray(jr.R, np.float64).T
+                                         @ tr.R.numpy().astype(np.float64)))
+    assert rot < 1e-4 and np.linalg.norm(tr.t.numpy() - np.asarray(jr.t)) < 1e-4
+    rot_err = np.linalg.norm(oracles.so3_log(tr.R.numpy().astype(np.float64).T @ R_true))
+    assert rot_err < rot_bound and np.linalg.norm(tr.t.numpy() - t_true) < t_bound
+
+
+def test_h_b_matches_oracle_p2plane():
+    """test_icp.py:78 in the port: one p2plane linearization against the
+    float64 reference math on the same correspondences (the 5 nearest among
+    the 3x3x3 cells around the probe), with that test's bounds."""
+    rng = np.random.default_rng(3)
+    scene = _structured_scene(rng, n=400)
+    Rw, tw = oracles.so3_exp(np.array([0.01, -0.008, 0.015])), np.array([0.04, -0.03, 0.02])
+    src = ((scene[::7] - tw) @ Rw).astype(np.float32)
+    opts = icp.IcpOptions(method="p2plane", grid_leaf=1.0, bucket_size=32)
+    tgt = icp.set_target(_from_numpy(scene, capacity=2048), opts)
+    H, b, eff, _ = icp.compute_h_and_b(tgt, opts, _from_numpy(src, capacity=256), torch.eye(3),
+                                       torch.zeros(3))
+
+    def nn_fn(qs):
+        cand = scene[np.all(np.abs(np.floor(scene) - np.floor(qs)) <= 1, axis=1)]
+        if len(cand) == 0:
+            return None
+        return cand[np.argsort(np.sum((cand - qs) ** 2, axis=1))[:5]]
+
+    H_ref, b_ref, eff_ref = oracles.icp_p2plane_h_b(src.astype(np.float64), nn_fn, np.eye(3),
+                                                    np.zeros(3))
+    assert abs(int(eff) - eff_ref) <= 2
+    np.testing.assert_allclose(H.numpy(), H_ref, atol=np.abs(H_ref).max() * 0.12)
+    np.testing.assert_allclose(b.numpy(), b_ref, atol=np.abs(b_ref).max() * 0.15 + 1e-3)
+    dx = np.linalg.solve(H.numpy().astype(np.float64), b.numpy().astype(np.float64))
+    dx_ref = np.linalg.solve(H_ref, b_ref)
+    np.testing.assert_allclose(dx, dx_ref, atol=np.abs(dx_ref).max() * 0.2 + 2e-4)
+
+
+def test_fitness_score_matches_jax():
+    """test_icp.py:389: ~0 at the true pose, large at a wrong one, +inf
+    against an empty target; each value within rtol 1e-5 of JAX's."""
+    rng = np.random.default_rng(11)
+    scene = _structured_scene(rng)
+    R_true, t_true = oracles.so3_exp(np.array([0.0, 0.0, 0.05])), np.array([0.4, 0.1, 0.0])
+    src = ((scene - t_true) @ R_true).astype(np.float32)
+    jo, to = jicp.IcpOptions(method="p2plane"), icp.IcpOptions(method="p2plane")
+    jt = jicp.set_target(jpc.from_numpy(scene, capacity=2048), jo)
+    tt = icp.set_target(_from_numpy(scene, capacity=2048), to)
+    jsrc, tsrc = jpc.from_numpy(src, capacity=2048), _from_numpy(src, capacity=2048)
+    scores = {}
+    for name, R, t in (("good", R_true, t_true), ("bad", np.eye(3), np.array([3.0, 0.0, 0.0]))):
+        R32, t32 = R.astype(np.float32), t.astype(np.float32)
+        got = float(icp.get_fitness_score(tt, to, tsrc, torch.from_numpy(R32),
+                                          torch.from_numpy(t32)))
+        want = float(jicp.get_fitness_score(jt, jo, jsrc, jnp.asarray(R32), jnp.asarray(t32)))
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        scores[name] = got
+    assert scores["good"] < 0.01 and scores["bad"] > 5 * scores["good"]
+    empty = pcm.PointCloud(xyz=torch.full((64, 3), pcm.PAD_COORD),
+                           mask=torch.zeros(64, dtype=torch.bool))
+    assert np.isinf(float(icp.get_fitness_score(icp.set_target(empty, to), to, tsrc,
+                                                torch.eye(3), torch.zeros(3))))
+    # every method's target carries the grid the score reads
+    vo = icp.IcpOptions(method="p2plane_vox", dense_dims=DIMS)
+    vox = icp.get_fitness_score(icp.set_target(_from_numpy(scene, capacity=2048), vo), vo, tsrc,
+                                torch.from_numpy(R_true.astype(np.float32)),
+                                torch.from_numpy(t_true.astype(np.float32)))
+    assert float(vox) == scores["good"]
+
+
+def test_use_initial_translation_false_centroid_init():
+    """test_icp.py:426: a pair 3 m apart with a zero init converges through
+    the centroid init where the plain init cannot; both runs follow JAX's
+    (1e-4 m)."""
+    rng = np.random.default_rng(21)
+    scene = _structured_scene(rng)
+    R_true, t_true = oracles.so3_exp(np.array([0.0, 0.0, 0.02])), np.array([3.0, -2.0, 0.4])
+    src = ((scene - t_true) @ R_true).astype(np.float32)
+    errs = {}
+    for flag in (True, False):
+        jo = jicp.IcpOptions(method="p2p", max_nn_distance=25.0, use_initial_translation=flag)
+        to = icp.IcpOptions(method="p2p", max_nn_distance=25.0, use_initial_translation=flag)
+        jr = jicp.scan_match(jicp.set_target(jpc.from_numpy(scene, capacity=2048), jo), jo,
+                             jpc.from_numpy(src, capacity=2048), jnp.eye(3), jnp.zeros(3))
+        tr = icp.scan_match(icp.set_target(_from_numpy(scene, capacity=2048), to), to,
+                            _from_numpy(src, capacity=2048), torch.eye(3), torch.zeros(3))
+        assert tr.iterations == int(jr.iterations)
+        assert np.linalg.norm(tr.t.numpy() - np.asarray(jr.t)) < 1e-4
+        errs[flag] = np.linalg.norm(tr.t.numpy() - t_true)
+    assert errs[False] < 0.1 and errs[False] <= errs[True] + 1e-6
+
+
+@pytest.mark.parametrize("target_from", ["port", "jax"])
+def test_p2plane_vox_frozen_election_matches_full_and_jax(target_from):
+    """test_icp.py:449: freeze_election_after = 2 lands on the pose of the
+    re-elect-every-iteration path (1e-2 m) and converges; and the frozen run
+    follows JAX's frozen run (equal iterations, 1e-4 rad / 1e-4 m). Its
+    elections linearize through K1 with the plane given."""
+    rng = np.random.default_rng(31)
+    scene = _structured_scene(rng)
+    R_true, t_true = oracles.so3_exp(np.array([0.02, -0.03, 0.04])), np.array([0.3, -0.2, 0.15])
+    src = ((scene - t_true) @ R_true).astype(np.float32)
+    jsrc, tsrc = jpc.from_numpy(src, capacity=2048), _from_numpy(src, capacity=2048)
+    runs = {}
+    for name, k in (("full", 0), ("frozen", 2)):
+        jo = jicp.IcpOptions(method="p2plane_vox", freeze_election_after=k)
+        to = icp.IcpOptions(method="p2plane_vox", freeze_election_after=k)
+        jt = jicp.set_target(jpc.from_numpy(scene, capacity=2048), jo)
+        tt = icp.set_target(_from_numpy(scene, capacity=2048), to) \
+            if target_from == "port" else _carried(jt)
+        jr = jicp.scan_match(jt, jo, jsrc, jnp.eye(3), jnp.zeros(3))
+        tr = icp.scan_match(tt, to, tsrc, torch.eye(3), torch.zeros(3))
+        assert tr.iterations == int(jr.iterations) and bool(tr.converged) and bool(jr.converged)
+        rot = np.linalg.norm(oracles.so3_log(np.asarray(jr.R, np.float64).T
+                                             @ tr.R.numpy().astype(np.float64)))
+        assert rot < 1e-4 and np.linalg.norm(tr.t.numpy() - np.asarray(jr.t)) < 1e-4
+        rot_err = np.linalg.norm(oracles.so3_log(tr.R.numpy().astype(np.float64).T @ R_true))
+        assert rot_err < 1e-2 and np.linalg.norm(tr.t.numpy() - t_true) < 5e-2
+        runs[name] = tr
+    assert np.linalg.norm(runs["full"].t.numpy() - runs["frozen"].t.numpy()) < 1e-2
+
+
+def test_frozen_election_reelects_only_when_the_pose_moves(monkeypatch):
+    """The election runs in the first freeze_election_after iterations and
+    again only after the pose has moved past elect_dx_threshold: with a huge
+    threshold it runs exactly k times, with threshold 0 on every iteration
+    (and then gives the bits of the unfused-pick oracle loop)."""
+    scene, src, _, _ = _pair(7)
+    tsrc = _from_numpy(src, capacity=2048)
+    calls = []
+    real = icp._p2plane_vox_elect
+    monkeypatch.setattr(icp, "_p2plane_vox_elect",
+                        lambda *a: (calls.append(1), real(*a))[1])
+    base = dict(method="p2plane_vox", dense_dims=DIMS, freeze_election_after=2)
+    never = icp.IcpOptions(**base, elect_dx_threshold=1e9)
+    tt = icp.set_target(_from_numpy(scene, capacity=2048), never)
+    res = icp.scan_match(tt, never, tsrc, torch.eye(3), torch.zeros(3))
+    assert len(calls) == 2 < res.iterations
+    calls.clear()
+    always = icp.IcpOptions(**base, elect_dx_threshold=0.0, eps=0.0, max_iteration=5)
+    res = icp.scan_match(tt, always, tsrc, torch.eye(3), torch.zeros(3))
+    assert len(calls) == res.iterations == 5
+    plain = dataclasses.replace(always, freeze_election_after=0)
+    ref = icp._gauss_newton(icp._p2plane_vox_terms_unfused_pick, tt, plain, tsrc, torch.eye(3),
+                            torch.zeros(3))
+    assert torch.equal(res.R, ref.R) and torch.equal(res.t, ref.t)

@@ -693,3 +693,92 @@ def test_k3_plain_on_p2line_vox_views_matches_pallas_interpret(pose):
                            (ct, cj, S_abs[6, 6])):
         tol = ATOL + RTOL * np.abs(want) + 64 * 2.0 ** -24 * sab
         assert (np.abs(got - want) <= tol).all(), np.max(np.abs(got - want) / tol)
+
+
+# ---------------------------------------------------------------------------
+# The batched forms of K2 and K1 (one launch for B matches on the card): on
+# the CPU the plain versions, lane by lane
+# ---------------------------------------------------------------------------
+
+def _batch_case(method, B=3, n_src=512):
+    """B lanes with different targets, sources, masks and poses, stacked;
+    one lane's source is all masked, one lies outside the key window, one
+    inside it but off its dense table."""
+    lanes = [_vox_case(method, n_src, seed=21 + b) for b in range(B + 3)]
+    tgts = [c[0] for c in lanes]
+    srcs = [c[2] for c in lanes]
+    srcs[B] = srcs[B]._replace(mask=torch.zeros_like(srcs[B].mask))
+    srcs[B + 1] = srcs[B + 1]._replace(xyz=srcs[B + 1].xyz + 5000.0)
+    srcs[B + 2] = srcs[B + 2]._replace(xyz=srcs[B + 2].xyz + 400.0)
+    strip = lambda pc: pc._replace(stamp=None)
+    R = torch.stack([c[3] for c in lanes])
+    t = torch.stack([c[4] + 0.01 * b for b, c in enumerate(lanes)])
+    return (lanes[0][1], icp.stack_lanes(tgts), icp.stack_lanes([strip(s) for s in srcs]),
+            tgts, srcs, R, t)
+
+
+def _batch_args(method, targets, opts, srcs, R, t, gate):
+    if method == "p2plane_vox":
+        return (srcs.xyz, srcs.mask, R, t, gate, targets.packed,
+                icp._index_batch(targets, opts, targets.dense))
+    return (srcs.xyz, srcs.mask, R, t, gate, targets.packed_ext, targets.oct_table,
+            icp._index_batch(targets, opts, targets.dense_oct))
+
+
+@pytest.mark.parametrize("method", ["p2plane_vox", "p2plane_vox_oct"])
+def test_batched_plain_equals_scalar_plain_lane_by_lane(method):
+    """Lane b of the batched plain version (terms and rows) is bit-equal to
+    the scalar plain version on lane b's inputs; the rejections (masked,
+    outside the key window, off the table) hold per lane (G = 0 there, and
+    nowhere else); the wrapper on CPU tensors gives the same, zeroes the
+    lanes `active` switches off, leaves the others' bits alone, and counts
+    no launch."""
+    opts, targets, srcs, tgts, src_list, R, t = _batch_case(method)
+    B = R.shape[0]
+    terms_b, rows_b, wrapper_b, terms_s, rows_s = {
+        "p2plane_vox": (kernels.p2plane_pick_from_target_terms_plain_batch,
+                        kernels.p2plane_pick_from_target_rows_plain_batch,
+                        kernels.p2plane_pick_fused_terms_from_target_batch,
+                        kernels.p2plane_pick_from_target_terms_plain,
+                        kernels.p2plane_pick_from_target_rows_plain),
+        "p2plane_vox_oct": (kernels.p2plane_from_target_terms_plain_batch,
+                            kernels.p2plane_from_target_rows_plain_batch,
+                            kernels.p2plane_fused_terms_from_target_batch,
+                            kernels.p2plane_from_target_terms_plain,
+                            kernels.p2plane_from_target_rows_plain)}[method]
+    args = _batch_args(method, targets, opts, srcs, R, t, 0.1)
+    out, A = terms_b(*args), rows_b(*args)
+    assert out[0].shape == (B, 6, 6) and out[1].shape == (B, 6)
+    assert out[2].shape == (B,) and out[2].dtype == torch.int32 and out[3].shape == (B,)
+    assert A.shape == (B, srcs.xyz.shape[1], 8)
+    for b in range(B):
+        sargs = _from_target_args(method, tgts[b], opts, src_list[b], R[b], t[b], 0.1)
+        for got, want in zip([o[b] for o in out], terms_s(*sargs)):
+            assert torch.equal(got, want), b
+        assert torch.equal(A[b], rows_s(*sargs))
+        zero = int(out[2][b]) == 0 and not out[0][b].any() and float(out[3][b]) == 0.0
+        assert zero == (b >= B - 3), b
+    assert int(out[2][:B - 3].min()) > 100
+    before = dict(kernels.LAUNCHES)
+    active = torch.tensor([True, False, True, False, True, True])
+    masked = wrapper_b(*args, active)
+    for got, want in zip(wrapper_b(*args), out):
+        assert torch.equal(got, want)
+    for b in range(B):
+        for got, want in zip([o[b] for o in masked], [o[b] for o in out]):
+            assert torch.equal(got, want if active[b] else torch.zeros_like(want)), b
+    assert kernels.LAUNCHES == before
+
+
+def test_batched_wrappers_check_their_shapes_before_any_launch():
+    """A batched call on tensors that are neither CPU nor CUDA raises, as
+    the scalar ones do; and the launch's scratch is sized from B and
+    num_blocks(N), not from B x MAX_BLOCKS."""
+    opts, targets, srcs, _, _, R, t = _batch_case("p2plane_vox", B=1)
+    meta = lambda x: x.to("meta")
+    args = _batch_args("p2plane_vox", icp.tree_map(meta, targets), opts,
+                       icp.tree_map(meta, srcs), meta(R), meta(t), 0.1)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        kernels.p2plane_pick_fused_terms_from_target_batch(*args)
+    assert 64 * kernels.num_blocks(2048) * kernels.ENTRIES * 4 == 147456
+    assert kernels.MAX_LANES == 65535

@@ -121,3 +121,81 @@ def test_solve_gn_6x6_and_masked_stats_match_jax():
     ref = jmathx.masked_mean_and_cov_diag(jnp.asarray(x), jnp.asarray(m))
     for a, r in zip(ours, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=ATOL)
+
+
+@pytest.mark.parametrize("fit", ["plane", "line", "mean_and_cov"])
+def test_neighbour_fits_match_jax(fit):
+    """mathx.fit_plane / fit_line / masked_mean_and_cov on batches of 5-NN
+    sets (near-planar, near-collinear, and too few points): validity exact,
+    values within atol 1e-5 (1e-4 for the plane's 4 coefficients;
+    eigenvectors up to sign, on the sets whose scatter determines them)."""
+    rng = np.random.default_rng(7)
+    n, k = 200, 5
+    base = rng.uniform(-20, 20, size=(n, 1, 3))
+    if fit == "line":
+        d = rng.normal(size=(n, 1, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        pts = base + d * rng.uniform(-0.5, 0.5, size=(n, k, 1)) \
+            + rng.normal(scale=0.01, size=(n, k, 3))
+    else:
+        u, v = rng.normal(size=(2, n, 1, 3))
+        pts = base + u * rng.uniform(-0.5, 0.5, size=(n, k, 1)) \
+            + v * rng.uniform(-0.5, 0.5, size=(n, k, 1)) + rng.normal(scale=0.005, size=(n, k, 3))
+    pts[:20] += rng.normal(scale=0.5, size=(20, k, 3))        # fits that fail the residual gate
+    pts = pts.astype(np.float32)
+    mask = rng.uniform(size=(n, k)) < 0.9
+    mask[20:30, 1:] = False                                    # a single neighbour
+    tp, tm, jp, jm = _t(pts), torch.from_numpy(mask), jnp.asarray(pts), jnp.asarray(mask)
+    if fit == "mean_and_cov":
+        for a, r in zip(mathx.masked_mean_and_cov(tp, tm), jmathx.masked_mean_and_cov(jp, jm)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-5)
+        return
+    if fit == "plane":
+        (coef, valid), (jcoef, jvalid) = mathx.fit_plane(tp, tm), jmathx.fit_plane(jp, jm)
+        vecs = [(coef.numpy(), np.asarray(jcoef))]
+    else:
+        (o, d_, valid), (jo, jd, jvalid) = mathx.fit_line(tp, tm, eps=0.5), \
+            jmathx.fit_line(jp, jm, eps=0.5)
+        np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=1e-5)
+        vecs = [(d_.numpy(), np.asarray(jd))]
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+    assert 100 < int(valid.sum()) < n
+    # compare the direction where the scatter determines it: its eigenvalue
+    # next to the wanted one at least 5 % of the largest away (float64)
+    c = np.where(mask[..., None], pts.astype(np.float64), 0.0)
+    cnt = np.maximum(mask.sum(1), 1)[:, None, None]
+    dd = (c - c.sum(1, keepdims=True) / cnt) * mask[..., None]
+    lam = np.linalg.eigvalsh(np.einsum("nki,nkj->nij", dd, dd))
+    gap = (lam[:, 1] - lam[:, 0]) if fit == "plane" else (lam[:, 2] - lam[:, 1])
+    ok = valid.numpy() & (gap > 0.05 * lam[:, 2])
+    assert ok.sum() > 100
+    for a, r in vecs:
+        sign = np.where(np.sum(a[:, :3] * r[:, :3], axis=1) < 0, -1.0, 1.0)[:, None]
+        np.testing.assert_allclose((a * sign)[ok], r[ok], atol=1e-4 if fit == "plane" else 1e-5)
+
+
+def test_matmul3_solve_and_retract_do_not_depend_on_the_batch():
+    """What lets a batched match equal B scalar ones bit for bit: lane k of
+    lie.matmul3, so3_exp, se3_retract, so3_renormalize and
+    mathx.solve_gn_6x6 on a (B, ...) batch has the bits of the call on lane
+    k alone, for B = 1, 3 and 64; and matmul3 is the matrix product (1e-6)."""
+    rng = np.random.default_rng(8)
+    B = 64
+    R = lie.so3_exp(_t(rng.normal(scale=0.5, size=(B, 3))))
+    t = _t(rng.normal(size=(B, 3)))
+    dx = _t(rng.normal(scale=0.02, size=(B, 6)))
+    J = rng.normal(size=(B, 40, 6))
+    H = _t(np.einsum("bni,bnj->bij", J, J))
+    b = _t(rng.normal(size=(B, 6)))
+    np.testing.assert_allclose(lie.matmul3(R, R.transpose(-1, -2)).numpy(),
+                               (R @ R.transpose(-1, -2)).numpy(), atol=1e-6)
+    for nb in (1, 3, B):
+        Rb, tb = lie.se3_retract(R[:nb], t[:nb], dx[:nb])
+        Rn = lie.so3_renormalize(Rb)
+        sol = mathx.solve_gn_6x6(H[:nb], b[:nb])
+        for k in range(nb):
+            Rk, tk = lie.se3_retract(R[k], t[k], dx[k])
+            assert torch.equal(Rb[k], Rk) and torch.equal(tb[k], tk)
+            assert torch.equal(Rn[k], lie.so3_renormalize(Rk))
+            assert torch.equal(sol[k], mathx.solve_gn_6x6(H[k], b[k]))
+            assert torch.equal(lie.so3_exp(dx[:nb, :3])[k], lie.so3_exp(dx[k, :3]))

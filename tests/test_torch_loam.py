@@ -350,3 +350,47 @@ def test_lio_loam_runs_and_keeps_twin_buffers():
     assert s.kf_edge_mask[: s.num_kfs].any(dim=1).all()
     assert int(s.loam_target.edge.line_packed[:, 12].sum()) > 0
     assert metrics.ate(np.stack(eng.poses), log.gt_poses).rmse < 0.3
+
+
+@pytest.mark.parametrize("flag", ["use_edge_points", "use_surf_points"])
+def test_loam_feature_kind_flags_match_jax(flag, monkeypatch):
+    """LoamOption.use_edge_points / use_surf_points: a kind switched off adds
+    nothing to H, b, count and chi2 and is never linearized, while the step
+    threshold stays the sum of both matchers' min_effective_pts. On JAX's
+    targets carried across the run follows JAX's with the same flag: equal
+    iterations and counts, poses within 2e-6 m / 2e-6 rad (the rule of the
+    two-kind match above); and it differs from the two-kind match."""
+    from loc_lib_tpu_torch.models import icp
+
+    fo_j = jloam.LoamFeatureOptions(num_scan=16, min_ring_pts=64)
+    fo_t = loam.LoamFeatureOptions(num_scan=16, min_ring_pts=64)
+    jf, tf = [], []
+    for k in range(2):
+        jr, tr = _rendered(k)
+        jf.append(jloam.extract_features(jr, fo_j))
+        tf.append(loam.extract_features(tr, fo_t))
+    jo, to = jloam.LoamOption(**{flag: False}), loam.LoamOption(**{flag: False})
+    jt = jloam.set_target(jf[0].edge, jf[0].surf, jo)
+    tt = convert.loam_target_from_numpy(jax.tree_util.tree_map(np.asarray, jt)._asdict(), "cpu")
+    methods = []
+    real = icp.compute_h_and_b
+    monkeypatch.setattr(icp, "compute_h_and_b",
+                        lambda tgt, o, *a: (methods.append(o.method), real(tgt, o, *a))[1])
+    jres = jloam.scan_match(jt, jo, jf[1].edge, jf[1].surf, jnp.eye(3), jnp.zeros(3))
+    tres = loam.scan_match(tt, to, tf[1].edge, tf[1].surf, torch.eye(3), torch.zeros(3))
+    kept = "p2plane_vox" if flag == "use_edge_points" else "p2line_vox"
+    assert methods == [kept] * tres.iterations
+    assert tres.iterations == int(jres.iterations)
+    assert int(tres.num_effective) == int(jres.num_effective)
+    assert bool(tres.converged) == bool(jres.converged)
+    dt, rot = _pose_gap(jres.R, jres.t, tres.R.numpy(), tres.t.numpy())
+    assert dt < 2e-6 and rot < 2e-6, (dt, rot)
+    monkeypatch.undo()
+    both = loam.scan_match(tt, loam.LoamOption(), tf[1].edge, tf[1].surf, torch.eye(3),
+                           torch.zeros(3))
+    assert int(both.num_effective) > int(tres.num_effective)
+    # the threshold is still the sum of both matchers': too high for one kind alone, no step
+    high = icp.IcpOptions(method="p2plane_vox", min_effective_pts=int(both.num_effective))
+    stuck = loam.scan_match(tt, loam.LoamOption(surf_icp=high, **{flag: False}), tf[1].edge,
+                            tf[1].surf, torch.eye(3), torch.zeros(3))
+    assert not bool(stuck.converged) and torch.equal(stuck.t, torch.zeros(3))

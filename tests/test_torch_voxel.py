@@ -236,3 +236,100 @@ def test_from_numpy_and_render_scan_default_to_the_card():
     assert pcm.from_numpy(pts, device="cpu").device.type == "cpu"
     assert render(device="cpu").device.type == "cpu"
     assert pcm.card_device("cpu") == torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# The hash grid's kNN (tests/test_voxel.py:34, :52, :61) against brute force
+# and against the JAX package: indices, validity and positions exact (ties
+# among equal distances go to the lowest candidate position in both),
+# distances within atol 1e-5
+# ---------------------------------------------------------------------------
+
+def _brute_knn(tgt, q, k):
+    d2 = np.sum((tgt[None, :, :] - q[:, None, :]) ** 2, axis=-1)
+    idx = np.argsort(d2, axis=1)[:, :k]
+    return idx, np.take_along_axis(d2, idx, axis=1)
+
+
+def _knn_pair(tgt, q, mask, k, bucket_size, capacity, **kw):
+    jpc_, tpc = _clouds(tgt, capacity)
+    jg = jvox.build_hash_grid(jpc_, 1.0, bucket_size=bucket_size)
+    tg = voxel.build_hash_grid(tpc, 1.0, bucket_size=bucket_size)
+    for name in voxel.HashGrid._fields:
+        np.testing.assert_array_equal(_np(getattr(tg, name)), _np(getattr(jg, name)), name)
+    jout = jvox.knn(jg, jnp.asarray(q), jnp.asarray(mask), k, **kw)
+    tout = voxel.knn(tg, torch.from_numpy(q), torch.from_numpy(mask), k, **kw)
+    return jout, tout
+
+
+@pytest.mark.parametrize("k", [5, 1])
+def test_knn_exact_within_radius_and_matches_jax(k):
+    rng = np.random.default_rng(1)
+    tgt = rng.uniform(-8, 8, size=(1000, 3)).astype(np.float32)
+    q = rng.uniform(-7, 7, size=(100, 3)).astype(np.float32)
+    mask = np.ones(100, bool)
+    mask[90:] = False
+    jout, (pts, idx, d2, valid) = _knn_pair(tgt, q, mask, k, 16, 1024)
+    assert pts.shape == (100, k, 3) and idx.dtype == torch.int32
+    bf_idx, bf_d2 = _brute_knn(tgt, q, k)
+    for i in range(90):
+        ours = set(idx[i].numpy()[valid[i].numpy()])
+        for j in range(k):
+            if bf_d2[i, j] <= 1.0:          # inside the guaranteed stencil radius
+                assert bf_idx[i, j] in ours
+    assert not valid[90:].any() and torch.isinf(d2[90:]).all()
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jout[3]))
+    np.testing.assert_array_equal(idx.numpy()[valid.numpy()], np.asarray(jout[1])[valid.numpy()])
+    np.testing.assert_array_equal(pts.numpy()[valid.numpy()], np.asarray(jout[0])[valid.numpy()])
+    np.testing.assert_allclose(d2.numpy(), np.asarray(jout[2]), atol=ATOL)
+
+
+def test_knn_radius_gate_and_ties():
+    tgt = np.array([[0, 0, 0], [0.45, 0, 0], [0.9, 0, 0]], np.float32)
+    q = np.zeros((1, 3), np.float32)
+    jout, (pts, idx, d2, valid) = _knn_pair(tgt, q, np.ones(1, bool), 3, 8, 128, max_radius=0.5)
+    assert int(valid.sum()) == 2            # 0.9 is outside the 0.5 radius
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jout[3]))
+    # four points at one distance from the probe, in two voxels: the order
+    # among equals is the candidate order (stencil voxel, then bucket slot)
+    tie = np.array([[0.5, 0.5, 0.25], [0.5, 0.5, 0.75], [-0.5, 0.5, 0.25], [-0.5, 0.5, 0.75]],
+                   np.float32)
+    probe = np.array([[0.0, 0.5, 0.5]], np.float32)
+    jout, tout = _knn_pair(tie, probe, np.ones(1, bool), 4, 8, 128)
+    assert bool(tout[3].all()) and len(set(np.round(tout[2].numpy()[0], 6))) == 1
+    np.testing.assert_array_equal(tout[1].numpy(), np.asarray(jout[1]))
+
+
+def test_nn1_matches_brute_and_jax():
+    rng = np.random.default_rng(2)
+    tgt = rng.uniform(-5, 5, size=(400, 3)).astype(np.float32)
+    q = tgt[:50] + rng.normal(scale=0.05, size=(50, 3)).astype(np.float32)
+    jpc_, tpc = _clouds(tgt, 512)
+    jg = jvox.build_hash_grid(jpc_, 1.0, bucket_size=16)
+    tg = voxel.build_hash_grid(tpc, 1.0, bucket_size=16)
+    jout = jvox.nn1(jg, jnp.asarray(q), jnp.ones(50, bool))
+    pts, idx, d2, valid = voxel.nn1(tg, torch.from_numpy(q), torch.ones(50, dtype=torch.bool))
+    bf_idx, _ = _brute_knn(tgt, q, 1)
+    assert bool(valid.all()) and np.mean(idx.numpy() == bf_idx[:, 0]) > 0.95
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jout[1]))
+    np.testing.assert_array_equal(pts.numpy(), np.asarray(jout[0]))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(jout[2]), atol=ATOL)
+
+
+def test_lookup_voxels_and_nearby27_match_jax():
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(-6, 6, size=(300, 3)).astype(np.float32)
+    jpc_, tpc = _clouds(pts, 512)
+    jg, tg = jvox.build_hash_grid(jpc_, 1.0), voxel.build_hash_grid(tpc, 1.0)
+    np.testing.assert_array_equal(voxel.nearby27(torch.device("cpu")).numpy(),
+                                  np.asarray(jvox.NEARBY27))
+    probes = np.concatenate([pts[:100] + 0.01, rng.uniform(-8, 8, size=(100, 3))]) \
+        .astype(np.float32)
+    keys = voxel.coords_to_key(voxel.voxel_coords(torch.from_numpy(probes), tg.inv_leaf,
+                                                  tg.origin), torch.ones(200, dtype=torch.bool))
+    keys[::17] = voxel.INVALID_KEY
+    slot, found = voxel.lookup_voxels(tg, keys)
+    jslot, jfound = jvox.lookup_voxels(jg, jnp.asarray(keys.numpy()))
+    assert 20 < int(found.sum()) < 200
+    np.testing.assert_array_equal(found.numpy(), np.asarray(jfound))
+    np.testing.assert_array_equal(slot.numpy()[found.numpy()], np.asarray(jslot)[found.numpy()])
