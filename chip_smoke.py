@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from csrc/ (failing if a body spills
-registers), holds each against its plain PyTorch version on the card (every
-kernel in all its modes: plane / rows given, and from the target or the map
+registers), holds each against its plain PyTorch version on the card (the
+pose-update kernels gn_step and so3_renormalize at 1 to 300 lanes, and every
+fused-terms kernel in all its modes: plane / rows given, and from the target or the map
 with the gather inside the kernel, where K3 must also give the bits of the
 torch gather followed by the rows-given kernel), then drives the
 port's paths through the entry points a user calls: the headline scan-to-map match (set_target +
@@ -457,6 +458,128 @@ def _bound(n_bytes, flops):
     """(bound_ms, bound_by): the least time the card could take."""
     tb, to = n_bytes / H100_BYTES_PER_S * 1e3, flops / H100_FP32_FLOPS * 1e3
     return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+# bytes and float32 operations a lane of the pose-update kernels: gn_step
+# reads dx 24 + ok 1 + R 36 + t 12 and writes R 36 + t 12 + converged 1;
+# so3_renormalize reads and writes R. Operations counted from the source:
+# two 3x3 products (45 each), the Rodrigues terms, filters and norm ~60;
+# the projection's four products and two scalings ~200.
+POSE_UPDATE_BYTES = {"gn_step": 73 + 49, "so3_renormalize": 72}
+POSE_UPDATE_FLOPS = {"gn_step": 150, "so3_renormalize": 200}
+POSE_UPDATE_TOL = 1e-6     # |R - plain| per entry (entries <= 1); t and converged exact
+
+
+def _pose_update_case(lanes, device, seed):
+    """`lanes` pose updates (a tuple: () for one match): rotations up to
+    ~0.5 rad, steps of ~2 cm / 0.02 rad, and, with 5 lanes or more, lane 1
+    not ok, lane 2 with an infinite entry, lane 3 under eps, lane 4 a zero
+    step."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(lanes, dtype=np.int64))
+    R = np.stack([_so3_exp(rng.normal(size=3) * 0.3) for _ in range(n)])
+    t = rng.normal(size=(n, 3)) * 10.0
+    dx = rng.normal(scale=0.02, size=(n, 6))
+    ok = np.ones(n, bool)
+    if n >= 5:
+        ok[1] = False
+        dx[2, 4] = np.inf
+        dx[3] *= 1e-4
+        dx[4] = 0.0
+    f = lambda a, shape: torch.tensor(a, dtype=torch.float32, device=device).reshape(shape)
+    return (f(dx, (*lanes, 6)), torch.tensor(ok, device=device).reshape(lanes),
+            f(R, (*lanes, 3, 3)), f(t, (*lanes, 3)))
+
+
+def _pose_update_close(got, want) -> float:
+    """gn_step's (R, t, converged) or so3_renormalize's (R,) against the
+    plain version: R within POSE_UPDATE_TOL, t and converged equal. Returns
+    the largest |R - plain|; raises where they disagree."""
+    err = float(torch.max(torch.abs(got[0] - want[0])))
+    if not err <= POSE_UPDATE_TOL or not all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])):
+        raise AssertionError(f"pose update differs from its plain version: |dR| {err:g}")
+    return err
+
+
+def phase_kernels_pose_update(device, card):
+    """The pose-update kernels (gn_step, so3_renormalize) against their plain
+    versions at one match (the scalar paths' shape) and at 3, 64 and 300
+    lanes (the batched path's; 300 spans three blocks): R within 1e-6 per
+    entry, t and converged equal; lane k of a batched launch bit-equal to
+    the scalar launch on lane k; the projection orthonormal to 1e-6; a
+    planted error rejected. Then times at one match and at 64 lanes."""
+    from loc_lib_tpu_torch.ops import kernels
+
+    EPS = 1e-3
+    fns = {"gn_step": (kernels.gn_step, kernels.gn_step_plain),
+           "so3_renormalize": (kernels.so3_renormalize, kernels.so3_renormalize_plain)}
+    errs = dict.fromkeys(fns, 0.0)
+    cases = []
+    for lanes in ((), (3,), (BATCH_LANES,), (300,)):
+        dx, ok, R, t = _pose_update_case(lanes, device, seed=len(lanes) + sum(lanes))
+        for may in (True, False):
+            got = kernels.gn_step(dx, ok, R, t, EPS, may)
+            want = kernels.gn_step_plain(dx, ok, R, t, EPS, may)
+            errs["gn_step"] = max(errs["gn_step"], _pose_update_close(got, want))
+            if lanes and lanes[0] >= 5 and got[2][:5].tolist() != [False, False, False, may, may]:
+                raise AssertionError(f"gn_step: converged {got[2][:5].tolist()} on the planted "
+                                     "lanes")
+        got = kernels.gn_step(dx, ok, R, t, EPS, True)
+        noisy = got[0] + 1e-3 * torch.randn(got[0].shape, device=device,
+                                            generator=torch.Generator(device).manual_seed(1))
+        proj = kernels.so3_renormalize(noisy)
+        errs["so3_renormalize"] = max(errs["so3_renormalize"], _pose_update_close(
+            (proj,), (kernels.so3_renormalize_plain(noisy),)))
+        # two Newton-Schulz steps take a 1e-3 defect to ~1e-9; float32 leaves ~1e-7
+        defect = float(torch.max(torch.abs(proj.transpose(-1, -2) @ proj
+                                           - torch.eye(3, device=device))))
+        if not defect < POSE_UPDATE_TOL:
+            raise AssertionError(f"so3_renormalize: R^T R - I = {defect:g}")
+        for k in range(lanes[0] if lanes else 0):
+            one = kernels.gn_step(dx[k], ok[k], R[k], t[k], EPS, True)
+            if not (all(torch.equal(a[k], b) for a, b in zip(got, one))
+                    and torch.equal(proj[k], kernels.so3_renormalize(noisy[k].contiguous()))):
+                raise AssertionError(f"pose update, {lanes[0]} lanes: lane {k} differs from the "
+                                     "scalar launch")
+        cases.append(f"{lanes[0] if lanes else 1} lane(s) ok")
+    want = kernels.gn_step_plain(dx, ok, R, t, EPS, True)
+    bad = (got[0].clone(), got[1], got[2])
+    bad[0][5, 1, 2] += 1e-5
+    for planted in (bad, (got[0], got[1] + 1e-4, got[2]), (got[0], got[1], ~got[2])):
+        try:
+            _pose_update_close(planted, want)
+        except AssertionError:
+            continue
+        raise AssertionError("pose update: the check accepts a planted error")
+    cases.append("every lane of 3 / 64 / 300 bit-equal to its scalar launch; planted errors in "
+                 "R, t and converged rejected")
+    print("phase 3 pose-update kernels vs plain (|dR| <= 1e-6, t and converged equal): "
+          + "; ".join(cases) + f"; largest |dR| gn_step {errs['gn_step']:.3g}, so3_renormalize "
+          f"{errs['so3_renormalize']:.3g}", flush=True)
+
+    timing, profile_later = {}, {}
+    for lanes in ((), (BATCH_LANES,)):
+        dx, ok, R, t = _pose_update_case(lanes, device, seed=5)
+        n = lanes[0] if lanes else 1
+        calls = {"gn_step": lambda f, a=(dx, ok, R, t): f(*a, EPS, True),
+                 "so3_renormalize": lambda f, a=R: f(a)}
+        for name, call in calls.items():
+            kern, plain = fns[name]
+            ms, pms = _time_alternating(lambda: call(kern), lambda: call(plain))
+            host = _enqueue_us(lambda: call(kern))
+            bound_ms, by = _bound(POSE_UPDATE_BYTES[name] * n, POSE_UPDATE_FLOPS[name] * n)
+            print(f"phase 3 {name}, {n} lane(s) [{card}]: {ms:.4f} ms vs plain {pms:.4f} ms "
+                  f"(median of {2 * TIMING_REPS} per-call CUDA-event samples in turns) | host "
+                  f"time to enqueue {host:.1f} us | bound {bound_ms:.9f} ms by {by} "
+                  f"({POSE_UPDATE_BYTES[name] * n} B, {POSE_UPDATE_FLOPS[name] * n} float32 "
+                  "ops)", flush=True)
+            label = name if not lanes else f"{name} B={n}"
+            profile_later[label] = (lambda c=call, k=kern: c(k), True)
+            profile_later[label + ", plain"] = (lambda c=call, k=plain: c(k), False)
+            if not lanes:
+                timing[name] = {"ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": by,
+                                "err": errs[name]}
+    return timing, profile_later
 
 
 def _cells_and_slots(index, keys):
@@ -1835,33 +1958,52 @@ def phase_batched_match(device, card, bw, targets):
     median num_effective > 700. p2plane_vox_oct (batched K1) likewise, the
     converged run at the reference's loop_icp options. Matches per second at
     B = 1 (scalar), 8 and 64, fixed 20 iterations, host clock.
-    Returns {label: callable} of the B = 64 matches to profile later."""
+
+    The launches this phase reports are those of the scan_match_batch calls
+    alone: every counter is set to 0 just before such a call and read just
+    after it; the scalar matches the lanes are compared with, the chunked
+    call and the timed calls run outside and are not counted.
+    Returns ({label: callable} of the B = 64 matches to profile later, the
+    summed launches of the counted calls)."""
     from loc_lib_tpu_torch.models import icp
     from loc_lib_tpu_torch.ops import kernels
 
     kernel_of = {"p2plane_vox": "p2plane_pick_fused_terms", "p2plane_vox_oct": "p2plane_fused_terms"}
     srcs, R0, t0 = bw["srcs"], bw["R0"], bw["t0"]
     to_profile = {}
+    batched_launches = dict.fromkeys(kernels.LAUNCHES, 0)
     for method, kname in kernel_of.items():
         fixed = _loop_icp_options(method, max_iteration=20, eps=0.0)
         converging = (icp.IcpOptions(method=method, grid_leaf=2.0, plane_min_pts=4)
                       if method == "p2plane_vox" else _loop_icp_options(method))
 
-        def run(opts, B):
-            args = (_lanes(targets, B), opts, _lanes(srcs, B), R0[:B].contiguous(),
+        def args_of(opts, B):
+            return (_lanes(targets, B), opts, _lanes(srcs, B), R0[:B].contiguous(),
                     t0[:B].contiguous())
-            before = dict(kernels.LAUNCHES)
+
+        def run(opts, B):
+            """One counted scan_match_batch call; `its` iterations must be
+            its of `kname` and of the pose update, and one projection."""
+            args = args_of(opts, B)
+            kernels.reset_launch_counts()
             res = icp.scan_match_batch(*args)
-            launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+            launched = dict(kernels.LAUNCHES)
+            its = int(res.iterations.max())
+            if launched != {**dict.fromkeys(launched, 0), kname: its, "gn_step": its,
+                            "so3_renormalize": 1}:
+                raise AssertionError(f"phase 8 {method} B={B}: launches {launched} for {its} "
+                                     f"iterations; expected {its} of {kname} and of gn_step, one "
+                                     "of so3_renormalize")
+            for k, v in launched.items():
+                batched_launches[k] += v
             return args, res, launched
 
         notes = []
         for B in (8, BATCH_LANES):
             args, res, launched = run(fixed, B)
-            if launched != {**dict.fromkeys(launched, 0), kname: 20} \
-                    or res.iterations.tolist() != [20] * B:
-                raise AssertionError(f"phase 8 {method} B={B}: launches {launched}, iterations "
-                                     f"{res.iterations.tolist()}; expected 20 launches of {kname}")
+            if res.iterations.tolist() != [20] * B:
+                raise AssertionError(f"phase 8 {method} B={B}: iterations "
+                                     f"{res.iterations.tolist()}, expected 20 in every lane")
             _batch_lanes_equal_scalar(f"phase 8 {method} B={B}", fixed, args[0], args[2], args[3],
                                       args[4], res)
             notes.append(f"B={B}: {launched[kname]} {kname} launches for 20 iterations of {B} "
@@ -1875,9 +2017,6 @@ def phase_batched_match(device, card, bw, targets):
         its = int(res.iterations.max())
         err = np.linalg.norm(res.t.double().cpu().numpy() - bw["gt"], axis=1)
         n_eff = float(np.median(res.num_effective.cpu().numpy()))
-        if launched[kname] != its or sum(launched.values()) != its:
-            raise AssertionError(f"phase 8 {method} converged: launches {launched} for {its} "
-                                 "iterations")
         if not (np.isfinite(err).all() and err.max() < BATCH_TAIL_M
                 and n_eff > BATCH_MIN_MEDIAN_EFFECTIVE):
             raise AssertionError(f"phase 8 {method} converged: worst lane {err.max():.4f} m off "
@@ -1896,7 +2035,7 @@ def phase_batched_match(device, card, bw, targets):
         lane0 = (icp.take_lane(targets, 0), fixed, icp.take_lane(srcs, 0), R0[0], t0[0])
         fns = {1: lambda a=lane0: icp.scan_match(*a)}
         for B in (8, BATCH_LANES):
-            fns[B] = lambda a=run(fixed, B)[0]: icp.scan_match_batch(*a)
+            fns[B] = lambda a=args_of(fixed, B): icp.scan_match_batch(*a)
         rates = {}
         for B, fn in list(fns.items()) + list(fns.items())[::-1]:
             for _ in range(4):
@@ -1913,7 +2052,7 @@ def phase_batched_match(device, card, bw, targets):
                           f"call)" for B, ms in rates.items()), flush=True)
         to_profile[f"{method} B={BATCH_LANES}, 20 iterations"] = fns[BATCH_LANES]
         to_profile[f"{method} B=1 (scalar), 20 iterations"] = fns[1]
-    return to_profile
+    return to_profile, batched_launches
 
 
 def phase_batched_profile(card, matches):
@@ -2062,7 +2201,8 @@ def phase_kernel_device_times(card, calls):
     for label, (fn, one_launch) in calls.items():
         fn()
         launches, ms, _, _ = _profiled(fn, 20)
-        if launches == 0:
+        if launches == 0 or (not one_launch and launches != round(launches)):
+            # no event, or a session that handed over part of a chain's events
             dev[label] = (None, 0)
             continue
         if one_launch:
@@ -2075,7 +2215,8 @@ def phase_kernel_device_times(card, calls):
     print("phase 3b device time per call (torch.profiler, kernels only; N=8192 scalar calls, "
           f"{BATCH_SOURCE_POINTS}-point lanes for the batched ones) "
           f"[{card}]: " + "; ".join(
-              f"{k} not measured (the profiler recorded no device event in 3 sessions)"
+              f"{k} not measured (the profiler recorded no device event in 3 sessions, or "
+              "only part of the call's)"
               if ms is None else f"{k} {ms:.4f} ms in {n:.0f} launches"
               for k, (ms, n) in dev.items()), flush=True)
     return {k: v[0] for k, v in dev.items()}
@@ -2243,6 +2384,9 @@ def main() -> int:
     k3_modes, calls = phase_kernels_k3_from_map(device, card, workload)
     to_profile.update(calls)
     timing["ndt_fused_terms"] = k3_modes["K3 from map"]
+    pose_timing, calls = phase_kernels_pose_update(device, card)
+    timing.update(pose_timing)
+    to_profile.update(calls)
 
     def counted(names, fn):
         """Run one path with every counter set to 0 just before it; each
@@ -2266,7 +2410,7 @@ def main() -> int:
 
     # the first slice's main path: the headline match and LIO (icp)
     (target, lio_last), launches = counted(
-        ("p2plane_fused_terms", "p2plane_pick_fused_terms"),
+        ("p2plane_fused_terms", "p2plane_pick_fused_terms", "gn_step", "so3_renormalize"),
         lambda: (phase_headline(device, card, workload), phase_lio(device, card)))
     k2_err = phase_lio_k2_check(lio_last)
     # this slice's main path: LIO ndt_inc, the incremental-NDT cell
@@ -2319,10 +2463,13 @@ def main() -> int:
     batch_targets = phase_batch_targets(device, card, bw)
     batch_errs, calls = phase_kernels_batch(device, card, bw, batch_targets)
     to_profile.update(calls)
-    batch_matches, c = counted(("p2plane_pick_fused_terms", "p2plane_fused_terms"),
-                               lambda: phase_batched_match(device, card, bw, batch_targets))
-    print(f"phase 8 launches (batched and scalar matches of the phase): {c}", flush=True)
-    for name in ("p2plane_pick_fused_terms", "p2plane_fused_terms"):
+    batch_matches, c = phase_batched_match(device, card, bw, batch_targets)
+    print(f"phase 8 launches (the six scan_match_batch calls alone, every counter at 0 before "
+          f"each and read after it): {c}", flush=True)
+    for name in ("p2plane_pick_fused_terms", "p2plane_fused_terms", "gn_step",
+                 "so3_renormalize"):
+        if c[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the batched path")
         launches[name] += c[name]
     phase_rest_of_icp(device, card, workload)
     phase_lio_syncs(device, card)
@@ -2333,7 +2480,8 @@ def main() -> int:
     phase_batched_profile(card, batch_matches)
     for name, label in (("p2plane_fused_terms", "K1 from target"),
                         ("p2plane_pick_fused_terms", "K2 from target"),
-                        ("ndt_fused_terms", "K3 from map: from map")):
+                        ("ndt_fused_terms", "K3 from map: from map"),
+                        ("gn_step", "gn_step"), ("so3_renormalize", "so3_renormalize")):
         timing[name]["device_ms"] = dev_ms[label]
     phase_profile(device, card, workload, target,
                   Path(__file__).resolve().parent / "chiprun_out")
@@ -2343,7 +2491,12 @@ def main() -> int:
            "p2plane_pick_fused_terms": ("loc_lib_tpu_torch/csrc/p2plane_pick_fused_terms.cu",
                                         "loc_lib_tpu/ops/pallas_kernels.py:185"),
            "ndt_fused_terms": ("loc_lib_tpu_torch/csrc/ndt_fused_terms.cu",
-                               "loc_lib_tpu/ops/pallas_kernels.py:314")}
+                               "loc_lib_tpu/ops/pallas_kernels.py:314"),
+           # no TPU kernel: the loop body's pose update and the final
+           # projection, which XLA fuses into the reference's program
+           "gn_step": ("loc_lib_tpu_torch/csrc/gn_update.cu", "loc_lib_tpu/models/icp.py:705"),
+           "so3_renormalize": ("loc_lib_tpu_torch/csrc/gn_update.cu",
+                               "loc_lib_tpu/models/icp.py:721")}
     errs = {k: v["err"] for k, v in timing.items()}
     errs["p2plane_fused_terms"] = max(errs["p2plane_fused_terms"], k1_err,
                                       given_errs["p2plane_fused_terms"],
@@ -2352,13 +2505,17 @@ def main() -> int:
                                            given_errs["p2plane_pick_fused_terms"],
                                            batch_errs["p2plane_pick_fused_terms"])
     errs["ndt_fused_terms"] = max(errs["ndt_fused_terms"], k3_err)
-    print("library_ms is null for all three kernels: no single PyTorch call computes one of "
-          "them (each builds its rows from a gather, an election and a gate, then reduces "
-          "them); ms, plain_ms, device_ms and bound_ms of K1 and K2 are those of the "
+    print("library_ms is null for every kernel: no single PyTorch call computes one of "
+          "them (K1-K3 each build their rows from a gather, an election and a gate, then reduce "
+          "them; gn_step and so3_renormalize, the pose update of a GN iteration and the final "
+          "projection, are chains of elementwise operations and 3x3 products, timed at one "
+          "match); ms, plain_ms, device_ms and bound_ms of K1 and K2 are those of the "
           "from-target mode and, since this revision, those of K3 are those of the from-map "
           "mode (S = 7, weighted, trunc, on an update_incremental map of the headline target): "
-          "the modes the paths run, at the headline inputs; launches of K1 and K2 include "
-          "phase 8 (batched matching), max_abs_err their batched forms", flush=True)
+          "the modes the paths run, at the headline inputs; launches of K1, K2, gn_step and "
+          "so3_renormalize are those of the headline match and LIO plus those of phase 8's "
+          "scan_match_batch calls, max_abs_err of K1 and K2 covers their batched forms",
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
          "launches": launches[name], "max_abs_err": errs[name],
@@ -2366,7 +2523,7 @@ def main() -> int:
          "device_ms": timing[name]["device_ms"], "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"], "library_ms": None}
         for name in ("p2plane_fused_terms", "p2plane_pick_fused_terms",
-                     "ndt_fused_terms")]}), flush=True)
+                     "ndt_fused_terms", "gn_step", "so3_renormalize")]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -78,12 +78,14 @@ def process_noise(opts: EskfOptions, device) -> torch.Tensor:
                     + (opts.bias_gyro_var,) * 3 + (opts.bias_acce_var,) * 3 + (0.0,) * 3)
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=16)
 def _diag_on(device, values: tuple) -> torch.Tensor:
     """diag(values) made on the device by fills (no host-to-device copy,
     which would wait for the stream on the card), once per (device, values):
     the element fills are a host round trip each on the card, and the
-    filter asks for the same two matrices on every scan."""
+    filter asks for the same two matrices on every scan. The cache is
+    bounded, so a caller that varies its noise from call to call rebuilds
+    and pins no more than 16 matrices."""
     d = torch.zeros(len(values), dtype=torch.float32, device=device)
     for i, v in enumerate(values):
         if v:

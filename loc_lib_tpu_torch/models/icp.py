@@ -549,15 +549,6 @@ def _gates(opts: IcpOptions, dev):
     return gate, wide_gate, opts.gate_warmup_iters
 
 
-def _step_norm(dx: torch.Tensor) -> torch.Tensor:
-    """|dx| over the last axis (6), summed in one written-out order, so that
-    a lane's stop test does not depend on the batch it runs in (a library
-    reduction may pick its order by the tensor's shape)."""
-    sq = dx * dx
-    s3 = sq[..., 0:3] + sq[..., 3:6]
-    return torch.sqrt(s3[..., 0] + s3[..., 1] + s3[..., 2])
-
-
 def _gauss_newton(terms, target: IcpTarget, opts: IcpOptions, src: PointCloud, R0,
                   t0) -> MatchResult:
     """The GN loop of `scan_match` over the linearization
@@ -584,15 +575,13 @@ def _gauss_newton(terms, target: IcpTarget, opts: IcpOptions, src: PointCloud, R
             dx = mathx.solve_gn_6x6(H + lam * eye6, b)
         else:
             dx = mathx.solve_gn_6x6(H, b)
-        dx = torch.where(ok, dx, 0.0)
-        dx = torch.where(torch.isfinite(dx), dx, 0.0)
-        R, t = lie.se3_retract(R, t, dx)
-        converged = ok & (_step_norm(dx) < opts.eps) & (not warm)
+        # filters, retraction and stop test: one launch (kernels.gn_step)
+        R, t, converged = kernels.gn_step(dx, ok, R, t, opts.eps, not warm)
         it += 1
         if bool(converged):     # the one host sync per iteration
             break
-    # pin the output on SO(3) (lie.so3_renormalize)
-    return MatchResult(R=lie.so3_renormalize(R), t=t, converged=converged,
+    # pin the output on SO(3)
+    return MatchResult(R=kernels.so3_renormalize(R), t=t, converged=converged,
                        num_effective=n_eff, iterations=it, chi2=chi2)
 
 
@@ -625,7 +614,7 @@ def _scan_match_vox_frozen(target: IcpTarget, opts: IcpOptions, src: PointCloud,
         elect = it < opts.freeze_election_after
         if not elect:
             dt = t - t_e
-            rot = lie.so3_log(lie.matmul3(R_e.T, R))
+            rot = lie.so3_log(R_e.T @ R)
             moved = torch.sqrt(torch.sum(dt * dt)) \
                 + opts.elect_rot_scale * torch.sqrt(torch.sum(rot * rot))
             elect = bool(moved > opts.elect_dx_threshold)
@@ -635,14 +624,11 @@ def _scan_match_vox_frozen(target: IcpTarget, opts: IcpOptions, src: PointCloud,
         H, b, n_eff, chi2 = kernels.p2plane_fused_terms(src.xyz, plane, w, R, t,
                                                         opts.max_plane_distance)
         ok = n_eff >= opts.min_effective_pts
-        dx = torch.where(ok, mathx.solve_gn_6x6(H, b), 0.0)
-        dx = torch.where(torch.isfinite(dx), dx, 0.0)
-        R, t = lie.se3_retract(R, t, dx)
-        converged = ok & (_step_norm(dx) < opts.eps)
+        R, t, converged = kernels.gn_step(mathx.solve_gn_6x6(H, b), ok, R, t, opts.eps, True)
         it += 1
         if bool(converged):
             break
-    return MatchResult(R=lie.so3_renormalize(R), t=t, converged=converged,
+    return MatchResult(R=kernels.so3_renormalize(R), t=t, converged=converged,
                        num_effective=n_eff, iterations=it, chi2=chi2)
 
 
@@ -706,14 +692,16 @@ def _p2plane_vox_oct_terms_batch(targets, opts, srcs, R, t, gate, active):
 
 
 def _lane_by_lane(terms):
-    """A batched linearization out of a scalar one: lane after lane, every
-    lane computed (what has stopped is discarded by the loop). For the
-    methods with no batched kernel: p2line_vox (B launches of the scalar K3;
-    the reference has no batched caller of it) and the knn methods."""
+    """A batched linearization out of a scalar one: the active lanes one
+    after the other, zeros for a lane that has stopped, as the batched
+    kernels give (one host read of `active` per iteration). For the methods
+    with no batched kernel: p2line_vox (a launch of the scalar K3 per active
+    lane; the reference has no batched caller of it) and the knn methods."""
     def batched(targets, opts, srcs, R, t, gate, active):
         outs = [terms(take_lane(targets, b), opts, take_lane(srcs, b), R[b], t[b], gate=gate)
-                for b in range(R.shape[0])]
-        return tuple(torch.stack(x) for x in zip(*outs))
+                if on else None for b, on in enumerate(active.tolist())]
+        zeros = tuple(torch.zeros_like(x) for x in next(o for o in outs if o is not None))
+        return tuple(torch.stack(x) for x in zip(*(o or zeros for o in outs)))
     return batched
 
 
@@ -738,8 +726,10 @@ def scan_match_batch(targets: IcpTarget, opts: IcpOptions, srcs: PointCloud, R0,
     left and has not converged; an inactive lane's state stops changing.
     All active lanes share the iteration number, so one gate serves a call.
     The other methods run the same loop with their scalar linearization
-    lane by lane; a frozen election (freeze_election_after > 0) runs
-    `scan_match` lane by lane, its loop being a host decision per lane."""
+    lane by lane. A frozen election (freeze_election_after > 0) is, on
+    purpose, B scalar `scan_match` calls stacked: whether an iteration elects
+    is a host decision per lane, which no shared loop can take, and the
+    election buys nothing on this card (it is inside K2)."""
     _check_method(opts)
     B = R0.shape[0]
     dev = srcs.xyz.device
@@ -774,10 +764,7 @@ def scan_match_batch(targets: IcpTarget, opts: IcpOptions, srcs: PointCloud, R0,
             dx = mathx.solve_gn_6x6(H + lam[:, None, None] * eye6, b)
         else:
             dx = mathx.solve_gn_6x6(H, b)
-        dx = torch.where(ok[:, None], dx, 0.0)
-        dx = torch.where(torch.isfinite(dx), dx, 0.0)
-        R_new, t_new = lie.se3_retract(R, t, dx)
-        conv_new = ok & (_step_norm(dx) < opts.eps) & (not warm)
+        R_new, t_new, conv_new = kernels.gn_step(dx, ok, R, t, opts.eps, not warm)
         # a lane that has stopped keeps its state
         R = torch.where(active[:, None, None], R_new, R)
         t = torch.where(active[:, None], t_new, t)
@@ -789,7 +776,7 @@ def scan_match_batch(targets: IcpTarget, opts: IcpOptions, srcs: PointCloud, R0,
         active = active & ~converged
         if not bool(active.any()):     # the one host read per iteration
             break
-    return MatchResult(R=lie.so3_renormalize(R), t=t, converged=converged,
+    return MatchResult(R=kernels.so3_renormalize(R), t=t, converged=converged,
                        num_effective=n_eff, iterations=iterations, chi2=chi2)
 
 

@@ -26,8 +26,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops.pointcloud import PointCloud
-from ..ops import voxel
-from ..utils import lie, mathx
+from ..ops import kernels, voxel
+from ..utils import mathx
 from . import icp
 
 
@@ -189,12 +189,10 @@ def scan_match(target: LoamTarget, opts: LoamOption, edge_src: PointCloud,
             Hk, bk, nk, ck = icp.compute_h_and_b(tgt, o, src, R, t)
             H, b, n_eff, chi2 = H + Hk, b + bk, n_eff + nk, chi2 + ck
         ok = n_eff >= min_eff
-        dx = torch.where(ok, mathx.solve_gn_6x6(H, b), 0.0)
-        dx = torch.where(torch.isfinite(dx), dx, 0.0)
-        R, t = lie.se3_retract(R, t, dx)
-        converged = ok & (torch.sqrt(torch.sum(dx * dx)) < opts.eps)
+        # filters, retraction and stop test: one launch (kernels.gn_step)
+        R, t, converged = kernels.gn_step(mathx.solve_gn_6x6(H, b), ok, R, t, opts.eps, True)
         it += 1
         if bool(converged):     # the one host sync per iteration
             break
-    return icp.MatchResult(R=lie.so3_renormalize(R), t=t, converged=converged,
+    return icp.MatchResult(R=kernels.so3_renormalize(R), t=t, converged=converged,
                            num_effective=n_eff, iterations=it, chi2=chi2)

@@ -397,15 +397,13 @@ def scan_match(m: NdtMap, opts: NdtOptions, src: PointCloud, R0, t0) -> MatchRes
         # weighted: per-residual count; direct: every source point (quirk)
         n_eff = n_res if weighted else src.count()
         ok = n_eff >= opts.min_effective_pts
-        dx = torch.where(ok, mathx.solve_gn_6x6(H, b), 0.0)
-        dx = torch.where(torch.isfinite(dx), dx, 0.0)
-        R, t = lie.se3_retract(R, t, dx)
-        converged = ok & (torch.sqrt(torch.sum(dx * dx)) < opts.eps)
+        # filters, retraction and stop test: one launch (kernels.gn_step)
+        R, t, converged = kernels.gn_step(mathx.solve_gn_6x6(H, b), ok, R, t, opts.eps, True)
         it += 1
         if bool(converged):     # the one host sync per iteration
             break
-    # pin the output on SO(3) (lie.so3_renormalize)
-    return MatchResult(R=lie.so3_renormalize(R), t=t, converged=converged,
+    # pin the output on SO(3)
+    return MatchResult(R=kernels.so3_renormalize(R), t=t, converged=converged,
                        num_effective=n_res, iterations=it, chi2=chi2)
 
 

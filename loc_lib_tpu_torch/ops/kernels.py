@@ -37,6 +37,14 @@ over B independent matches (every argument with a leading B axis) in ONE
 launch, the form the reference runs under `jax.vmap`. Lane b of the results
 has the bits of the scalar call on lane b's inputs.
 
+*The pose update* (`gn_step`, `so3_renormalize`, csrc/gn_update.cu): the
+filters, retraction and stop test that follow the 6x6 solve of a
+Gauss-Newton iteration, and the projection of the final rotation onto SO(3),
+one elementwise launch each, one thread a match, for the scalar and the
+batched loop alike. In the reference these operations are part of the
+while_loop's fused program (loc_lib_tpu/models/icp.py, the body of
+scan_match); as torch ops they were ~45 and ~18 launches.
+
 `LAUNCHES` counts kernel launches per kernel (never plain-version calls),
 so a run can show that its main path went through the kernels. Each call is
 ONE launch, a batched call too: the last block of a lane to finish reduces
@@ -56,9 +64,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import lie
 from . import voxel
 
-LAUNCHES = {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0, "ndt_fused_terms": 0}
+LAUNCHES = {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0, "ndt_fused_terms": 0,
+            "gn_step": 0, "so3_renormalize": 0}
 
 
 def reset_launch_counts() -> None:
@@ -387,13 +397,35 @@ def p2line_from_target_terms_plain(q, mask, R, t, gate, line_packed, index: Targ
     return _split(A.T @ A)
 
 
+def gn_step_plain(dx, ok, R, t, eps: float, may_converge: bool):
+    """The pose update of one GN iteration, over any leading axes: dx
+    (..., 6) the solve's step, ok (...,) bool (enough effective points), R
+    (..., 3, 3), t (..., 3). A step that is not ok, and any non-finite entry,
+    counts as 0; R <- R exp(dx[:3]), t <- t + dx[3:]; converged = ok and
+    |dx| < eps, never while `may_converge` is False (the gate warm-up).
+    The 3x3 products are lie.matmul3, so a lane's bits do not depend on the
+    batch it is in. Returns (R, t, converged)."""
+    dx = torch.where(ok[..., None], dx, 0.0)
+    dx = torch.where(torch.isfinite(dx), dx, 0.0)
+    R_new, t_new = lie.se3_retract(R, t, dx, matmul=lie.matmul3)
+    if not may_converge:
+        return R_new, t_new, torch.zeros_like(ok)
+    return R_new, t_new, ok & (torch.sqrt(torch.sum(dx * dx, dim=-1)) < eps)
+
+
+def so3_renormalize_plain(R):
+    """lie.so3_renormalize with the batch-independent 3x3 product."""
+    return lie.so3_renormalize(R, matmul=lie.matmul3)
+
+
 # ---------------------------------------------------------------------------
 # Build and load (first use only)
 # ---------------------------------------------------------------------------
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 HEADER = "fused_terms.cuh"
-UNITS = ("p2plane_fused_terms.cu", "p2plane_pick_fused_terms.cu", "ndt_fused_terms.cu")
+UNITS = ("p2plane_fused_terms.cu", "p2plane_pick_fused_terms.cu", "ndt_fused_terms.cu",
+         "gn_update.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v", "-lineinfo")
 
@@ -472,7 +504,11 @@ def _bind(cdll: ctypes.CDLL) -> None:
     # R, t, th, weighted, S, trunc / R, t, th
     cdll.ndt_from_map_launch.argtypes = [vp, vp, vp, *index, vp, vp, cf, ci, ci, ci, *tail]
     cdll.p2line_from_target_launch.argtypes = [vp, vp, vp, *index, vp, vp, cf, *tail]
-    for fn in (cdll.p2plane_fused_terms_launch, cdll.p2plane_pick_fused_terms_launch,
+    # dx, ok, R, t, eps, may_converge, lanes, R_out, t_out, converged, stream
+    cdll.gn_step_launch.argtypes = [vp, vp, vp, vp, cf, ci, ci, vp, vp, vp, vp]
+    cdll.so3_renormalize_launch.argtypes = [vp, ci, vp, vp]      # R, lanes, R_out, stream
+    for fn in (cdll.gn_step_launch, cdll.so3_renormalize_launch,
+               cdll.p2plane_fused_terms_launch, cdll.p2plane_pick_fused_terms_launch,
                cdll.p2plane_from_target_launch, cdll.p2plane_pick_from_target_launch,
                cdll.p2plane_from_target_batch_launch,
                cdll.p2plane_pick_from_target_batch_launch, cdll.ndt_fused_terms_launch,
@@ -852,6 +888,56 @@ def p2plane_fused_terms_from_target_batch(q, mask, R, t, gate, packed_ext, oct_t
                    oct_table.data_ptr(), oct_table.shape[1], *_index_args(index, dev, (B,)),
                    *pose, active_ptr, B), n, dev, lanes=B)
     LAUNCHES["p2plane_fused_terms"] += 1
+    return out
+
+
+def _raise_on(fn_name, err):
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {err}: "
+                           f"{build().cdll.loc_fused_error_string(err).decode()}")
+
+
+def gn_step(dx, ok, R, t, eps: float, may_converge: bool):
+    """The pose update of one GN iteration in ONE launch, for one match (dx
+    (6,), ok (), R (3, 3), t (3,)) or B of them (a leading B axis on each):
+    see `gn_step_plain`, which CPU tensors take. Float32 tensors (a strided
+    one is copied) and a bool `ok`, as the solve and the fused-terms kernels
+    hand them over.
+    Returns (R, t, converged), new tensors of the inputs' shapes. Its results
+    are three allocations, not views of one: three `empty_like` cost the host
+    less than one allocation and two slice-and-view pairs."""
+    if dx.device.type == "cpu":
+        return gn_step_plain(dx, ok, R, t, eps, may_converge)
+    dev = _device_of(dx)
+    lanes = dx.shape[:-1]
+    # a batched solve hands its steps over strided: the copy is per call
+    dx, R, t = _f32_on(dx, dev), _f32_on(R, dev), _f32_on(t, dev)
+    _check("dx", dx, (*lanes, 6), dev)
+    _check("ok", ok, lanes, dev, dtype=torch.bool)
+    _check("R", R, (*lanes, 3, 3), dev)
+    _check("t", t, (*lanes, 3), dev)
+    R_new, t_new, converged = torch.empty_like(R), torch.empty_like(t), torch.empty_like(ok)
+    _raise_on("gn_step_launch", build().cdll.gn_step_launch(
+        dx.data_ptr(), ok.data_ptr(), R.data_ptr(), t.data_ptr(), eps, 1 if may_converge else 0,
+        ok.numel(), R_new.data_ptr(), t_new.data_ptr(), converged.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev.index)))
+    LAUNCHES["gn_step"] += 1
+    return R_new, t_new, converged
+
+
+def so3_renormalize(R):
+    """lie.so3_renormalize (two Newton-Schulz iterations) in ONE launch, for
+    R (3, 3) or (B, 3, 3); CPU tensors take `so3_renormalize_plain`."""
+    if R.device.type == "cpu":
+        return so3_renormalize_plain(R)
+    dev = _device_of(R)
+    R = _f32_on(R, dev)
+    _check("R", R, (*R.shape[:-2], 3, 3), dev)
+    out = torch.empty_like(R)
+    _raise_on("so3_renormalize_launch", build().cdll.so3_renormalize_launch(
+        R.data_ptr(), R.numel() // 9, out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev.index)))
+    LAUNCHES["so3_renormalize"] += 1
     return out
 
 

@@ -42,7 +42,11 @@ def matmul3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     R @ so3_exp(w) and so3_renormalize differ between the two, and the
     batched route's bits depend on B); here a matrix's bits do not depend on
     how many others are multiplied with it, which is what lets a batched
-    match equal B scalar ones bit for bit."""
+    match equal B scalar ones bit for bit. It is three launches where `@` is
+    one, so it is the product of the plain versions of the pose-update
+    kernels (ops/kernels.py: `gn_step_plain`, `so3_renormalize_plain`) and
+    of nothing that runs on the card: `so3_exp`, `se3_retract` and
+    `so3_renormalize` take it as `matmul=` and default to `@`."""
     P = A[..., :, :, None] * B[..., None, :, :]        # P[..., i, k, j] = a_ik b_kj
     return (P[..., :, 0, :] + P[..., :, 1, :]) + P[..., :, 2, :]
 
@@ -51,7 +55,7 @@ def _eye_like(W: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
 
 
-def so3_exp(w: torch.Tensor) -> torch.Tensor:
+def so3_exp(w: torch.Tensor, matmul=torch.matmul) -> torch.Tensor:
     """Rodrigues formula, (..., 3) -> (..., 3, 3); Taylor-safe near 0."""
     theta2 = torch.sum(w * w, dim=-1)
     small = theta2 < 1e-8
@@ -61,7 +65,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     b = torch.where(small, 0.5 - theta2 / 24.0,
                     (1.0 - torch.cos(theta_safe)) / theta2_safe)
     W = hat(w)
-    W2 = matmul3(W, W)
+    W2 = matmul(W, W)
     return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * W2
 
 
@@ -114,19 +118,19 @@ def se3_inverse(R, t):
     return Rt, -_matvec(Rt, t)
 
 
-def se3_retract(R, t, dx):
+def se3_retract(R, t, dx, matmul=torch.matmul):
     """The reference GN update: right-multiply SO3 by exp(dx[:3]), add dx[3:]
     to the translation."""
-    return matmul3(R, so3_exp(dx[..., :3])), t + dx[..., 3:]
+    return matmul(R, so3_exp(dx[..., :3], matmul)), t + dx[..., 3:]
 
 
-def so3_renormalize(R: torch.Tensor) -> torch.Tensor:
+def so3_renormalize(R: torch.Tensor, matmul=torch.matmul) -> torch.Tensor:
     """Project a near-rotation matrix back onto SO(3) (two Newton-Schulz
     polar iterations). Every matcher projects its output rotation once per
     solve so float32 retraction defects cannot feed back through the
     constant-velocity / ESKF prediction and grow."""
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
     for _ in range(2):
-        RtR = matmul3(R.transpose(-1, -2), R)
-        R = 0.5 * matmul3(R, 3.0 * eye - RtR)
+        RtR = matmul(R.transpose(-1, -2), R)
+        R = 0.5 * matmul(R, 3.0 * eye - RtR)
     return R

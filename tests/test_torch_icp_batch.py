@@ -6,9 +6,10 @@ Stated tolerances:
   * port batch against port scalar: BIT-IDENTICAL lane by lane (R, t,
     converged, num_effective, chi2, iterations), the reference's contract
     (tests/test_icp.py:470 asserts it for JAX). On the CPU a lane's
-    linearization is the kernel's plain version; the 6x6 solve, the
-    retraction (lie.matmul3), the stop test (icp._step_norm) and the final
-    projection are written so that a lane's bits do not depend on B;
+    linearization is the kernel's plain version; the 6x6 solve, and the
+    plain versions of the pose update and the final projection
+    (kernels.gn_step_plain, so3_renormalize_plain, on lie.matmul3) are
+    written so that a lane's bits do not depend on B;
   * port batch against JAX's batch on stacked targets carried across with
     io/convert: equal iterations and effective counts, pose within 1e-4 rad
     / 1e-4 m, the scalar parity rule of test_torch_icp.py;

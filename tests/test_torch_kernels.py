@@ -282,8 +282,10 @@ def test_cpu_tensors_never_touch_launch_counters():
     tgt, opts, src, R, t = _vox_case("p2plane_vox_oct", 512)
     for method in ("p2plane_vox", "p2plane_vox_oct"):
         icp.compute_h_and_b(tgt, icp.IcpOptions(method=method, dense_dims=DIMS), src, R, t)
+    kernels.gn_step(torch.zeros(6), torch.ones((), dtype=torch.bool), R, t, 1e-3, True)
+    kernels.so3_renormalize(R)
     assert kernels.LAUNCHES == {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0,
-                                "ndt_fused_terms": 0}
+                                "ndt_fused_terms": 0, "gn_step": 0, "so3_renormalize": 0}
 
 
 def test_non_cpu_non_cuda_tensors_raise():
@@ -782,3 +784,74 @@ def test_batched_wrappers_check_their_shapes_before_any_launch():
         kernels.p2plane_pick_fused_terms_from_target_batch(*args)
     assert 64 * kernels.num_blocks(2048) * kernels.ENTRIES * 4 == 147456
     assert kernels.MAX_LANES == 65535
+
+
+def _gn_step_case(B, seed=21):
+    """B pose updates: small steps, lane 1 not ok, lane 2 with a non-finite
+    entry, lane 3 under eps, lane 4 a zero step."""
+    rng = np.random.default_rng(seed)
+    R = np.stack([oracles.so3_exp(rng.normal(size=3) * 0.3) for _ in range(B)]).astype(np.float32)
+    t = rng.normal(size=(B, 3)).astype(np.float32)
+    dx = rng.normal(scale=0.02, size=(B, 6)).astype(np.float32)
+    ok = np.ones(B, bool)
+    if B > 4:
+        ok[1] = False
+        dx[2, 4] = np.inf
+        dx[3] *= 1e-4
+        dx[4] = 0.0
+    return R, t, dx, ok
+
+
+@pytest.mark.parametrize("may_converge", [True, False])
+def test_gn_step_plain_matches_the_reference_loop_body(may_converge):
+    """kernels.gn_step on the CPU (its plain version) against the JAX GN
+    body it replaces (loc_lib_tpu/models/icp.py, scan_match's while_loop:
+    the two `where` filters, lie.se3_retract, the step norm and the stop
+    test): R within 1e-6, t exact to 1e-7, converged equal."""
+    from loc_lib_tpu.utils import lie as jlie
+
+    eps = 1e-3
+    R, t, dx, ok = _gn_step_case(16)
+    R_new, t_new, conv = kernels.gn_step(*_t(dx, ok, R, t), eps, may_converge)
+    jdx = jnp.where(jnp.asarray(ok)[:, None], jnp.asarray(dx), 0.0)
+    jdx = jnp.where(jnp.isfinite(jdx), jdx, 0.0)
+    jR, jt = jlie.se3_retract(jnp.asarray(R), jnp.asarray(t), jdx)
+    jconv = jnp.asarray(ok) & (jnp.linalg.norm(jdx, axis=-1) < eps) & may_converge
+    np.testing.assert_allclose(R_new.numpy(), np.asarray(jR), atol=1e-6)
+    np.testing.assert_allclose(t_new.numpy(), np.asarray(jt), atol=1e-7)
+    assert conv.tolist() == np.asarray(jconv).tolist()
+    assert conv.tolist()[:5] == [False, False, False, may_converge, may_converge]
+    # the step that is not ok leaves its pose where it was
+    assert torch.equal(t_new[1], torch.from_numpy(t[1]))
+    np.testing.assert_allclose(R_new[1].numpy(), R[1], atol=1e-7)
+    assert torch.isfinite(R_new).all() and torch.isfinite(t_new).all()
+
+
+def test_pose_update_plain_lanes_do_not_depend_on_the_batch():
+    """Lane k of gn_step and so3_renormalize on a (B, ...) batch has the bits
+    of the call on lane k alone (B = 1, 3, 64), and so3_renormalize agrees
+    with the JAX package's within 1e-6."""
+    from loc_lib_tpu.utils import lie as jlie
+
+    R, t, dx, ok = _t(*_gn_step_case(64))
+    for nb in (1, 3, 64):
+        Rb, tb, cb = kernels.gn_step(dx[:nb], ok[:nb], R[:nb], t[:nb], 1e-3, True)
+        Rn = kernels.so3_renormalize(Rb)
+        for k in range(nb):
+            Rk, tk, ck = kernels.gn_step(dx[k], ok[k], R[k], t[k], 1e-3, True)
+            assert torch.equal(Rb[k], Rk) and torch.equal(tb[k], tk) and bool(cb[k]) == bool(ck)
+            assert torch.equal(Rn[k], kernels.so3_renormalize(Rk))
+    noisy = R + 1e-3 * torch.randn(R.shape, generator=torch.Generator().manual_seed(0))
+    np.testing.assert_allclose(kernels.so3_renormalize(noisy).numpy(),
+                               np.asarray(jlie.so3_renormalize(jnp.asarray(noisy.numpy()))),
+                               atol=1e-6)
+
+
+def test_pose_update_wrappers_refuse_other_devices_and_shapes():
+    """gn_step / so3_renormalize take the plain version only for CPU
+    tensors: a meta tensor raises before any build or launch."""
+    R, t, dx, ok = (x.to("meta") for x in _t(*_gn_step_case(3)))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        kernels.gn_step(dx, ok, R, t, 1e-3, True)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        kernels.so3_renormalize(R)

@@ -176,11 +176,13 @@ def test_neighbour_fits_match_jax(fit):
 
 def test_matmul3_solve_and_retract_do_not_depend_on_the_batch():
     """What lets a batched match equal B scalar ones bit for bit: lane k of
-    lie.matmul3, so3_exp, se3_retract, so3_renormalize and
+    lie.matmul3, of so3_exp, se3_retract and so3_renormalize taken with it
+    (as the pose-update plain versions take them), and of
     mathx.solve_gn_6x6 on a (B, ...) batch has the bits of the call on lane
     k alone, for B = 1, 3 and 64; and matmul3 is the matrix product (1e-6)."""
     rng = np.random.default_rng(8)
     B = 64
+    mm = lie.matmul3
     R = lie.so3_exp(_t(rng.normal(scale=0.5, size=(B, 3))))
     t = _t(rng.normal(size=(B, 3)))
     dx = _t(rng.normal(scale=0.02, size=(B, 6)))
@@ -190,12 +192,30 @@ def test_matmul3_solve_and_retract_do_not_depend_on_the_batch():
     np.testing.assert_allclose(lie.matmul3(R, R.transpose(-1, -2)).numpy(),
                                (R @ R.transpose(-1, -2)).numpy(), atol=1e-6)
     for nb in (1, 3, B):
-        Rb, tb = lie.se3_retract(R[:nb], t[:nb], dx[:nb])
-        Rn = lie.so3_renormalize(Rb)
+        Rb, tb = lie.se3_retract(R[:nb], t[:nb], dx[:nb], mm)
+        Rn = lie.so3_renormalize(Rb, mm)
         sol = mathx.solve_gn_6x6(H[:nb], b[:nb])
         for k in range(nb):
-            Rk, tk = lie.se3_retract(R[k], t[k], dx[k])
+            Rk, tk = lie.se3_retract(R[k], t[k], dx[k], mm)
             assert torch.equal(Rb[k], Rk) and torch.equal(tb[k], tk)
-            assert torch.equal(Rn[k], lie.so3_renormalize(Rk))
+            assert torch.equal(Rn[k], lie.so3_renormalize(Rk, mm))
             assert torch.equal(sol[k], mathx.solve_gn_6x6(H[k], b[k]))
-            assert torch.equal(lie.so3_exp(dx[:nb, :3])[k], lie.so3_exp(dx[k, :3]))
+            assert torch.equal(lie.so3_exp(dx[:nb, :3], mm)[k], lie.so3_exp(dx[k, :3], mm))
+
+
+def test_lie_products_default_to_the_library_matmul():
+    """so3_exp, se3_retract and so3_renormalize multiply with `@` unless a
+    product is passed (one launch a product on the card, where the
+    op-by-op lie.matmul3 is three); both agree to 1e-6 and match JAX."""
+    rng = np.random.default_rng(9)
+    w = rng.normal(scale=0.5, size=(16, 3)).astype(np.float32)
+    dx = rng.normal(scale=0.05, size=(16, 6)).astype(np.float32)
+    R = lie.so3_exp(_t(w))
+    np.testing.assert_allclose(R.numpy(), np.asarray(jlie.so3_exp(jnp.asarray(w))), atol=1e-6)
+    np.testing.assert_allclose(R.numpy(), lie.so3_exp(_t(w), lie.matmul3).numpy(), atol=1e-6)
+    Rr, tr = lie.se3_retract(R, _t(w), _t(dx))
+    assert torch.equal(Rr, R @ lie.so3_exp(_t(dx)[:, :3]))
+    assert torch.equal(lie.so3_renormalize(Rr),
+                       lie.so3_renormalize(Rr, torch.matmul))
+    np.testing.assert_allclose(lie.so3_renormalize(Rr).numpy(),
+                               lie.so3_renormalize(Rr, lie.matmul3).numpy(), atol=1e-6)
