@@ -27,7 +27,15 @@ icp.scan_match_batch with p2plane_vox and p2plane_vox_oct: one kernel launch
 per Gauss-Newton iteration for all lanes, every lane bit-equal to its scalar
 scan_match, the chunked call equal to the direct one, every converged lane
 under 3 cm, and matches per second at B = 1, 8 and 64. One frozen-election
-match and one match of each knn method run on the card too. Launch counters,
+match and one match of each knn method run on the card too. Then 3D SLAM
+(phase 10): Slam3d.add_measure over bench_suite.py's slam3d_loop cell (92
+frames, two laps of a circle, ScanContext top-3 candidates re-registered as
+one batched match on K2-batch, the two-phase pose graph, the write-back):
+an inlier loop, the keyframe ATE lowered by the pose graph and within its
+bound, never LOST, one batched launch per GN iteration of every loop
+registration, two runs bit-equal; the default loop registration
+(p2plane_vox_oct: K1 and K1-batch) at 46 frames; and the pose graph at
+4,096 nodes and 512 loop edges. Launch counters,
 set to 0 before each path and read after
 it, show each path went through its kernels (one K3 launch per NDT or
 p2line_vox linearization). Then it compares a match with
@@ -89,6 +97,15 @@ BATCH_SOURCE_POINTS = 2048
 BATCH_INIT_SIGMA_M = 0.05
 BATCH_TAIL_M = 0.03       # every converged lane within 3 cm of the ground truth
 BATCH_MIN_MEDIAN_EFFECTIVE = 700
+# 3D SLAM: bench_suite.py's slam3d_loop cell (two laps of a circle)
+SLAM_FRAMES = 92
+SLAM_CAPACITY = 2048
+SLAM_SHORT_FRAMES = 46
+# the JAX package's keyframe ATE after the pose graph on the same workload
+# (one CPU run, PERF.md section 2) plus 0.04 m, the section's rule
+ATE_LIMIT_SLAM_M = 0.045000 + 0.04
+PGO_NODES = 4096          # Slam3dOptions.sc_capacity
+PGO_LOOPS = 512           # LoopOptions.max_loops
 
 
 def _so3_exp(w):
@@ -2158,12 +2175,26 @@ def phase_rest_of_icp(device, card, workload):
           f"[{card}]: " + "; ".join(out), flush=True)
 
 
+def _count_syncs(fn):
+    """Host synchronizations while `fn` runs (torch.cuda.set_sync_debug_mode
+    warnings), and its result."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return len([w for w in caught if "synchroniz" in str(w.message)]), out
+
+
 def phase_lio_syncs(device, card):
     """Host synchronizations per LIO scan (matcher icp, ESKF on): the
     warnings torch.cuda.set_sync_debug_mode("warn") raises over frames 4-11
     of a 12-frame run, per scan."""
-    import warnings
-
     from loc_lib_tpu_torch.pipeline import lio
 
     log = demo_log(12)
@@ -2174,18 +2205,13 @@ def phase_lio_syncs(device, card):
     scans = [log.frame(mg.scan_index, device) for mg in mgs]
     for mg, scan in zip(mgs[:4], scans):
         eng.add_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            for mg, scan in zip(mgs[4:], scans[4:]):
-                eng.add_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "synchroniz" in str(w.message)]
-    per_scan = len(syncs) / len(mgs[4:])
-    print(f"phase 5 host synchronizations per LIO icp scan: {per_scan:.1f} ({len(syncs)} over "
+
+    def rest():
+        for mg, scan in zip(mgs[4:], scans[4:]):
+            eng.add_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+    n_syncs, _ = _count_syncs(rest)
+    per_scan = n_syncs / len(mgs[4:])
+    print(f"phase 5 host synchronizations per LIO icp scan: {per_scan:.1f} ({n_syncs} over "
           f"frames 4-{len(mgs) - 1}, torch.cuda.set_sync_debug_mode) [{card}]", flush=True)
     return per_scan
 
@@ -2220,6 +2246,315 @@ def phase_kernel_device_times(card, calls):
               if ms is None else f"{k} {ms:.4f} ms in {n:.0f} launches"
               for k, (ms, n) in dev.items()), flush=True)
     return {k: v[0] for k, v in dev.items()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: 3D SLAM
+# ---------------------------------------------------------------------------
+
+def slam3d_log(frames):
+    """bench_suite.py:497's log: two laps of a circle (dt 0.2 s, 1.4 m/s, yaw
+    rate 0.72 rad/s) through a 60,000-point world of extent 16 m, scans of
+    2,048 points out to 14 m, IMU on."""
+    from loc_lib_tpu_torch.io import logdir
+
+    return logdir.make_demo_log(num_frames=frames, capacity=SLAM_CAPACITY, dt=0.2, speed=1.4,
+                                yaw_rate=0.72, world_points=60000, extent=16.0, max_range=14.0)
+
+
+def slam3d_options(loop_icp=None, sc_topk=3):
+    """bench_suite.py:505-517's configuration: LIO icp / p2plane_vox + ESKF
+    (3 keyframes in the local map, 0.4 m keyframe gate), ScanContext with
+    an 8-keyframe exclusion and a 0.25 gate, loops gated at 60 effective
+    points and 0.1 m^2, sc_topk 3, p2plane_vox loop registration (20
+    iterations, 0.5 m gate, 2 m leaves); `loop_icp` replaces the latter."""
+    from loc_lib_tpu_torch.graph import scan_context as sc
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.pipeline import lio, slam3d
+
+    if loop_icp is None:
+        loop_icp = icp.IcpOptions(method="p2plane_vox", max_iteration=20, max_plane_distance=0.5,
+                                  grid_leaf=2.0, plane_min_pts=4)
+    return slam3d.Slam3dOptions(
+        lio=lio.LioOptions(matcher="icp", icp=icp.IcpOptions(method="p2plane_vox"),
+                           scan_capacity=SLAM_CAPACITY, with_eskf=True, kf_distance=0.4,
+                           num_kfs_in_local_map=3),
+        sc=sc.ScanContextOptions(exclude_recent=8, dist_threshold=0.25),
+        loop=slam3d.LoopOptions(min_keyframe_gap=8, max_candidate_dist=10.0,
+                                min_effective_pts=60, max_chi2_per_pt=0.1, optimize_every=100,
+                                sc_topk=sc_topk),
+        loop_icp=loop_icp)
+
+
+class _BatchSpy:
+    """Wraps icp.scan_match_batch while a 3D SLAM run is driven: every
+    batched loop registration must launch its batched kernel `kernel` (and
+    gn_step) exactly once per GN iteration for all lanes. Records, per call,
+    lanes, iterations and launches."""
+
+    def __init__(self, kernel):
+        from loc_lib_tpu_torch.models import icp
+        from loc_lib_tpu_torch.ops import kernels
+
+        self.icp, self.kernels, self.kernel = icp, kernels, kernel
+        self.orig = icp.scan_match_batch
+        self.calls = []
+
+    def __call__(self, targets, opts, srcs, R0, t0):
+        before = dict(self.kernels.LAUNCHES)
+        res = self.orig(targets, opts, srcs, R0, t0)
+        it = int(res.iterations.max())
+        got = {k: self.kernels.LAUNCHES[k] - before[k] for k in (self.kernel, "gn_step")}
+        if got[self.kernel] != it or got["gn_step"] != it:
+            raise AssertionError(f"batched loop registration: {got} launches for {it} GN "
+                                 f"iterations of {R0.shape[0]} lanes")
+        self.calls.append((R0.shape[0], it))
+        return res
+
+    def __enter__(self):
+        self.icp.scan_match_batch = self
+        return self
+
+    def __exit__(self, *exc):
+        self.icp.scan_match_batch = self.orig
+
+
+def drive_slam3d(device, opts, log):
+    """Slam3d.add_measure over the log after a static IMU init from the first
+    150 samples, then optimize() twice. Returns a dict: engine, per-scan ms,
+    whether each scan ran a loop registration, ms per registration, keyframe
+    ATE before / after the pose graph, first and second optimize() ms, the
+    keyframe poses after the first one."""
+    from loc_lib_tpu_torch.eval import metrics
+    from loc_lib_tpu_torch.pipeline import slam3d
+
+    eng = slam3d.Slam3d(opts, device=device)
+    for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
+        eng.init_imu(g, a, t)
+    if not eng.imu_inited:
+        raise AssertionError("static IMU init failed")
+    reg_ms, register = [], eng._register_loops
+
+    def timed_register(cands, kf_id, scan):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = register(cands, kf_id, scan)
+        torch.cuda.synchronize()
+        reg_ms.append((time.perf_counter() - t0) * 1e3)
+        return n
+
+    eng._register_loops = timed_register
+    times, event = [], []
+    for mg in log.measures(imu_capacity=64):
+        scan = log.frame(mg.scan_index, device)
+        n_reg = len(reg_ms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.add_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        event.append(len(reg_ms) > n_reg)
+        if eng.lio.health.status == eng.lio.health.LOST:
+            raise AssertionError(f"3D SLAM: tracking health LOST at frame {mg.scan_index}")
+    kf_gt = log.gt_poses[np.asarray(eng.kf_frame)]
+    before = metrics.ate(eng.keyframe_poses(), kf_gt).rmse
+    opt_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not eng.optimize():
+            raise AssertionError("3D SLAM: optimize() did not run")
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(opt_ms) == 1:
+            poses = eng.keyframe_poses()
+            cg = eng.cg_iterations
+    after = metrics.ate(poses, kf_gt).rmse
+    return {"engine": eng, "times": np.asarray(times), "event": np.asarray(event),
+            "reg_ms": reg_ms, "before": before, "after": after, "opt_ms": opt_ms,
+            "poses": poses, "cg": cg}
+
+
+def _loops_line(run):
+    eng = run["engine"]
+    return (f"{len(eng.kf_R)} keyframes, {len(eng.loops)} loops accepted, "
+            f"{int(eng.loop_inliers.sum())} inliers")
+
+
+def phase_slam3d(device, card):
+    """10a, the slam3d_loop cell uncut: 92 frames, scan capacity 2048, LIO
+    icp / p2plane_vox + ESKF, sc_topk 3, sc_capacity 4096, max_loops 512,
+    p2plane_vox loop registration (K2-batch). Fails unless a loop with an
+    inlier was accepted, optimize() ran, the keyframe ATE after the pose
+    graph is below the ATE before it and within ATE_LIMIT_SLAM_M, health was
+    never LOST, every batched registration launched K2-batch once per GN
+    iteration, and a second run gives the same keyframe poses bit for bit.
+    Returns (the second run's engine, the first run's launch counts)."""
+    from loc_lib_tpu_torch.ops import kernels
+
+    log = slam3d_log(SLAM_FRAMES)
+    opts = slam3d_options()
+    kernels.reset_launch_counts()
+    with _BatchSpy("p2plane_pick_fused_terms") as spy:
+        run = drive_slam3d(device, opts, log)
+    counts = dict(kernels.LAUNCHES)
+    eng = run["engine"]
+    if not spy.calls:
+        raise AssertionError("3D SLAM: no batched loop registration ran")
+    if not (len(eng.loops) >= 1 and int(eng.loop_inliers.sum()) >= 1):
+        raise AssertionError(f"3D SLAM: {_loops_line(run)}")
+    if not (run["after"] < run["before"] and run["after"] <= ATE_LIMIT_SLAM_M):
+        raise AssertionError(f"3D SLAM: keyframe ATE {run['before']:.4f} -> {run['after']:.4f} m "
+                             f"(bound {ATE_LIMIT_SLAM_M:.4f})")
+    with _BatchSpy("p2plane_pick_fused_terms"):
+        again = drive_slam3d(device, opts, log)
+    if not np.array_equal(again["poses"], run["poses"]):
+        gap = np.abs(again["poses"] - run["poses"]).max()
+        raise AssertionError(f"3D SLAM: two runs differ after optimize() by {gap:.3g}")
+    syncs, _ = _count_syncs(again["engine"].optimize)
+    t, ev = run["times"], run["event"]
+    print(f"phase 10a slam3d_loop ({SLAM_FRAMES} frames, capacity {SLAM_CAPACITY}, sc_topk 3, "
+          f"p2plane_vox loop registration) [{card}]: {_loops_line(run)}; keyframe ATE "
+          f"{run['before']:.4f} -> {run['after']:.4f} m after the pose graph (bound "
+          f"{ATE_LIMIT_SLAM_M:.4f}), health {eng.lio.health.status}; p50 per scan "
+          f"{np.percentile(t[~ev], 50):.2f} ms without a loop event ({int((~ev).sum())} scans), "
+          f"{np.percentile(t[ev], 50):.2f} ms with one ({int(ev.sum())}); "
+          f"{np.median(run['reg_ms']):.2f} ms per loop registration (median of "
+          f"{len(run['reg_ms'])}; {len(spy.calls)} batched, lanes x iterations "
+          f"{sorted(set(spy.calls))}, one K2-batch and one gn_step launch per GN iteration); "
+          f"optimize() first {run['opt_ms'][0]:.1f} ms, second {run['opt_ms'][1]:.1f} ms, "
+          f"{run['cg']} PCG iterations in the first, {syncs} host syncs in a third; "
+          f"a second run gives the same keyframe poses bit for bit (host clock)", flush=True)
+    return again["engine"], counts
+
+
+def phase_slam3d_default_loop_icp(device, card):
+    """10b: the same log at 46 frames with Slam3dOptions()'s loop_icp
+    (p2plane_vox_oct), at sc_topk 1 (scalar K1 in the pipeline) and 3
+    (K1-batch, and scalar K1 where one candidate survives). Returns the K1
+    launches of both runs."""
+    from loc_lib_tpu_torch.ops import kernels
+    from loc_lib_tpu_torch.pipeline import slam3d
+
+    log = slam3d_log(SLAM_SHORT_FRAMES)
+    total = 0
+    for topk in (1, 3):
+        kernels.reset_launch_counts()
+        with _BatchSpy("p2plane_fused_terms") as spy:
+            run = drive_slam3d(device, slam3d_options(slam3d.Slam3dOptions().loop_icp, topk), log)
+        k1 = kernels.LAUNCHES["p2plane_fused_terms"]
+        if k1 <= 0 or (topk == 3) != bool(spy.calls):
+            raise AssertionError(f"10b sc_topk {topk}: {k1} K1 launches, {len(spy.calls)} "
+                                 "batched registrations")
+        total += k1
+        print(f"phase 10b default loop_icp (p2plane_vox_oct), {SLAM_SHORT_FRAMES} frames, "
+              f"sc_topk {topk} [{card}]: {_loops_line(run)}; keyframe ATE {run['before']:.4f} "
+              f"-> {run['after']:.4f} m; {k1} K1 launches ({len(spy.calls)} batched "
+              f"registrations, each one K1-batch launch per GN iteration); "
+              f"{np.median(run['reg_ms']):.2f} ms per loop registration", flush=True)
+    return total
+
+
+def pgo_graph(device):
+    """tests/test_graph.py:140's graph: 4,096 poses on four laps of a 30 m
+    circle, odometry drifted by N(0, 1 cm) a step, 512 loop edges one lap
+    apart (true relative poses), information 1e4."""
+    from loc_lib_tpu_torch.graph import pose_graph as pg
+    from loc_lib_tpu_torch.utils import lie
+
+    rng = np.random.default_rng(11)
+    m = PGO_NODES
+    ang = np.linspace(0, 8 * np.pi, m)
+    t_gt = np.stack([np.cos(ang) * 30, np.sin(ang) * 30, np.zeros(m)], axis=1)
+    w = np.zeros((m, 3), np.float32)
+    w[:, 2] = ang % (2 * np.pi)
+    R_gt = lie.so3_exp(torch.from_numpy(w)).numpy()
+    R_est, t_est = [R_gt[0]], [t_gt[0].astype(np.float32)]
+    for i in range(1, m):
+        trel = R_gt[i - 1].T @ (t_gt[i] - t_gt[i - 1]) + rng.normal(0, 0.01, 3)
+        R_est.append((R_est[-1] @ (R_gt[i - 1].T @ R_gt[i])).astype(np.float32))
+        t_est.append((t_est[-1] + R_est[-1] @ trel).astype(np.float32))
+    R_est, t_est = np.stack(R_est), np.stack(t_est).astype(np.float32)
+    li = rng.integers(0, m - 600, PGO_LOOPS).astype(np.int32)
+    lj = li + 512
+    loops = pg.Se3Edges(
+        i=li, j=lj, R=np.einsum("eab,eac->ebc", R_gt[li], R_gt[lj]).astype(np.float32),
+        t=np.einsum("eab,ea->eb", R_gt[li], t_gt[lj] - t_gt[li]).astype(np.float32),
+        info=np.tile(np.eye(6, dtype=np.float32) * 1e4, (PGO_LOOPS, 1, 1)),
+        is_loop=np.ones(PGO_LOOPS, bool), valid=np.ones(PGO_LOOPS, bool))
+    edges = pg.edges_to(pg.concat_edges_np(pg.odometry_edges_np(R_est, t_est), loops), device)
+    return (torch.from_numpy(R_est).to(device), torch.from_numpy(t_est).to(device), edges)
+
+
+def phase_pgo_full_width(device, card):
+    """10c: optimize() with PCG on the 4,096-node, 512-loop graph (3 GN
+    iterations of at most 100 CG iterations, test_graph.py:171's options):
+    chi2 must fall below 5% of its start; the two runs give the same bits.
+    Returns (the graph, the options) for the profile."""
+    import dataclasses
+
+    from loc_lib_tpu_torch.graph import pose_graph as pg
+
+    R, t, edges = pgo_graph(device)
+    opts = dataclasses.replace(pg.PgoOptions(), max_iterations=3, max_cg_iterations=100)
+    before = float(pg.edge_chi2(R, t, edges).sum())
+    ms, results = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(pg.optimize(R, t, edges, opts))
+        after = float(results[-1].chi2.sum())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not (np.isfinite(after) and after < 0.05 * before):
+        raise AssertionError(f"10c: chi2 {before:.1f} -> {after:.1f}, not below 5%")
+    if not all(torch.equal(a, b) for a, b in zip(*results)):
+        raise AssertionError("10c: two optimize() calls on one graph differ")
+    syncs, _ = _count_syncs(lambda: float(pg.optimize(R, t, edges, opts).chi2.sum()))
+    print(f"phase 10c pose graph at full width ({PGO_NODES} nodes, {PGO_LOOPS} loop edges, "
+          f"{edges.i.shape[0]} edges, PCG) [{card}]: chi2 {before:.1f} -> {after:.3f} "
+          f"({100 * after / before:.4f}%), {int(results[0].cg_iterations)} CG iterations in 3 GN "
+          f"iterations; optimize() {ms[0]:.1f} ms first, {ms[1]:.1f} ms second (host clock, "
+          f"same bits), {syncs} host syncs", flush=True)
+    return (R, t, edges), opts
+
+
+def _device_launches(fn):
+    """Kernel launches and summed device ms of one fn() call, under a
+    profiler that records device activity only (tens of thousands of torch
+    ops would make a CPU trace take longer to read back than the call);
+    repeated up to 3 times if a session hands back no device event, then
+    (0, 0.0): "not recorded"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _session in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            break
+    return len(dev), sum(dev) / 1e3
+
+
+def phase_slam3d_profile(card, eng, graph, opts):
+    """Launches and device time of one Slam3d.optimize() (the slam3d_loop
+    graph) and one optimize() of the full-width graph, with the host time
+    of the same call taken before, profiler off."""
+    from loc_lib_tpu_torch.graph import pose_graph as pg
+
+    for label, fn in (("Slam3d.optimize() of the slam3d_loop graph", eng.optimize),
+                      (f"pose_graph.optimize() at {PGO_NODES} nodes",
+                       lambda: pg.optimize(*graph, opts).chi2.sum().item())):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        n, dev_ms = _device_launches(fn)
+        busy = "not measured" if n == 0 else f"{100 * dev_ms / host_ms:.1f}%"
+        print(f"phase 10 profile {label}: {n} device launches, device {dev_ms:.3f} ms vs host "
+              f"{host_ms:.3f} ms (profiler off), device busy {busy} [{card}]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2473,6 +2808,21 @@ def main() -> int:
         launches[name] += c[name]
     phase_rest_of_icp(device, card, workload)
     phase_lio_syncs(device, card)
+    # 3D SLAM: the slam3d_loop cell (K2 front end, K2-batch loop
+    # registration), the default loop_icp (K1, K1-batch), the full-width
+    # pose graph
+    t_slam = time.perf_counter()
+    slam_eng, c = phase_slam3d(device, card)
+    print(f"phase 10a launches (the first 92-frame run, every counter at 0 before it): {c} "
+          f"[{card}]", flush=True)
+    for name in ("p2plane_pick_fused_terms", "gn_step", "so3_renormalize"):
+        if c[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the 3D SLAM path")
+        launches[name] += c[name]
+    launches["p2plane_fused_terms"] += phase_slam3d_default_loop_icp(device, card)
+    pgo_graph_, pgo_opts = phase_pgo_full_width(device, card)
+    print(f"phase 10 took {time.perf_counter() - t_slam:.1f} s of command time (10a-10c; the "
+          f"profiled optimize() calls come after phase 6) [{card}]", flush=True)
     # every profiler run comes after the paths' host-clock timings
     phase_headline_timing(device, card, workload, target)
     phase_gather_before_after(device, card, workload, target)
@@ -2485,6 +2835,7 @@ def main() -> int:
         timing[name]["device_ms"] = dev_ms[label]
     phase_profile(device, card, workload, target,
                   Path(__file__).resolve().parent / "chiprun_out")
+    phase_slam3d_profile(card, slam_eng, pgo_graph_, pgo_opts)
 
     src = {"p2plane_fused_terms": ("loc_lib_tpu_torch/csrc/p2plane_fused_terms.cu",
                                    "loc_lib_tpu/ops/pallas_kernels.py:75"),
@@ -2514,7 +2865,8 @@ def main() -> int:
           "mode (S = 7, weighted, trunc, on an update_incremental map of the headline target): "
           "the modes the paths run, at the headline inputs; launches of K1, K2, gn_step and "
           "so3_renormalize are those of the headline match and LIO plus those of phase 8's "
-          "scan_match_batch calls, max_abs_err of K1 and K2 covers their batched forms",
+          "scan_match_batch calls and of phase 10's 3D SLAM runs (K1: 10b's two), "
+          "max_abs_err of K1 and K2 covers their batched forms",
           flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],

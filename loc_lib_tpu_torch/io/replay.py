@@ -1,6 +1,7 @@
-"""Offline replay: log alignment into per-scan measure groups (numpy; copy of
-the measure-sync part of loc_lib_tpu/io/replay.py, kept here because the JAX
-package cannot be imported without jax).
+"""Offline replay: log alignment into per-scan measure groups, and the wheel
+odometry and velocity logs (numpy; a copy of loc_lib_tpu/io/replay.py's
+measure sync, OdomLog and VelocityLog, kept here because the JAX package
+cannot be imported without jax).
 
 For each lidar scan, gather every IMU (and GNSS) sample since the previous
 scan and linearly interpolate the straddling sample to the scan timestamp.
@@ -39,6 +40,55 @@ class ImuLog:
 class GnssLog:
     stamps: np.ndarray      # (M,)
     lla: np.ndarray         # (M, 3) lat/lon/alt
+
+
+@dataclasses.dataclass
+class OdomLog:
+    """Wheel-encoder log: pulses per unit time per wheel. Consumed by the
+    static-init stillness gate (models/eskf.odom_is_static) and the ESKF
+    wheel-speed observation."""
+
+    stamps: np.ndarray       # (M,)
+    left_pulse: np.ndarray   # (M,)
+    right_pulse: np.ndarray  # (M,)
+
+    def sample_at(self, times: np.ndarray):
+        """Zero-order hold: the reading at or before each query time (wheel
+        pulses are rate counts over the preceding interval). Times before
+        the first reading get the first reading."""
+        idx = np.clip(np.searchsorted(self.stamps, times, side="right") - 1,
+                      0, len(self.stamps) - 1)
+        return self.left_pulse[idx], self.right_pulse[idx]
+
+
+@dataclasses.dataclass
+class VelocityLog:
+    """Body-frame velocity log."""
+
+    stamps: np.ndarray      # (M,)
+    linear: np.ndarray      # (M, 3)
+    angular: np.ndarray     # (M, 3)
+
+    def sync_to(self, t: float) -> np.ndarray:
+        """Interpolated (linear(3), angular(3)) at time t."""
+        return np.concatenate([
+            _interp_row(self.stamps, self.linear, t),
+            _interp_row(self.stamps, self.angular, t),
+        ])
+
+    def transform_coordinate(self, T: np.ndarray) -> "VelocityLog":
+        """Re-express velocities in another body frame: rotate both, add the
+        lever-arm term v += w x r."""
+        R, r = np.asarray(T[:3, :3]), np.asarray(T[:3, 3])
+        w = self.angular @ R.T
+        v = self.linear @ R.T + np.cross(w, r)
+        return VelocityLog(stamps=self.stamps, linear=v, angular=w)
+
+    def ned2enu(self) -> "VelocityLog":
+        """NED -> ENU axis swap (x<->y, z negated)."""
+        f = lambda a: np.stack([a[:, 1], a[:, 0], -a[:, 2]], axis=1)
+        return VelocityLog(stamps=self.stamps, linear=f(self.linear),
+                           angular=f(self.angular))
 
 
 def _interp_row(stamps, rows, t):

@@ -1,5 +1,5 @@
-"""18-dim error-state Kalman filter and static IMU initializer (port of
-loc_lib_tpu/models/eskf.py).
+"""18-dim error-state Kalman filter, static IMU initializer and IMU
+dead-reckoning integrator (port of loc_lib_tpu/models/eskf.py).
 
 A pure `(state, measurement) -> state` function pair (`predict`,
 `observe_se3`) over an `EskfState` NamedTuple of tensors. State order
@@ -24,10 +24,9 @@ from ..utils import lie, mathx
 
 @dataclasses.dataclass(frozen=True)
 class EskfOptions:
-    """The JAX package's EskfOptions fields that predict/observe_se3 read
-    (same names and defaults; the wheel-odometry fields come with
-    observe_wheel_speed). Noise terms are discrete-time (not multiplied by
-    dt), as in the reference."""
+    """The JAX package's EskfOptions fields that predict, observe_se3 and
+    observe_wheel_speed read (same names and defaults). Noise terms are
+    discrete-time (not multiplied by dt), as in the reference."""
 
     imu_dt: float = 0.01
     gyro_var: float = 1e-5
@@ -36,6 +35,11 @@ class EskfOptions:
     bias_acce_var: float = 1e-4
     update_bias_gyro: bool = True
     update_bias_acce: bool = True
+    # wheel odometry
+    odom_var: float = 0.5
+    odom_span: float = 0.1          # odometer measurement interval [s]
+    wheel_radius: float = 0.155     # [m]
+    circle_pulse: float = 1024.0    # encoder pulses per wheel revolution
 
 
 class EskfState(NamedTuple):
@@ -185,6 +189,24 @@ def observe_se3(s: EskfState, R_obs, t_obs, opts: EskfOptions,
     return _update_and_reset(s, H, V, innov, opts)
 
 
+def observe_wheel_speed(s: EskfState, left_pulse, right_pulse,
+                        opts: EskfOptions) -> EskfState:
+    """Wheel-odometry velocity observation: per-wheel speed from the pulses
+    over one odom_span, averaged, taken as the body-x velocity, rotated to
+    the world and observed on the v block. Unlike observe_se3, the noise is
+    the SQUARED odom_var, as the reference builds it."""
+    dev = s.p.device
+    wheel = opts.wheel_radius * 2.0 * math.pi / opts.circle_pulse / opts.odom_span
+    speed = 0.5 * (wheel * _f32(left_pulse, dev) + wheel * _f32(right_pulse, dev))
+    v_body = _f32([1.0, 0.0, 0.0], dev) * speed
+    v_world = s.R @ v_body
+    H = torch.zeros((3, 18), dtype=torch.float32, device=dev)
+    H[0:3, 3:6] = torch.eye(3, dtype=torch.float32, device=dev)
+    o2 = opts.odom_var * opts.odom_var
+    V = torch.eye(3, dtype=torch.float32, device=dev) * o2
+    return _update_and_reset(s, H, V, v_world - s.v, opts)
+
+
 def nominal_se3(s: EskfState):
     return s.R, s.p
 
@@ -204,6 +226,8 @@ def set_pose(s: EskfState, R, t, gravity=None) -> EskfState:
 @dataclasses.dataclass(frozen=True)
 class ImuInitOptions:
     init_time_seconds: float = 1.0
+    init_imu_queue_max_size: int = 400
+    static_odom_pulse: int = 5
     max_static_gyro_var: float = 0.5
     max_static_acce_var: float = 0.05
     gravity_norm: float = 9.81
@@ -216,6 +240,12 @@ class ImuInitResult(NamedTuple):
     gravity: torch.Tensor     # (3,)
     cov_gyro: torch.Tensor    # (3,) diagonal variance
     cov_acce: torch.Tensor    # (3,)
+
+
+def odom_is_static(left_pulse, right_pulse, opts: ImuInitOptions = ImuInitOptions()):
+    """Wheel-odometry stillness test: both wheels under the pulse-noise
+    floor. Tensors or host numbers in, the same kind out."""
+    return (left_pulse < opts.static_odom_pulse) & (right_pulse < opts.static_odom_pulse)
 
 
 def static_imu_init(gyros, acces, valid, opts: ImuInitOptions = ImuInitOptions(),
@@ -236,3 +266,39 @@ def static_imu_init(gyros, acces, valid, opts: ImuInitOptions = ImuInitOptions()
           & (torch.linalg.vector_norm(cov_acce2) <= opts.max_static_acce_var))
     return ImuInitResult(success=ok, bg=mean_gyro, ba=mean_acce2, gravity=gravity,
                          cov_gyro=cov_gyro, cov_acce=cov_acce2)
+
+
+def eskf_options_from_init(init: ImuInitResult, base: EskfOptions = EskfOptions()) -> EskfOptions:
+    """ESKF noise seeded from the initializer, as the reference's Lio does:
+    gyro_var = sqrt(cov_gyro[0]), acce_var = sqrt(cov_acce[0])."""
+    return dataclasses.replace(
+        base,
+        gyro_var=float(np.sqrt(init.cov_gyro[0].cpu().numpy())),
+        acce_var=float(np.sqrt(init.cov_acce[0].cpu().numpy())),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain IMU dead reckoning
+# ---------------------------------------------------------------------------
+
+class ImuIntegState(NamedTuple):
+    p: torch.Tensor          # (3,)
+    v: torch.Tensor          # (3,)
+    R: torch.Tensor          # (3, 3)
+    time: torch.Tensor       # () float32 seconds
+
+
+def imu_integrate(s: ImuIntegState, gyro, acce, timestamp, bg, ba, gravity) -> ImuIntegState:
+    """One dead-reckoning step with fixed biases and gravity (no
+    covariance, no dt gate beyond clamping a negative dt to 0)."""
+    dev = s.p.device
+    timestamp = _f32(timestamp, dev)
+    dt = torch.clamp(timestamp - s.time, min=0.0)
+    acc_w = s.R @ (_f32(acce, dev) - _f32(ba, dev)) + _f32(gravity, dev)
+    return ImuIntegState(
+        p=s.p + s.v * dt + 0.5 * acc_w * dt * dt,
+        v=s.v + acc_w * dt,
+        R=s.R @ lie.so3_exp((_f32(gyro, dev) - _f32(bg, dev)) * dt),
+        time=timestamp,
+    )

@@ -49,12 +49,6 @@ _VOX_METHODS = ("p2plane_vox", "p2plane_vox_oct", "p2line_vox")
 _KNN_METHODS = ("p2p", "p2line", "p2plane")
 
 
-def not_ported(what: str, slice_: str):
-    """Raise for a part of the reference this port does not run yet."""
-    raise NotImplementedError(
-        f"{what} is not ported yet; it waits for ROADMAP.md slice {slice_}")
-
-
 @dataclasses.dataclass(frozen=True)
 class IcpOptions:
     """Mirror of the JAX package's IcpOptions: same names and defaults.

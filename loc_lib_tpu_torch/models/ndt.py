@@ -43,7 +43,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.pointcloud import PointCloud
+from ..ops.pointcloud import PointCloud, card_device
 from ..ops import kernels, voxel
 from ..utils import lie, mathx
 
@@ -160,10 +160,11 @@ def build_direct(pc: PointCloud, opts: NdtOptions, origin=None) -> NdtMap:
 # ---------------------------------------------------------------------------
 
 def empty_incremental(opts: NdtOptions, origin=None, *, device=None) -> NdtMap:
-    """An empty incremental table of opts.map_capacity rows on `device` (or
-    on the origin's device)."""
+    """An empty incremental table of opts.map_capacity rows on `device`, or
+    on the origin's device when it is a tensor, else on the card
+    (`pointcloud.card_device`: it raises without one)."""
     if device is None:
-        device = origin.device if isinstance(origin, torch.Tensor) else "cpu"
+        device = origin.device if isinstance(origin, torch.Tensor) else card_device()
     v = opts.map_capacity
     f32 = dict(dtype=torch.float32, device=device)
     return _finalize_map(NdtMap(

@@ -22,8 +22,9 @@ branches on a flag read back once per scan and on the host int `num_kfs`.
 Keyframe clouds are stored in the lidar frame and re-transformed by their
 world poses at every rebuild, as in the reference.
 
-Not ported yet (each raises NotImplementedError naming its roadmap slice):
-Lio(pipelined=True) and Lio.apply_correction.
+The wrapper `Lio` records poses sequentially or, with `pipelined=True`, one
+scan late (the previous scan's pose pull after the current scan's step), and
+takes a pose-graph correction (`apply_correction`, the 3D SLAM write-back).
 """
 
 from __future__ import annotations
@@ -419,11 +420,18 @@ class Lio:
 
     def __init__(self, opts: LioOptions = LioOptions(), R_il=None, t_il=None, *,
                  device, pipelined: bool = False):
-        if pipelined:
-            icp.not_ported("Lio(pipelined=True) (lag-1 host loop)", "3")
+        """`pipelined=True`: lag-1 results. `add_measure` / `add_cloud`
+        return the PREVIOUS scan's StepResult (None on the first call) and
+        record it after the current scan's step is enqueued; `flush` drains
+        the last one. The recorded poses equal sequential mode's bit for bit:
+        nothing a step writes reaches a StepResult already returned (every
+        update of the state is out of place). Keep it False where a caller
+        uses each scan's result at once (Slam3d does)."""
         self.opts = opts
         self.device = torch.device(device)
         self.state = init_state(opts, R_il, t_il, device=self.device)
+        self.pipelined = pipelined
+        self._pend_out: Optional[StepResult] = None
         self.poses: list[np.ndarray] = []        # per-frame 4x4 T_w_l
         self.kf_poses: list[np.ndarray] = []
         self._imu_init = ImuStaticInit(device=self.device)
@@ -448,22 +456,54 @@ class Lio:
         return True
 
     def add_cloud(self, scan: PointCloud, edge_scan: Optional[PointCloud] = None
-                  ) -> StepResult:
+                  ) -> Optional[StepResult]:
         """One scan without an IMU packet (the ESKF, if on, is not
         propagated before the match)."""
         self.state, out = step(self.state, scan, self.opts, edge_scan=edge_scan)
-        self._record(out)
-        return out
+        return self._emit(out)
 
     def add_measure(self, scan: PointCloud, imu_gyro, imu_acce, imu_stamp,
-                    imu_valid, edge_scan: Optional[PointCloud] = None) -> StepResult:
+                    imu_valid, edge_scan: Optional[PointCloud] = None
+                    ) -> Optional[StepResult]:
         self.state, out = step_measure(self.state, scan, imu_gyro, imu_acce,
                                        imu_stamp, imu_valid, self.opts, edge_scan=edge_scan)
-        self._record(out)
+        return self._emit(out)
+
+    def _emit(self, out: StepResult) -> Optional[StepResult]:
+        if not self.pipelined:
+            self._record(out)
+            return out
+        prev, self._pend_out = self._pend_out, out
+        if prev is not None:
+            self._record(prev)
+        return prev
+
+    def flush(self) -> Optional[StepResult]:
+        """Record and return the pipelined tail (None in sequential mode)."""
+        out, self._pend_out = self._pend_out, None
+        if out is not None:
+            self._record(out)
         return out
 
     def apply_correction(self, dR, dt) -> None:
-        icp.not_ported("Lio.apply_correction (pose-graph write-back)", "6")
+        """Left-multiply every live world pose by the SE(3) correction
+        T_corr = (dR, dt): the current and previous pose, the last
+        keyframe's, every keyframe of the window, and the ESKF nominal
+        (R, p, v; gravity stays). The pose-graph back-end snaps the front
+        end onto the optimized trajectory with it. The matcher's target is
+        left as it is, as in the reference; the next keyframe rebuilds it
+        from the corrected window."""
+        dR = _f32(dR, self.device)
+        dt = _f32(dt, self.device)
+        s = self.state
+        fix = lambda R, t: lie.se3_compose(dR, dt, R, t)
+        R, t = fix(s.R, s.t)
+        last_R, last_t = fix(s.last_R, s.last_t)
+        lk_R, lk_t = fix(s.last_kf_R, s.last_kf_t)
+        kf_R, kf_t = fix(s.kf_R, s.kf_t)
+        e = s.eskf._replace(R=dR @ s.eskf.R, p=s.eskf.p @ dR.T + dt, v=s.eskf.v @ dR.T)
+        self.state = s._replace(R=R, t=t, last_R=last_R, last_t=last_t, kf_R=kf_R, kf_t=kf_t,
+                                last_kf_R=lk_R, last_kf_t=lk_t, eskf=e)
 
     def _record(self, out: StepResult):
         # one device-to-host pull per scan

@@ -4,7 +4,9 @@ Plain torch functions over float32 tensors, broadcastable over leading batch
 dimensions and Taylor-safe at theta -> 0. Conventions match the JAX package:
 rotations are 3x3 matrices acting on column vectors, poses are (R, t) pairs
 with `apply(R, t, x) = R @ x + t`, and the Gauss-Newton retraction is the
-right perturbation on SO(3) with an additive translation update.
+right perturbation on SO(3) with an additive translation update. Twists are
+[w, v], rotation first. The SE(3) exp / log, adjoint and closed-form inverse
+Jacobians serve the pose graph (graph/pose_graph.py).
 """
 
 from __future__ import annotations
@@ -118,6 +120,102 @@ def se3_inverse(R, t):
     return Rt, -_matvec(Rt, t)
 
 
+def se3_exp(xi: torch.Tensor):
+    """Exp map of a (..., 6) twist [w, v] (rotation first, like the solver
+    state dx = [dtheta, dt]) -> (R, t), with the full SE(3) V matrix."""
+    w, v = xi[..., :3], xi[..., 3:]
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < 1e-8
+    theta2_safe = torch.where(small, 1.0, theta2)
+    theta = torch.sqrt(theta2_safe)
+    W = hat(w)
+    W2 = W @ W
+    eye = _eye_like(W)
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2_safe)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2_safe * theta))
+    R = eye + a[..., None, None] * W + b[..., None, None] * W2
+    V = eye + b[..., None, None] * W + c[..., None, None] * W2
+    return R, _matvec(V, v)
+
+
+def so3_jl_inv(w: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse LEFT Jacobian of SO(3) (the V^-1 of the SE(3)
+    exp), (..., 3) -> (..., 3, 3); Taylor-safe near 0."""
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < 1e-8
+    theta2_safe = torch.where(small, 1.0, theta2)
+    theta = torch.sqrt(theta2_safe)
+    W = hat(w)
+    W2 = W @ W
+    # V^-1 = I - W/2 + (1/theta^2 - (1+cos)/(2 theta sin)) W^2
+    half_theta = 0.5 * theta
+    cot = torch.cos(half_theta) / torch.sin(half_theta)   # theta >= 1 when "small"
+    coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                       (1.0 - half_theta * cot) / theta2_safe)
+    return _eye_like(W) - 0.5 * W + coef[..., None, None] * W2
+
+
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Log map -> (..., 6) twist [w, v]."""
+    w = so3_log(R)
+    return torch.cat([w, _matvec(so3_jl_inv(w), t)], dim=-1)
+
+
+def se3_adjoint(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """6x6 Ad(T) for the [w, v] twist ordering: Ad(T) [w; v] =
+    [R w; hat(t) R w + R v], so that T Exp(xi) T^-1 = Exp(Ad(T) xi)."""
+    top = torch.cat([R, torch.zeros_like(R)], dim=-1)
+    bot = torch.cat([hat(t) @ R, R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def _se3_Q(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Barfoot's Q matrix (State Estimation for Robotics eq. 7.86b, rho = v,
+    phi = w): the translation-rotation block of the SE(3) left Jacobian.
+    Taylor-safe near theta = 0."""
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < 1e-8
+    theta2_safe = torch.where(small, 1.0, theta2)
+    theta = torch.sqrt(theta2_safe)
+    s, c = torch.sin(theta), torch.cos(theta)
+    c1 = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                     (theta - s) / (theta2_safe * theta))
+    c2 = torch.where(small, 1.0 / 24.0 - theta2 / 720.0,
+                     (theta2 + 2.0 * c - 2.0) / (2.0 * theta2_safe ** 2))
+    c3 = torch.where(small, 1.0 / 120.0 - theta2 / 2520.0,
+                     (2.0 * theta - 3.0 * s + theta * c) / (2.0 * theta2_safe ** 2 * theta))
+    W = hat(w)
+    V_ = hat(v)
+    WV, VW = W @ V_, V_ @ W
+    WVW = WV @ W
+    c1, c2, c3 = c1[..., None, None], c2[..., None, None], c3[..., None, None]
+    return (0.5 * V_
+            + c1 * (WV + VW + W @ VW)
+            + c2 * (W @ WV + VW @ W - 3.0 * WVW)
+            + c3 * (WVW @ W + W @ WVW))
+
+
+def se3_jl_inv(xi: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse LEFT Jacobian of SE(3), (..., 6) -> (..., 6, 6),
+    twist ordering [w, v]: Jl = [[J, 0], [Q, J]], so
+    Jl^-1 = [[J^-1, 0], [-J^-1 Q J^-1, J^-1]]; the exact derivative
+    d/d_eps Log(Exp(eps) Exp(xi)) at eps = 0."""
+    w, v = xi[..., :3], xi[..., 3:]
+    Jinv = so3_jl_inv(w)
+    JQJ = -Jinv @ _se3_Q(w, v) @ Jinv
+    top = torch.cat([Jinv, torch.zeros_like(Jinv)], dim=-1)
+    bot = torch.cat([JQJ, Jinv], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def se3_jr_inv(xi: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse RIGHT Jacobian of SE(3): Jr^-1(xi) = Jl^-1(-xi),
+    the exact derivative d/d_eps Log(Exp(xi) Exp(eps)) at eps = 0."""
+    return se3_jl_inv(-xi)
+
+
 def se3_retract(R, t, dx, matmul=torch.matmul):
     """The reference GN update: right-multiply SO3 by exp(dx[:3]), add dx[3:]
     to the translation."""
@@ -134,3 +232,23 @@ def so3_renormalize(R: torch.Tensor, matmul=torch.matmul) -> torch.Tensor:
         RtR = matmul(R.transpose(-1, -2), R)
         R = 0.5 * matmul(R, 3.0 * eye - RtR)
     return R
+
+
+def se3_retract_full(R, t, dx):
+    """Full right-multiplicative retraction T * Exp(dx) (the pose graph's,
+    whose residual is linearized with respect to this perturbation)."""
+    return se3_compose(R, t, *se3_exp(dx))
+
+
+def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R, t) -> 4x4 homogeneous matrix."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    M = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
+    M[..., :3, :3] = R
+    M[..., :3, 3] = t
+    M[..., 3, 3] = 1.0
+    return M
+
+
+def se3_from_matrix(M: torch.Tensor):
+    return M[..., :3, :3], M[..., :3, 3]

@@ -139,6 +139,16 @@ def solve_gn_6x6(H: torch.Tensor, b: torch.Tensor, damping: float = 0.0):
     return torch.linalg.solve_ex(H, b, check_errors=False).result
 
 
+def schur_marginalize(H: torch.Tensor, b: torch.Tensor, k: int):
+    """Schur-complement marginalization of the first k states: the reduced
+    (H', b') over the remaining block after eliminating block [0:k], with
+    1e-9 on the eliminated block's diagonal. H: (n, n), b: (n,)."""
+    Haa, Hab = H[:k, :k], H[:k, k:]
+    Hba, Hbb = H[k:, :k], H[k:, k:]
+    Haa_inv = torch.linalg.inv(Haa + 1e-9 * torch.eye(k, dtype=H.dtype, device=H.device))
+    return Hbb - Hba @ Haa_inv @ Hab, b[k:] - Hba @ Haa_inv @ b[:k]
+
+
 def merge_gaussian(hist_n, hist_mean, hist_cov, cur_n, cur_mean, cur_cov):
     """Moment-matched merge of two Gaussians (the incremental NDT voxel
     update). Counts (...,), means (..., 3), covariances (..., 3, 3)."""

@@ -1,17 +1,20 @@
 """Port parity: loc_lib_tpu_torch.models.eskf against the JAX package on an
-IMU stream from the synthetic trajectory (tests/test_eskf_odom.py style
-workloads). Tolerance atol 1e-5 (float32 state, same formulas; the
-per-sample updates differ by ulps)."""
+IMU stream from the synthetic trajectory and on the tests/test_eskf_odom.py
+workloads (wheel odometry: the stillness gate, the gated static init, the
+wheel-speed observation, the odometry and velocity logs), plus the IMU
+integrator and the noise seeding from the initializer. Tolerance atol 1e-5
+(float32 state, same formulas; the per-sample updates differ by ulps); the
+numpy log classes exactly."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from loc_lib_tpu.io import synthetic as jsyn
+from loc_lib_tpu.io import replay as jreplay, synthetic as jsyn
 from loc_lib_tpu.models import eskf as jeskf
 from loc_lib_tpu.utils import lie as jlie
-from loc_lib_tpu_torch.io import convert
+from loc_lib_tpu_torch.io import convert, replay
 from loc_lib_tpu_torch.models import eskf
 
 torch.set_num_threads(2)
@@ -121,3 +124,137 @@ def test_process_noise_is_built_once_per_options_and_device():
     assert torch.equal(Q, fresh)
     for name in eskf.EskfState._fields:
         assert torch.equal(getattr(one, name), getattr(two, name)), name
+
+
+def test_odom_is_static_matches_jax():
+    """test_eskf_odom.py:12: both wheels under static_odom_pulse (5)."""
+    opts, jopts = eskf.ImuInitOptions(), jeskf.ImuInitOptions()
+    assert (opts.static_odom_pulse, opts.init_imu_queue_max_size) == \
+        (jopts.static_odom_pulse, jopts.init_imu_queue_max_size) == (5, 400)
+    left = np.array([4.0, 6.0, 4.0, 5.0, 0.0], np.float32)
+    right = np.array([4.0, 4.0, 6.0, 4.9, 0.0], np.float32)
+    want = np.asarray(jeskf.odom_is_static(jnp.asarray(left), jnp.asarray(right), jopts))
+    got = eskf.odom_is_static(torch.from_numpy(left), torch.from_numpy(right), opts)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, [True, False, False, False, True])
+    assert eskf.odom_is_static(4.0, 4.0) and not eskf.odom_is_static(6.0, 4.0)
+
+
+def test_static_init_clears_everything_before_a_movement_blip_like_jax():
+    """test_eskf_odom.py:41: a movement blip inside the static tail leaves
+    only the samples after it (19 here): success, from the tail alone."""
+    rng = np.random.default_rng(0)
+    n = 200
+    acce = np.tile([0.0, 0.0, 9.81], (n, 1)).astype(np.float32)
+    gyro = rng.normal(0, 1e-3, (n, 3)).astype(np.float32)
+    gyro[: n // 2] += rng.normal(0, 2.0, (n // 2, 3)).astype(np.float32)
+    is_static = np.ones((n,), bool)
+    is_static[: n // 2] = False
+    is_static[n - 20] = False
+    valid = np.ones((n,), bool)
+    jr = jeskf.static_imu_init(jnp.asarray(gyro), jnp.asarray(acce), jnp.asarray(valid),
+                               is_static=jnp.asarray(is_static))
+    tr = eskf.static_imu_init(torch.from_numpy(gyro), torch.from_numpy(acce),
+                              torch.from_numpy(valid), is_static=torch.from_numpy(is_static))
+    assert bool(tr.success) and bool(jr.success)
+    for name in ("bg", "ba", "gravity", "cov_gyro", "cov_acce"):
+        np.testing.assert_allclose(getattr(tr, name).numpy(), np.asarray(getattr(jr, name)),
+                                   atol=ATOL, rtol=1e-5, err_msg=name)
+    np.testing.assert_allclose(tr.bg.numpy(), gyro[n - 19:].mean(0), atol=1e-6)
+
+
+@pytest.mark.parametrize("mps", [0.0, 1.0])
+def test_observe_wheel_speed_matches_jax(mps):
+    """test_eskf_odom.py:50: the nominal velocity says 2 m/s along +x, the
+    wheels say `mps`; the update pulls v towards the wheels, with the same
+    state as JAX's within atol 1e-5."""
+    opts, jopts = eskf.EskfOptions(), jeskf.EskfOptions()
+    pulses = np.float32(mps / (opts.wheel_radius * 2 * np.pi / opts.circle_pulse
+                               / opts.odom_span))
+    js, _ = _state_pair()
+    js = js._replace(v=jnp.array([2.0, 0.0, 0.0], jnp.float32),
+                     R=jlie.so3_exp(jnp.array([0.0, 0.0, 0.4], jnp.float32)),
+                     cov=jnp.eye(18, dtype=jnp.float32) * 1.0)
+    ts = convert.eskf_state_from_numpy(jax.tree_util.tree_map(np.asarray, js)._asdict(), "cpu")
+    jout = jeskf.observe_wheel_speed(js, jnp.float32(pulses), jnp.float32(pulses), jopts)
+    tout = eskf.observe_wheel_speed(ts, pulses, torch.tensor(pulses), opts)
+    _assert_state_close(tout, jout)
+    want = np.asarray(js.R) @ np.array([mps, 0.0, 0.0])
+    assert np.linalg.norm(tout.v.numpy() - want) < 0.5 * np.linalg.norm(np.asarray(js.v) - want)
+
+
+def test_odom_and_velocity_logs_match_jax():
+    """test_eskf_odom.py:67 and :76 on the port's numpy copies: zero-order
+    hold, lerp, lever arm, NED -> ENU; equal to the JAX package's."""
+    args = dict(stamps=np.array([0.0, 1.0, 2.0]), left_pulse=np.array([10.0, 20.0, 30.0]),
+                right_pulse=np.array([11.0, 21.0, 31.0]))
+    times = np.array([-0.5, 0.0, 0.5, 1.0, 1.9, 5.0])
+    l, r = replay.OdomLog(**args).sample_at(times)
+    np.testing.assert_array_equal(l, [10, 10, 10, 20, 20, 30])
+    np.testing.assert_array_equal(r, [11, 11, 11, 21, 21, 31])
+    for a, b in zip((l, r), jreplay.OdomLog(**args).sample_at(times)):
+        np.testing.assert_array_equal(a, b)
+    rng = np.random.default_rng(1)
+    vargs = dict(stamps=np.array([0.0, 1.0, 2.5]), linear=rng.normal(size=(3, 3)),
+                 angular=rng.normal(size=(3, 3)))
+    ours, ref = replay.VelocityLog(**vargs), jreplay.VelocityLog(**vargs)
+    T = np.eye(4)
+    T[:3, :3] = np.asarray(jlie.so3_exp(jnp.array([0.1, -0.2, 0.3], jnp.float32)))
+    T[:3, 3] = [0.0, 1.0, 0.2]
+    for t in (-1.0, 0.5, 1.7, 9.0):
+        np.testing.assert_array_equal(ours.sync_to(t), ref.sync_to(t))
+    for a, b in ((ours.transform_coordinate(T), ref.transform_coordinate(T)),
+                 (ours.ned2enu(), ref.ned2enu())):
+        np.testing.assert_array_equal(a.linear, b.linear)
+        np.testing.assert_array_equal(a.angular, b.angular)
+    lever = replay.VelocityLog(stamps=np.array([0.0, 1.0]),
+                               linear=np.array([[1.0, 0, 0], [1.0, 0, 0]]),
+                               angular=np.array([[0, 0, 1.0], [0, 0, 1.0]]))
+    np.testing.assert_allclose(lever.sync_to(0.5), [1, 0, 0, 0, 0, 1], atol=1e-7)
+    T = np.eye(4)
+    T[:3, 3] = [0, 1, 0]
+    np.testing.assert_allclose(lever.transform_coordinate(T).linear[0], [0, 0, 0], atol=1e-7)
+    np.testing.assert_allclose(lever.ned2enu().angular[0], [0, 0, -1], atol=1e-7)
+
+
+def test_eskf_options_from_init_matches_jax():
+    """The initializer's variances seed gyro_var / acce_var (their square
+    roots), every other option from `base`."""
+    rng = np.random.default_rng(2)
+    n = 120
+    gyro = rng.normal(0, 3e-3, (n, 3)).astype(np.float32)
+    acce = (np.tile([0.1, -0.2, 9.8], (n, 1)) + rng.normal(0, 2e-2, (n, 3))).astype(np.float32)
+    valid = np.ones((n,), bool)
+    jr = jeskf.static_imu_init(jnp.asarray(gyro), jnp.asarray(acce), jnp.asarray(valid))
+    tr = eskf.static_imu_init(torch.from_numpy(gyro), torch.from_numpy(acce),
+                              torch.from_numpy(valid))
+    base, jbase = eskf.EskfOptions(imu_dt=0.005), jeskf.EskfOptions(imu_dt=0.005)
+    ours, ref = eskf.eskf_options_from_init(tr, base), jeskf.eskf_options_from_init(jr, jbase)
+    np.testing.assert_allclose([ours.gyro_var, ours.acce_var], [ref.gyro_var, ref.acce_var],
+                               rtol=1e-5)
+    assert ours.imu_dt == 0.005 and ours.odom_var == ref.odom_var
+    assert ours.gyro_var == float(np.sqrt(tr.cov_gyro[0].numpy()))
+
+
+def test_imu_integrate_matches_jax():
+    """Dead reckoning through the synthetic trajectory's ideal IMU stream
+    (a negative dt clamps to 0): the port's state within atol 1e-5 of JAX's
+    after every sample."""
+    traj = jsyn.make_trajectory(num_frames=6, dt=0.1, yaw_rate=0.3)
+    st, gy, ac = jsyn.ideal_imu(traj, static_secs=0.0)
+    bg, ba = np.float32([1e-3, -2e-3, 5e-4]), np.float32([0.01, 0.0, -0.02])
+    grav = np.float32([0.0, 0.0, -9.81])
+    z = np.zeros(3, np.float32)
+    js = jeskf.ImuIntegState(p=jnp.asarray(z), v=jnp.asarray([2.0, 0.0, 0.0], jnp.float32),
+                             R=jnp.eye(3, dtype=jnp.float32), time=jnp.float32(st[0]))
+    ts = eskf.ImuIntegState(p=torch.zeros(3), v=torch.tensor([2.0, 0.0, 0.0]), R=torch.eye(3),
+                            time=torch.tensor(np.float32(st[0])))
+    stamps = st.astype(np.float32).copy()
+    stamps[7] = stamps[6] - 0.01                      # out of order: dt clamps to 0
+    for k in range(1, 40):
+        js = jeskf.imu_integrate(js, jnp.asarray(gy[k]), jnp.asarray(ac[k]),
+                                 jnp.float32(stamps[k]), bg, ba, grav)
+        ts = eskf.imu_integrate(ts, gy[k], ac[k], stamps[k], bg, ba, grav)
+        for name in eskf.ImuIntegState._fields:
+            np.testing.assert_allclose(getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
+                                       atol=ATOL, err_msg=f"{name} at sample {k}")

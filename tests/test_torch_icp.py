@@ -296,8 +296,9 @@ def test_unported_methods_name_their_slice():
     """Slice 2 is ported: no ICP method or option raises NotImplementedError
     any more. The knn oracle methods build a hash-grid target (no voxel
     tables), the frozen election runs, p2line_vox builds its line table; an
-    unknown method is a ValueError; `not_ported` still names the slice of
-    what the pipelines wait for."""
+    unknown method is a ValueError. Since the rest of LIO and 3D SLAM came
+    in, nothing of the port raises NotImplementedError, and the helper that
+    named a missing slice is gone."""
     scene = _from_numpy(_pair(7)[0])
     for method in ("p2p", "p2line", "p2plane"):
         tgt = icp.set_target(scene, icp.IcpOptions(method=method))
@@ -310,8 +311,7 @@ def test_unported_methods_name_their_slice():
     assert tgt.line_packed.shape == (scene.capacity, 13) and tgt.packed is None
     with pytest.raises(ValueError, match="unknown ICP method"):
         icp.set_target(scene, icp.IcpOptions(method="p2plane_kd"))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        icp.not_ported("Lio(pipelined=True)", "3")
+    assert not hasattr(icp, "not_ported")
 
 
 def _line_pair():

@@ -115,7 +115,7 @@ def _ndt_case(method, n_src, S=7, bin_mode="trunc", seed=21):
                           nearby="nearby6" if S == 7 else "center", map_capacity=4096)
     pc = pcm.from_numpy(scene, capacity=4096, device="cpu")
     m = ndt.build_direct(pc, opts) if method == "direct" else \
-        ndt.update_incremental(ndt.empty_incremental(opts), pc, opts)
+        ndt.update_incremental(ndt.empty_incremental(opts, device="cpu"), pc, opts)
     return ndt._from_map_args(m, opts, cloud, R, t, method == "incremental"), m, opts, cloud
 
 

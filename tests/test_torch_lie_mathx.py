@@ -219,3 +219,109 @@ def test_lie_products_default_to_the_library_matmul():
                        lie.so3_renormalize(Rr, torch.matmul))
     np.testing.assert_allclose(lie.so3_renormalize(Rr).numpy(),
                                lie.so3_renormalize(Rr, lie.matmul3).numpy(), atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# SE(3) exp / log, adjoint and the closed-form inverse Jacobians of the pose
+# graph (tests/test_lie.py:47, :83, :112), and schur_marginalize
+# (tests/test_mathx.py:96). Against JAX: atol 1e-5 (the same float32
+# formulas; libm's sin / cos differ by ulps, and the general branch of the
+# Jacobian coefficients cancels just above the Taylor threshold, where an ulp
+# of 1 - x cot x is ~6e-8 of W^2 entries of ~1e-6).
+# ---------------------------------------------------------------------------
+
+def _twists(seed, n=48):
+    """Twists with rotation angles across the Taylor branch (theta^2 < 1e-8),
+    just above it, small, moderate and close to pi."""
+    rng = np.random.default_rng(seed)
+    xi = rng.normal(size=(n, 6)).astype(np.float32)
+    mags = np.array([1e-6, 5e-5, 1e-3, 0.3, 1.5, 2.8], np.float32)
+    xi[:, :3] *= (np.resize(mags, n) / np.linalg.norm(xi[:, :3], axis=1))[:, None]
+    return xi
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_se3_exp_log_match_jax(seed):
+    xi = _twists(seed)
+    R, t = lie.se3_exp(_t(xi))
+    jR, jt = jlie.se3_exp(jnp.asarray(xi))
+    np.testing.assert_allclose(R.numpy(), np.asarray(jR), atol=1e-5)
+    np.testing.assert_allclose(t.numpy(), np.asarray(jt), atol=1e-5)
+    log = lie.se3_log(_t(np.asarray(jR)), _t(np.asarray(jt)))
+    np.testing.assert_allclose(log.numpy(), np.asarray(jlie.se3_log(jR, jt)), atol=1e-5)
+    # the round trip of test_lie.py:47 (away from pi, where log is ill-posed)
+    ok = np.linalg.norm(xi[:, :3], axis=1) < 2.0
+    np.testing.assert_allclose(log.numpy()[ok], xi[ok], atol=1e-4)
+    xi1 = _t([0.2, -0.1, 0.3, 1.0, 2.0, -0.5])
+    np.testing.assert_allclose(lie.se3_log(*lie.se3_exp(xi1)).numpy(), xi1.numpy(), atol=1e-4)
+
+
+def test_se3_jacobian_inverses_match_jax_and_its_autodiff_oracle():
+    """se3_jl_inv / se3_jr_inv (and so3_jl_inv, _se3_Q inside them) equal
+    JAX's closed forms (atol 1e-5), and JAX's forward-mode derivative of the
+    compositions they claim to differentiate (test_lie.py:83's bounds,
+    atol 2e-4, rtol 1e-3)."""
+    import jax
+
+    xi = _twists(3, n=12)
+    Jl, Jr = lie.se3_jl_inv(_t(xi)), lie.se3_jr_inv(_t(xi))
+    np.testing.assert_allclose(Jl.numpy(), np.asarray(jlie.se3_jl_inv(jnp.asarray(xi))),
+                               atol=1e-5)
+    np.testing.assert_allclose(Jr.numpy(), np.asarray(jlie.se3_jr_inv(jnp.asarray(xi))),
+                               atol=1e-5)
+    np.testing.assert_allclose(lie.so3_jl_inv(_t(xi[:, :3])).numpy(),
+                               np.asarray(jlie.so3_jl_inv(jnp.asarray(xi[:, :3]))), atol=1e-5)
+    def left(e, x):
+        return jlie.se3_log(*jlie.se3_compose(*jlie.se3_exp(e), *jlie.se3_exp(x)))
+
+    def right(e, x):
+        return jlie.se3_log(*jlie.se3_compose(*jlie.se3_exp(x), *jlie.se3_exp(e)))
+
+    z = jnp.zeros(6, jnp.float32)
+    for J, f in ((Jl, left), (Jr, right)):
+        oracle = jax.jit(jax.vmap(jax.jacfwd(f), in_axes=(None, 0)))(z, jnp.asarray(xi))
+        np.testing.assert_allclose(J.numpy(), np.asarray(oracle), atol=2e-4, rtol=1e-3)
+
+
+def test_se3_adjoint_retract_and_matrix_match_jax():
+    """Ad(T) (test_lie.py:112: T Exp(xi) T^-1 = Exp(Ad(T) xi)), the full
+    retraction T Exp(dx) and the 4x4 packing, against JAX (atol 1e-5)."""
+    rng = np.random.default_rng(5)
+    w = rng.normal(0, 0.8, (8, 3)).astype(np.float32)
+    R = np.asarray(jlie.so3_exp(jnp.asarray(w)))
+    t = rng.normal(0, 2, (8, 3)).astype(np.float32)
+    xi = rng.normal(0, 0.5, (8, 6)).astype(np.float32)
+    Ad = lie.se3_adjoint(_t(R), _t(t))
+    np.testing.assert_allclose(Ad.numpy(), np.asarray(jlie.se3_adjoint(jnp.asarray(R),
+                                                                       jnp.asarray(t))), atol=1e-5)
+    lhs = lie.se3_compose(*lie.se3_compose(_t(R), _t(t), *lie.se3_exp(_t(xi))),
+                          *lie.se3_inverse(_t(R), _t(t)))
+    rhs = lie.se3_exp(torch.einsum("bij,bj->bi", Ad, _t(xi)))
+    np.testing.assert_allclose(lhs[0].numpy(), rhs[0].numpy(), atol=1e-5)
+    np.testing.assert_allclose(lhs[1].numpy(), rhs[1].numpy(), atol=1e-4)
+    Rr, tr = lie.se3_retract_full(_t(R), _t(t), _t(xi))
+    jRr, jtr = jlie.se3_retract_full(jnp.asarray(R), jnp.asarray(t), jnp.asarray(xi))
+    np.testing.assert_allclose(Rr.numpy(), np.asarray(jRr), atol=1e-5)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jtr), atol=1e-5)
+    M = lie.se3_matrix(_t(R), _t(t))
+    assert torch.equal(M, _t(jlie.se3_matrix(jnp.asarray(R), jnp.asarray(t))))
+    back = lie.se3_from_matrix(M)
+    assert torch.equal(back[0], _t(R)) and torch.equal(back[1], _t(t))
+    assert lie.se3_matrix(_t(R[0]), _t(t[0])).shape == (4, 4)
+
+
+def test_schur_marginalize_matches_jax_and_the_full_solve():
+    """test_mathx.py:96: eliminating the first 3 states leaves the system
+    whose solution is the last 6 states of the full solve (atol 1e-3, the
+    JAX test's bound); H' and b' within rtol 1e-4 of JAX's."""
+    rng = np.random.default_rng(6)
+    A = rng.normal(size=(9, 9))
+    H = (A @ A.T + np.eye(9)).astype(np.float32)
+    b = rng.normal(size=9).astype(np.float32)
+    Hp, bp = mathx.schur_marginalize(_t(H), _t(b), 3)
+    jHp, jbp = jmathx.schur_marginalize(jnp.asarray(H), jnp.asarray(b), 3)
+    np.testing.assert_allclose(Hp.numpy(), np.asarray(jHp), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(bp.numpy(), np.asarray(jbp), rtol=1e-4, atol=1e-4)
+    x_full = np.linalg.solve(H.astype(np.float64), b.astype(np.float64))
+    x_b = np.linalg.solve(Hp.numpy().astype(np.float64), bp.numpy().astype(np.float64))
+    np.testing.assert_allclose(x_b, x_full[3:], atol=1e-3)

@@ -285,16 +285,107 @@ def test_health_gate_is_matcher_aware():
 
 
 def test_unported_lio_paths_name_their_slice():
-    """matcher="loam" and p2line_vox are ported (slice 4); the lag-1 loop
-    (slice 3) and the pose-graph write-back (slice 6) still wait."""
+    """Every LIO path is ported: matcher="loam" and p2line_vox (slice 4),
+    and since the rest of LIO came in, the lag-1 loop and the pose-graph
+    write-back, which used to raise NotImplementedError naming slices 3 and
+    6, construct and run (their parity is held by the tests below)."""
     assert lio.Lio(lio.LioOptions(matcher="loam"), device="cpu").state.loam_target is not None
     eng = lio.Lio(lio.LioOptions(icp=icp.IcpOptions(method="p2line_vox")), device="cpu")
     assert eng.state.icp_target.line_packed is not None
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        eng.apply_correction(torch.eye(3), torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        lio.Lio(lio.LioOptions(icp=icp.IcpOptions(method="p2plane_vox")), device="cpu",
-                pipelined=True)
+    eng.apply_correction(torch.eye(3), torch.zeros(3))
+    assert torch.equal(eng.state.R, torch.eye(3)) and torch.equal(eng.state.t, torch.zeros(3))
+    pip = lio.Lio(lio.LioOptions(icp=icp.IcpOptions(method="p2plane_vox")), device="cpu",
+                  pipelined=True)
+    assert pip.pipelined and pip.flush() is None
+
+
+def _pipelined_scans():
+    """tests/test_pipeline.py:263's workload: 8 scans of 2,048 points along
+    the synthetic trajectory."""
+    world = jsynth.make_world(num_points=20000, extent=60.0, seed=0)
+    traj = jsynth.make_trajectory(num_frames=12, dt=0.1, speed=2.0)
+    return [synthetic.render_scan(world, traj.R[i], traj.t[i], max_range=35.0,
+                                  max_points=2048, noise=0.005, seed=i, capacity=2048,
+                                  device="cpu")
+            for i in range(8)]
+
+
+def test_lio_pipelined_lag1_matches_sequential():
+    """test_pipeline.py:263 in the port: Lio(pipelined=True) returns the
+    previous scan's StepResult (None first), flush() drains the last one, and
+    the recorded poses, keyframe poses and health equal sequential mode's
+    bit for bit (the step writes nothing in place that a returned
+    StepResult holds)."""
+    opts = lio.LioOptions(matcher="icp", icp=icp.IcpOptions(method="p2plane_vox"),
+                          scan_capacity=2048, with_eskf=False, kf_distance=0.4)
+    seq = lio.Lio(opts, device="cpu")
+    pip = lio.Lio(opts, device="cpu", pipelined=True)
+    outs = []
+    for k, scan in enumerate(_pipelined_scans()):
+        outs.append(seq.add_cloud(scan))
+        prev = pip.add_cloud(scan)
+        assert (prev is None) == (k == 0)
+        if prev is not None:
+            assert torch.equal(prev.R, outs[-2].R) and torch.equal(prev.t, outs[-2].t)
+        assert len(pip.poses) == k
+    last = pip.flush()
+    assert torch.equal(last.R, outs[-1].R) and pip.flush() is None
+    np.testing.assert_array_equal(np.stack(seq.poses), np.stack(pip.poses))
+    np.testing.assert_array_equal(seq.keyframe_poses(), pip.keyframe_poses())
+    assert len(seq.kf_poses) >= 2
+    assert (seq.health.status, seq.health.total_bad) == (pip.health.status, pip.health.total_bad)
+
+
+def test_lio_pipelined_add_measure_matches_sequential(log):
+    """The same through add_measure with the ESKF on (its state is updated
+    out of place too), on the demo log's first 6 frames: bit-equal poses."""
+    seq, pip = _port_engine(), _port_engine()
+    pip.pipelined = True
+    _static_init(seq, log)
+    _static_init(pip, log)
+    for mg in list(log.measures(imu_capacity=64))[:6]:
+        args = (log.frame(mg.scan_index, "cpu"), mg.imu_gyro, mg.imu_acce, mg.imu_stamp,
+                mg.imu_valid)
+        seq.add_measure(*args)
+        pip.add_measure(*args)
+    pip.flush()
+    np.testing.assert_array_equal(np.stack(seq.poses), np.stack(pip.poses))
+
+
+def test_apply_correction_matches_jax(log):
+    """test_slam3d.py:60 in the port, on a live state: the JAX engine runs 4
+    frames, its state is carried across, and both packages apply the same
+    correction. Every corrected field (R, t, last_*, last_kf_*, every
+    keyframe pose of the window, the ESKF R, p, v) within atol 2e-6 of
+    JAX's (float32 compositions of poses tens of metres out; measured
+    ~5e-7); the untouched fields keep their bits; a fresh engine moves
+    exactly like the JAX test's."""
+    jeng = _jax_engine()
+    _static_init(jeng, log)
+    for mg in jreplay.sync_measures(log.scan_stamps, log.imu, imu_capacity=64):
+        jeng.add_measure(*_jax_scan(log, mg))
+    eng = _port_engine()
+    eng.state = convert.lio_state_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jeng.state)._asdict(), "cpu")
+    before = eng.state
+    dR = oracles.so3_exp(np.array([0.01, -0.02, 0.3])).astype(np.float32)
+    dt = np.array([1.0, -2.0, 0.5], np.float32)
+    jeng.apply_correction(dR, dt)
+    eng.apply_correction(dR, dt)
+    js, ts = jeng.state, eng.state
+    for name in ("R", "t", "last_R", "last_t", "last_kf_R", "last_kf_t", "kf_R", "kf_t"):
+        np.testing.assert_allclose(getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
+                                   atol=2e-6, err_msg=name)
+    for name in ("R", "p", "v", "g", "cov"):
+        np.testing.assert_allclose(getattr(ts.eskf, name).numpy(),
+                                   np.asarray(getattr(js.eskf, name)), atol=2e-6, err_msg=name)
+    assert torch.equal(ts.eskf.g, before.eskf.g) and torch.equal(ts.kf_xyz, before.kf_xyz)
+    assert ts.icp_target is before.icp_target and ts.num_kfs == before.num_kfs >= 2
+    fresh = lio.Lio(lio.LioOptions(scan_capacity=64, num_kfs_in_local_map=2), device="cpu")
+    fresh.apply_correction(dR, dt)
+    np.testing.assert_allclose(fresh.state.R.numpy(), dR, atol=1e-6)
+    np.testing.assert_allclose(fresh.state.t.numpy(), dt, atol=1e-6)
+    np.testing.assert_allclose(fresh.state.eskf.p.numpy(), dt, atol=1e-6)
 
 
 def test_lio_icp_health_stays_ok_like_jax_on_the_40_frame_log():

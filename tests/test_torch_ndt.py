@@ -54,6 +54,21 @@ def _from_numpy(*args, **kwargs):
 U = 2.0 ** -24
 
 
+def test_empty_incremental_puts_its_map_on_the_card_by_default():
+    """Like pointcloud.from_numpy: with neither `origin` nor `device` the
+    table goes to the card, and without one it raises instead of falling
+    back to the CPU; a named device or a tensor origin decides otherwise."""
+    opts = ndt.NdtOptions(method="incremental", map_capacity=64)
+    if torch.cuda.is_available():
+        assert ndt.empty_incremental(opts).keys.device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ndt.empty_incremental(opts)
+    assert ndt.empty_incremental(opts, device="cpu").keys.device.type == "cpu"
+    m = ndt.empty_incremental(opts, origin=torch.ones(3))
+    assert m.keys.device.type == "cpu" and m.origin.tolist() == [1.0, 1.0, 1.0]
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
@@ -81,7 +96,7 @@ def _build(method, jo, to, pts):
     if method == "direct":
         return jndt.build_direct(jc, jo), ndt.build_direct(tc, to)
     return (jndt.update_incremental(jndt.empty_incremental(jo), jc, jo),
-            ndt.update_incremental(ndt.empty_incremental(to), tc, to))
+            ndt.update_incremental(ndt.empty_incremental(to, device="cpu"), tc, to))
 
 
 def _carried(jm):
@@ -186,7 +201,7 @@ def test_incremental_epochs_with_eviction_match_jax():
     traj = jsyn.make_trajectory(num_frames=3, dt=0.5, speed=4.0)
     jo, to = (m.NdtOptions(voxel_size=1.0, method="incremental", map_capacity=1024,
                            dense_dims=(128, 128, 32)) for m in (jndt, ndt))
-    jm, tm = jndt.empty_incremental(jo), ndt.empty_incremental(to)
+    jm, tm = jndt.empty_incremental(jo), ndt.empty_incremental(to, device="cpu")
     for i in range(3):
         pts = jpc.to_numpy(jsyn.render_scan(world, traj.R[i], traj.t[i], max_points=1024,
                                             noise=0.005, seed=i, capacity=1024))
@@ -208,7 +223,8 @@ def test_rebuild_from_moments_matches_update_and_jax():
     jo, to = (m.NdtOptions(method="incremental", voxel_size=1.0, map_capacity=512)
               for m in (jndt, ndt))
     pts = rng.uniform(-4, 4, (600, 3)).astype(np.float32)
-    ref = ndt.update_incremental(ndt.empty_incremental(to), _from_numpy(pts, capacity=1024), to)
+    ref = ndt.update_incremental(ndt.empty_incremental(to, device="cpu"),
+                                 _from_numpy(pts, capacity=1024), to)
     parts = [voxel.voxel_stats(_from_numpy(pts[lo:hi], capacity=1024), to.voxel_size,
                                torch.zeros(3), mode=to.bin_mode)
              for lo, hi in ((0, 150), (150, 400), (400, 600))]
@@ -328,7 +344,7 @@ def test_port_fused_terms_match_port_oracle(scene, method):
     to_o = dataclasses.replace(to_f, use_fused=False)
     tc = _from_numpy(tgt, capacity=2048)
     m = ndt.build_direct(tc, to_f) if method == "direct" else \
-        ndt.update_incremental(ndt.empty_incremental(to_f), tc, to_f)
+        ndt.update_incremental(ndt.empty_incremental(to_f, device="cpu"), tc, to_f)
     sc = _from_numpy(src, capacity=2048)
     weighted = method == "incremental"
     R, t = torch.eye(3), torch.tensor([0.05, -0.02, 0.01])
@@ -374,7 +390,8 @@ def test_empty_map_is_inert(scene, method):
     to = ndt.NdtOptions(method=method, map_capacity=1024)
     empty = pcm.PointCloud(xyz=torch.full((1024, 3), pcm.PAD_COORD),
                            mask=torch.zeros(1024, dtype=torch.bool))
-    m = ndt.build_direct(empty, to) if method == "direct" else ndt.empty_incremental(to)
+    m = (ndt.build_direct(empty, to) if method == "direct"
+         else ndt.empty_incremental(to, device="cpu"))
     t0 = torch.tensor([0.5, -0.5, 0.25])
     res = ndt.scan_match(m, to, _from_numpy(src, capacity=2048), torch.eye(3), t0)
     assert torch.isfinite(res.t).all() and torch.equal(res.t, t0)

@@ -1,6 +1,9 @@
 """Static checks on the port package: it must run where jax is absent, so no
 module under loc_lib_tpu_torch/ (nor chip_smoke.py, nor chip_kernel_study.py)
-may import jax or the JAX package, and every module must import with torch alone."""
+may import jax or the JAX package, and every module must import with torch
+alone. The modules of every slice are covered, 3D SLAM's graph/ included, and
+none sums floats with a scatter-add (CUDA adds those with atomics, so one
+input could give different bits on different runs)."""
 import ast
 import importlib
 import pathlib
@@ -32,6 +35,27 @@ def _sources():
 def test_no_jax_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_every_slice_is_covered():
+    """The checks above walk the whole package; the modules of the 3D SLAM
+    slice are among them."""
+    paths = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    for mod in ("graph/pose_graph.py", "graph/scan_context.py", "pipeline/slam3d.py",
+                "pipeline/lio.py", "models/eskf.py", "utils/lie.py"):
+        assert mod in paths, mod
+
+
+SCATTER_ADDS = ("index_add", "index_add_", "scatter_add", "scatter_add_")
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_scatter_add_sums(path):
+    """Node and voxel sums go through voxel.segment_sum over sorted rows."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+           and n.attr in SCATTER_ADDS]
+    assert not bad, f"{path.relative_to(REPO)} calls {bad}"
 
 
 def test_package_imports_without_jax():
