@@ -35,7 +35,12 @@ an inlier loop, the keyframe ATE lowered by the pose graph and within its
 bound, never LOST, one batched launch per GN iteration of every loop
 registration, two runs bit-equal; the default loop registration
 (p2plane_vox_oct: K1 and K1-batch) at 46 frames; and the pose graph at
-4,096 nodes and 512 loop edges. Launch counters,
+4,096 nodes and 512 loop edges. Then the 2D stack (phase 11):
+Mapping2DDevice.process_scan over bench_suite.py's mapping2d run (80 frames,
+1000 x 1000 grid): submaps, a valid loop, trans RMSE within its bound, two
+runs and the pipelined mode bit-equal; the host-driven Mapping2D against it
+at 48 frames; archives spilled to host memory and matched back on the card
+at 64 frames. Launch counters,
 set to 0 before each path and read after
 it, show each path went through its kernels (one K3 launch per NDT or
 p2line_vox linearization). Then it compares a match with
@@ -106,6 +111,13 @@ SLAM_SHORT_FRAMES = 46
 ATE_LIMIT_SLAM_M = 0.045000 + 0.04
 PGO_NODES = 4096          # Slam3dOptions.sc_capacity
 PGO_LOOPS = 512           # LoopOptions.max_loops
+MAP2D_FRAMES = 80         # bench_suite.py's mapping2d run
+MAP2D_PARITY_FRAMES = 48  # tests/test_mapping2d.py:277
+MAP2D_SPILL_FRAMES = 64   # tests/test_mapping2d.py:320
+# JAX + 0.04 m (Mapping2DDevice on the CPU, 80 frames), capped by
+# tests/test_mapping2d.py:307's 0.08 m
+JAX_RMSE_2D_M = 0.026151   # my CPU run of the JAX package (yaw 0.002486 rad, 6 submaps, 10 loops)
+RMSE_LIMIT_2D_M = min(JAX_RMSE_2D_M + 0.04, 0.08)
 
 
 def _so3_exp(w):
@@ -2558,6 +2570,260 @@ def phase_slam3d_profile(card, eng, graph, opts):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the 2D stack
+# ---------------------------------------------------------------------------
+
+def mapping2d_scans(frames):
+    """bench_suite.py:593-604's workload: a circle of radius 4 m in
+    make_world_2d(extent=10.0, seed=2), frame k at angle 2 pi k / frames,
+    render_scan_2d(..., seed=k), 720 beams. Returns [(xy, valid, yaw, t)]."""
+    from loc_lib_tpu_torch.io import synthetic
+
+    world = synthetic.make_world_2d(extent=10.0, seed=2)
+    out = []
+    for k in range(frames):
+        a = 2.0 * np.pi * k / frames
+        t = np.array([4 * np.cos(a) - 4, 4 * np.sin(a)], np.float32)
+        out.append(synthetic.render_scan_2d(world, a, t, seed=k) + (a, t))
+    return out
+
+
+def mapping2d_options(**kw):
+    """bench_suite.py:606's Mapping2dOptions(max_keyframes_in_submap=16) at
+    the default Grid2dOptions (1000 x 1000 cells at 40 px/m, 41 x 41 field
+    template, 720 polar bins)."""
+    from loc_lib_tpu_torch.pipeline import mapping2d
+
+    return mapping2d.Mapping2dOptions(max_keyframes_in_submap=16, **kw)
+
+
+def _keyframes(eng) -> int:
+    return sum(len(s.frame_ids) for s in eng.submaps)
+
+
+def drive_mapping2d(eng, scans):
+    """process_scan over the scans (then flush when pipelined), each call
+    timed on the host clock between two synchronizes. Returns a dict: the
+    engine, poses (N, 3) [yaw, x, y], ms per call, keyframe flags (sequential
+    runs), trans / yaw RMSE against the ground truth, valid loops."""
+    times, kf = [], []
+    for xy, valid, _, _ in scans:
+        n_kf = _keyframes(eng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.process_scan(xy, valid)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        kf.append(_keyframes(eng) > n_kf)
+    if getattr(eng, "pipelined", False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.flush()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    poses = np.stack([np.r_[th, t] for th, t in eng.frame_poses]).astype(np.float64)
+    yaw = np.array([a for *_, a, _ in scans])
+    gt = np.stack([t for *_, t in scans])
+    dyaw = (poses[:, 0] - yaw + np.pi) % (2 * np.pi) - np.pi
+    return {"engine": eng, "poses": poses, "times": np.asarray(times), "kf": np.asarray(kf),
+            "rmse": float(np.sqrt(np.mean(np.sum((poses[:, 1:] - gt) ** 2, axis=1)))),
+            "yaw_rmse": float(np.sqrt(np.mean(dyaw ** 2))),
+            "loops": sum(1 for l in eng.loops if l.valid)}
+
+
+class _MultiresSpy:
+    """Wraps mapping2d._match_multires while a 2D run is driven: every
+    field the loop registration aligns against must be a tensor on the
+    engine's device (a spilled archive goes back to the card first).
+    Counts the calls, and those against a spilled archive."""
+
+    def __init__(self, device):
+        from loc_lib_tpu_torch.pipeline import mapping2d
+
+        self.m2d, self.device = mapping2d, device
+        self.match, self.submap_match = mapping2d._match_multires, mapping2d.Submap.match_multires
+        self.calls = self.spilled = 0
+
+    def __enter__(self):
+        spy = self
+
+        def match(field, *args):
+            if not (isinstance(field, torch.Tensor) and field.device == spy.device):
+                raise AssertionError(f"multires match on {type(field)} "
+                                     f"{getattr(field, 'device', None)}, not on {spy.device}")
+            spy.calls += 1
+            return spy.match(field, *args)
+
+        def submap_match(sm, *args):
+            spy.spilled += isinstance(sm.field, np.ndarray)
+            return spy.submap_match(sm, *args)
+
+        self.m2d._match_multires, self.m2d.Submap.match_multires = match, submap_match
+        return self
+
+    def __exit__(self, *exc):
+        self.m2d._match_multires, self.m2d.Submap.match_multires = self.match, self.submap_match
+
+
+def _scans_line(label, run, frames):
+    t, kf = run["times"][:frames], run["kf"]
+
+    def p50_p95(x):
+        if not len(x):
+            return "none"
+        return f"{np.percentile(x, 50):.2f} / {np.percentile(x, 95):.2f} ms"
+    return (f"{label}: {frames / (t.sum() / 1e3):.2f} scans/s; keyframe scans p50 / p95 "
+            f"{p50_p95(t[kf])} ({int(kf.sum())}), other scans {p50_p95(t[~kf])} "
+            f"({int((~kf).sum())})")
+
+
+def phase_mapping2d(device, card):
+    """11a-11e on bench_suite.py's mapping2d workload at the default grid:
+    11a Mapping2DDevice sequential, 80 frames (>= 2 submaps, >= 1 valid
+    loop, trans RMSE within JAX on the CPU + 0.04 m and under 0.08 m); 11e a
+    second 11a run (same poses bit for bit; host syncs counted); 11b
+    pipelined + flush (11a's poses bit for bit, >= 2 replays); 11c the
+    host-driven Mapping2D against Mapping2DDevice, 48 frames (within 0.02
+    m, the same submaps, valid loops within 1); 11d archived_device_submaps
+    = 1, 64 frames (>= 2 archives spilled, a valid loop, every multires
+    match on the card, one against a spilled archive, RMSE under 0.1 m).
+    Returns the 11a engine."""
+    from loc_lib_tpu_torch.pipeline import mapping2d, mapping2d_device as m2dd
+
+    scans = mapping2d_scans(MAP2D_FRAMES)
+    opts = mapping2d_options()
+    with _MultiresSpy(device) as spy:
+        run = drive_mapping2d(m2dd.Mapping2DDevice(opts, device=device), scans)
+    eng = run["engine"]
+    if not (len(eng.submaps) >= 2 and run["loops"] >= 1):
+        raise AssertionError(f"11a: {len(eng.submaps)} submaps, {run['loops']} valid loops")
+    if not run["rmse"] <= RMSE_LIMIT_2D_M:
+        raise AssertionError(f"11a: trans RMSE {run['rmse']:.4f} m over {RMSE_LIMIT_2D_M:.4f}")
+    print(f"phase 11a mapping2d, Mapping2DDevice, {MAP2D_FRAMES} frames, 1000 x 1000 grid "
+          f"[{card}]: {len(eng.submaps)} submaps, {run['loops']} valid loops of {len(eng.loops)}, "
+          f"{spy.calls} multires matches (all on the card); trans RMSE {run['rmse']:.4f} m "
+          f"(bound {RMSE_LIMIT_2D_M:.4f}), yaw RMSE {run['yaw_rmse']:.4f} rad; "
+          + _scans_line("host clock", run, MAP2D_FRAMES), flush=True)
+
+    syncs, again = _count_syncs(lambda: drive_mapping2d(m2dd.Mapping2DDevice(opts, device=device),
+                                                        scans))
+    if not np.array_equal(again["poses"], run["poses"]):
+        gap = np.abs(again["poses"] - run["poses"]).max()
+        raise AssertionError(f"11e: two sequential runs differ by {gap:.3g}")
+    print(f"phase 11e mapping2d run-to-run [{card}]: a second {MAP2D_FRAMES}-frame run gives the "
+          f"same poses bit for bit (the dense SE(2) solves included: {len(eng.loops)} loops); "
+          f"{syncs / MAP2D_FRAMES:.1f} host syncs per scan ({syncs} over the run, "
+          "torch.cuda.set_sync_debug_mode)", flush=True)
+
+    pip = drive_mapping2d(m2dd.Mapping2DDevice(opts, device=device, pipelined=True), scans)
+    if not (np.array_equal(pip["poses"], run["poses"]) and pip["engine"].replays >= 2):
+        raise AssertionError(f"11b: pipelined poses differ from sequential or "
+                             f"{pip['engine'].replays} replays")
+    print(f"phase 11b mapping2d pipelined + flush [{card}]: poses equal 11a's bit for bit, "
+          f"{pip['engine'].replays} replays; {MAP2D_FRAMES / (pip['times'].sum() / 1e3):.2f} "
+          f"scans/s (11a {MAP2D_FRAMES / (run['times'].sum() / 1e3):.2f}, host clock)", flush=True)
+
+    scans_c = mapping2d_scans(MAP2D_PARITY_FRAMES)
+    host = drive_mapping2d(mapping2d.Mapping2D(opts, device=device), scans_c)
+    dev = drive_mapping2d(m2dd.Mapping2DDevice(opts, device=device), scans_c)
+    gap = np.linalg.norm(host["poses"][:, 1:] - dev["poses"][:, 1:], axis=1).max()
+    n_sub = (len(host["engine"].submaps), len(dev["engine"].submaps))
+    if not (gap < 0.02 and n_sub[0] == n_sub[1] and abs(host["loops"] - dev["loops"]) <= 1):
+        raise AssertionError(f"11c: host vs device {gap:.4f} m, submaps {n_sub}, valid loops "
+                             f"{host['loops']} / {dev['loops']}")
+    print(f"phase 11c mapping2d host-driven Mapping2D vs Mapping2DDevice, "
+          f"{MAP2D_PARITY_FRAMES} frames [{card}]: largest pose gap {gap:.5f} m (bound 0.02), "
+          f"{n_sub[0]} submaps each, valid loops {host['loops']} / {dev['loops']}; trans RMSE "
+          f"{host['rmse']:.4f} / {dev['rmse']:.4f} m; host-driven "
+          f"{MAP2D_PARITY_FRAMES / (host['times'].sum() / 1e3):.2f} scans/s", flush=True)
+
+    scans_d = mapping2d_scans(MAP2D_SPILL_FRAMES)
+    with _MultiresSpy(device) as spy:
+        sp = drive_mapping2d(m2dd.Mapping2DDevice(mapping2d_options(archived_device_submaps=1),
+                                                  device=device), scans_d)
+    spilled = [s.index for s in sp["engine"].submaps[:-1] if isinstance(s.field, np.ndarray)]
+    if not (len(spilled) >= 2 and sp["loops"] >= 1 and spy.spilled >= 1
+            and sp["rmse"] < 0.1):
+        raise AssertionError(f"11d: spilled {spilled}, {sp['loops']} valid loops, "
+                             f"{spy.spilled} matches against spilled archives, RMSE "
+                             f"{sp['rmse']:.4f} m")
+    print(f"phase 11d mapping2d archived_device_submaps=1, {MAP2D_SPILL_FRAMES} frames "
+          f"[{card}]: archives {spilled} spilled to host memory, {spy.calls} multires matches "
+          f"all on the card ({spy.spilled} against a spilled archive), {sp['loops']} valid "
+          f"loops, trans RMSE {sp['rmse']:.4f} m (bound 0.1)", flush=True)
+    return eng
+
+
+def _profiled_call(fn):
+    """Device launches, summed device ms and host ms (profiler on, device
+    activity only) of one fn() call: _device_launches with the host clock."""
+    out = {}
+
+    def timed():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out["host_ms"] = (time.perf_counter() - t0) * 1e3
+    n, dev_ms = _device_launches(timed)
+    return n, dev_ms, out["host_ms"]
+
+
+def phase_mapping2d_profile(device, card, eng):
+    """After every host-clock timing: device time of one field regeneration
+    and one polar carve at 1000 x 1000; launches, device ms, host ms and
+    device busy of keyframe scans and of scans without a keyframe (frames
+    60-69 of a fresh 11a run); one optimize() of the 11a engine."""
+    from loc_lib_tpu_torch.models import grid2d
+    from loc_lib_tpu_torch.pipeline import mapping2d_device as m2dd
+
+    gopts = eng.opts.grid
+    st = eng.dstate
+    grid = grid2d.OccupancyGrid(counts=st.counts, touched=st.touched)
+    pts = torch.from_numpy(mapping2d_scans(MAP2D_FRAMES)[5][0]).to(device)
+    valid = torch.ones(pts.shape[0], dtype=torch.bool, device=device)
+    origin = torch.zeros(2, device=device)
+    parts = {}
+    for label, fn in (("field", lambda: grid2d.likelihood_field(grid, gopts)),
+                      ("carve", lambda: grid2d.add_scan(grid, gopts, pts, valid, origin))):
+        fn()
+        n, ms, host = _profiled_call(fn)
+        parts[label] = (n, ms, host)
+    print(f"phase 11 profile at 1000 x 1000 [{card}]: likelihood_field {parts['field'][1]:.4f} "
+          f"ms of device time in {parts['field'][0]} launches (host {parts['field'][2]:.3f} ms), "
+          f"add_scan (polar carve) {parts['carve'][1]:.4f} ms in {parts['carve'][0]} launches "
+          f"(host {parts['carve'][2]:.3f} ms)", flush=True)
+
+    scans = mapping2d_scans(MAP2D_FRAMES)
+    fresh = m2dd.Mapping2DDevice(eng.opts, device=device)
+    for xy, valid_k, _, _ in scans[:60]:
+        fresh.process_scan(xy, valid_k)
+    rows = {True: [], False: []}
+    # each of frames 60-69, then the same scan again (the robot standing
+    # still: no keyframe); scans that closed a loop are left out
+    for xy, valid_k, _, _ in scans[60:70]:
+        for _ in range(2):
+            n_kf, n_loops = _keyframes(fresh), len(fresh.loops)
+            n, ms, host = _profiled_call(lambda: fresh.process_scan(xy, valid_k))
+            if n and len(fresh.loops) == n_loops:
+                rows[_keyframes(fresh) > n_kf].append((n, ms, host))
+    for kf, label in ((True, "keyframe scan"), (False, "scan without keyframe")):
+        r = np.asarray(rows[kf])
+        if not len(r):
+            print(f"phase 11 profile {label}: not measured (no such scan without a new loop, "
+                  "or no device event recorded)", flush=True)
+            continue
+        print(f"phase 11 profile {label} (frames 60-69, {len(r)} scans, medians) [{card}]: "
+              f"{np.median(r[:, 0]):.0f} device launches, device {np.median(r[:, 1]):.3f} ms vs "
+              f"host {np.median(r[:, 2]):.3f} ms (profiler on), device busy "
+              f"{100 * np.sum(r[:, 1]) / np.sum(r[:, 2]):.1f}%", flush=True)
+    n, ms, host = _profiled_call(eng.optimize)
+    busy = "not measured" if n == 0 else f"{100 * ms / host:.1f}%"
+    print(f"phase 11 profile Mapping2DDevice.optimize() ({len(eng.submaps)} submaps, "
+          f"{len(eng.loops)} loops, dense SE(2) solve) [{card}]: {n} device launches, device "
+          f"{ms:.3f} ms vs host {host:.3f} ms, device busy {busy}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: where the time goes
 # ---------------------------------------------------------------------------
 
@@ -2823,6 +3089,11 @@ def main() -> int:
     pgo_graph_, pgo_opts = phase_pgo_full_width(device, card)
     print(f"phase 10 took {time.perf_counter() - t_slam:.1f} s of command time (10a-10c; the "
           f"profiled optimize() calls come after phase 6) [{card}]", flush=True)
+    # the 2D stack: torch ops only (no kernel of this repo on its path)
+    t_2d = time.perf_counter()
+    m2d_eng = phase_mapping2d(device, card)
+    print(f"phase 11 took {time.perf_counter() - t_2d:.1f} s of command time (11a-11e; the "
+          f"profile comes after phase 10's) [{card}]", flush=True)
     # every profiler run comes after the paths' host-clock timings
     phase_headline_timing(device, card, workload, target)
     phase_gather_before_after(device, card, workload, target)
@@ -2836,6 +3107,7 @@ def main() -> int:
     phase_profile(device, card, workload, target,
                   Path(__file__).resolve().parent / "chiprun_out")
     phase_slam3d_profile(card, slam_eng, pgo_graph_, pgo_opts)
+    phase_mapping2d_profile(device, card, m2d_eng)
 
     src = {"p2plane_fused_terms": ("loc_lib_tpu_torch/csrc/p2plane_fused_terms.cu",
                                    "loc_lib_tpu/ops/pallas_kernels.py:75"),

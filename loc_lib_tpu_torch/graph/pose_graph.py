@@ -10,7 +10,9 @@
     have the same bits on every run (a float `index_add_` adds with atomics
     on CUDA) and, on the CPU, the edge order of JAX's segment_sum;
   * block-Jacobi preconditioned CG (`solve_pcg`) never forms the (6M, 6M)
-    system; the dense direct solve is kept as the oracle;
+    system; the dense direct solve is kept as the oracle, and is the 2D
+    graph's default (its H is summed by `voxel.segment_sum` too, never by an
+    accumulating scatter);
   * Cauchy / Huber reweighting, and `optimize_two_phase`: pre-gate, solve,
     chi2-gate the loop edges, solve again without the outliers.
 
@@ -98,16 +100,16 @@ class Se3Edges(NamedTuple):
     valid: torch.Tensor    # (E,) bool
 
 
-def edges_to(edges: Se3Edges, device) -> Se3Edges:
-    """`edges` (numpy or tensors) as tensors on `device`: indices int64,
-    floats float32, flags bool."""
+def edges_to(edges, device):
+    """`edges` (Se3Edges or pose_graph2d.Se2Edges, of numpy or tensors) as
+    tensors on `device`: indices int64, flags bool, the rest float32."""
+    dtypes = {"i": torch.int64, "j": torch.int64, "is_loop": torch.bool, "valid": torch.bool}
+
     def conv(x, dtype):
         return torch.as_tensor(np.array(x) if not isinstance(x, torch.Tensor) else x,
                                device=device).to(dtype)
-    return Se3Edges(i=conv(edges.i, torch.int64), j=conv(edges.j, torch.int64),
-                    R=conv(edges.R, torch.float32), t=conv(edges.t, torch.float32),
-                    info=conv(edges.info, torch.float32),
-                    is_loop=conv(edges.is_loop, torch.bool), valid=conv(edges.valid, torch.bool))
+    return type(edges)(**{k: conv(v, dtypes.get(k, torch.float32))
+                          for k, v in edges._asdict().items()})
 
 
 def _residuals(Ri, ti, Rj, tj, Rm, tm):
@@ -189,13 +191,11 @@ def _node_sum(values_i, values_j, seg: EdgeSegments):
             + voxel.segment_sum(values_j[seg.by_j], seg.off_j))
 
 
-def _assemble_blocks(R, t, edges: Se3Edges, opts: PgoOptions, m: int,
-                     seg: Optional[EdgeSegments] = None):
-    """Linearize all edges and assemble the block-sparse normal equations:
-    Hdiag (M, 6, 6) with damping and the gauge prior, Hij (E, 6, 6) off-
-    diagonal blocks (zero for invalid edges), b (M, 6), per-edge chi2."""
-    seg = seg if seg is not None else edge_segments(edges.i, edges.j, m)
-    r, Ji, Jj = _linearize(R[edges.i], t[edges.i], R[edges.j], t[edges.j], edges.R, edges.t)
+def normal_equations(r, Ji, Jj, edges, opts: PgoOptions, m: int, seg: EdgeSegments):
+    """Block-sparse normal equations of linearized edges (r (E, k), Ji / Jj
+    (E, k, k); any tangent size k): Hdiag (M, k, k) with damping and the
+    gauge prior on node 0, Hij (E, k, k) off-diagonal blocks (zero for
+    invalid edges), b (M, k), per-edge chi2. Shared by the SE(2) graph."""
     chi2 = _chi2(r, edges.info)
     w = _robust_weight(opts, chi2) * edges.valid.to(r.dtype)
     info_w = edges.info * w[:, None, None]
@@ -206,29 +206,41 @@ def _assemble_blocks(R, t, edges: Se3Edges, opts: PgoOptions, m: int,
     bi = -torch.einsum("eki,ekl,el->ei", Ji, info_w, r)
     bj = -torch.einsum("eki,ekl,el->ei", Jj, info_w, r)
 
-    eye6 = torch.eye(6, dtype=torch.float32, device=R.device)
-    Hdiag = _node_sum(Hii, Hjj, seg) + opts.damping * eye6
-    gauge = torch.zeros((m, 1, 1), dtype=torch.float32, device=R.device)
+    eye = torch.eye(r.shape[-1], dtype=torch.float32, device=r.device)
+    Hdiag = _node_sum(Hii, Hjj, seg) + opts.damping * eye
+    gauge = torch.zeros((m, 1, 1), dtype=torch.float32, device=r.device)
     gauge[0] = opts.gauge_weight
-    Hdiag = Hdiag + gauge * eye6
+    Hdiag = Hdiag + gauge * eye
     b = _node_sum(bi, bj, seg)
     return Hdiag, Hij * edges.valid[:, None, None], b, chi2
 
 
-def _solve_dense(Hdiag, Hij, b, edges: Se3Edges, m: int):
-    """Oracle path: densify (6M, 6M) and direct-solve. Small graphs only."""
-    dev = Hdiag.device
-    H = torch.zeros((m, 6, m, 6), dtype=torch.float32, device=dev)
-    idx = torch.arange(m, device=dev)
-    H[idx, :, idx, :] = Hdiag
-    rows = torch.arange(6, device=dev)[None, :, None]
-    cols = torch.arange(6, device=dev)[None, None, :]
-    ei, ej = edges.i[:, None, None], edges.j[:, None, None]
-    # block (a, b) of edge e lands at H[i_e, a, j_e, b]; repeated pairs add up
-    H.index_put_((ei, rows, ej, cols), Hij, accumulate=True)
-    H.index_put_((ej, rows, ei, cols), Hij.transpose(-1, -2), accumulate=True)
-    dx = torch.linalg.solve(H.reshape(6 * m, 6 * m), b.reshape(6 * m))
-    return dx.reshape(m, 6)
+def _assemble_blocks(R, t, edges: Se3Edges, opts: PgoOptions, m: int,
+                     seg: Optional[EdgeSegments] = None):
+    """Linearize all edges and assemble the block-sparse normal equations
+    (`normal_equations`)."""
+    seg = seg if seg is not None else edge_segments(edges.i, edges.j, m)
+    r, Ji, Jj = _linearize(R[edges.i], t[edges.i], R[edges.j], t[edges.j], edges.R, edges.t)
+    return normal_equations(r, Ji, Jj, edges, opts, m, seg)
+
+
+def _solve_dense(Hdiag, Hij, b, edges, m: int):
+    """Densify the (kM, kM) system and direct-solve: the SE(3) graph's
+    oracle, the SE(2) graph's default (small graphs; any block size k).
+    Scatter-free: the diagonal blocks, Hij at
+    (i, j) and Hij^T at (j, i) are sorted (stably) by their cell i * M + j
+    and repeated cells summed by `voxel.segment_sum` over all M^2 cells, in
+    the order diagonal, then edges in edge order: the same bits on every
+    run (an accumulating index_put_ adds with atomics on CUDA)."""
+    k = Hdiag.shape[-1]
+    idx = torch.arange(m, device=Hdiag.device)
+    e_i, e_j = edges.i.long(), edges.j.long()
+    cell = torch.cat([idx * m + idx, e_i * m + e_j, e_j * m + e_i])
+    blocks = torch.cat([Hdiag, Hij, Hij.transpose(-1, -2)])
+    order = torch.argsort(cell, stable=True)
+    H = voxel.segment_sum(blocks[order], voxel.segment_offsets(cell[order], m * m))
+    H = H.reshape(m, m, k, k).transpose(1, 2).reshape(k * m, k * m)
+    return torch.linalg.solve(H, b.reshape(k * m)).reshape(m, k)
 
 
 class _Operator(NamedTuple):
@@ -379,8 +391,9 @@ def odometry_edges(poses_R, poses_t, info_scale: float = 1e4) -> Se3Edges:
                     valid=torch.ones((m - 1,), dtype=torch.bool, device=dev))
 
 
-def concat_edges(a: Se3Edges, b: Se3Edges) -> Se3Edges:
-    return Se3Edges(*[torch.cat([x, y]) for x, y in zip(a, b)])
+def concat_edges(a, b):
+    """Rows of b after those of a (Se3Edges or Se2Edges of tensors)."""
+    return type(a)(*[torch.cat([x, y]) for x, y in zip(a, b)])
 
 
 def make_pad_edges(k: int, device) -> Se3Edges:

@@ -1,5 +1,6 @@
 """Carry engine state across from host arrays (the engine has no weights:
-its state is the target tables, the ESKF state and the LIO / Loc state).
+its state is the target tables, the ESKF state, the LIO / Loc state and the
+2D stack's occupancy grids and device-resident mapping state).
 
 Each function takes a dict of numpy arrays -- e.g. a state built elsewhere
 and flattened with `tree_map(np.asarray, state)._asdict()`, whose nested
@@ -12,9 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models import eskf, icp, loam, ndt
+from ..models import eskf, grid2d, icp, loam, ndt
 from ..ops import voxel
-from ..pipeline import lio, loc
+from ..pipeline import lio, loc, mapping2d_device
 
 
 def _fields(d) -> dict:
@@ -115,3 +116,20 @@ def loc_state_from_numpy(d, device) -> loc.LocState:
         eskf=eskf_state_from_numpy(f["eskf"], device),
         initialized=bool(np.asarray(f["initialized"])),
     )
+
+
+def occupancy_grid_from_numpy(d, device) -> grid2d.OccupancyGrid:
+    f = _fields(d)
+    return grid2d.OccupancyGrid(counts=_tensor(f["counts"], device),
+                                touched=_tensor(f["touched"], device))
+
+
+def mapping2d_device_state_from_numpy(d, device) -> mapping2d_device.Mapping2dDeviceState:
+    """The JAX engine's Mapping2dDeviceState; its device-side counts
+    (frames, submap keyframes, ring pushes) become the host ints the port
+    keeps them as."""
+    f = _fields(d)
+    ints = ("num_frames", "recent_count", "frame_count")
+    return mapping2d_device.Mapping2dDeviceState(
+        **{k: int(np.asarray(f[k])) if k in ints else _tensor(f[k], device)
+           for k in mapping2d_device.Mapping2dDeviceState._fields})

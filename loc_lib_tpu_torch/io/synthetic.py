@@ -1,6 +1,7 @@
-"""Synthetic LiDAR world / trajectory / scan generator (numpy; copy of the
-3D part of loc_lib_tpu/io/synthetic.py, kept here because the JAX package
-cannot be imported without jax). The same seed gives bit-identical arrays.
+"""Synthetic LiDAR world / trajectory / scan generator (numpy; copy of
+loc_lib_tpu/io/synthetic.py's 3D and 2D generators, kept here because the JAX
+package cannot be imported without jax). The same seed gives bit-identical
+arrays.
 """
 
 from __future__ import annotations
@@ -129,6 +130,45 @@ def annotate_rings(pc: PointCloud, num_rings: int = 16,
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return PointCloud(xyz=t(xyz[order]), mask=t(mask[order]),
                       ring=t(np.where(mask[order], ring[order], -1)))
+
+
+def make_world_2d(extent: float = 15.0, points_per_wall: int = 600,
+                  seed: int = 0) -> np.ndarray:
+    """2D wall-point world for the 2D mapping stack: a room with inner walls."""
+    rng = np.random.default_rng(seed)
+    e = extent
+    segs = [
+        ((-e, -e), (e, -e)), ((e, -e), (e, e)), ((e, e), (-e, e)), ((-e, e), (-e, -e)),
+        ((-e / 2, -e), (-e / 2, 0.0)), ((0.0, e), (0.0, e / 3)),
+        ((e / 3, -e / 2), (e, -e / 2)),
+    ]
+    pts = []
+    for (x0, y0), (x1, y1) in segs:
+        s = rng.uniform(0, 1, points_per_wall)
+        pts.append(np.stack([x0 + (x1 - x0) * s, y0 + (y1 - y0) * s], axis=1))
+    out = np.concatenate(pts)
+    return (out + rng.normal(0, 0.01, out.shape)).astype(np.float32)
+
+
+def render_scan_2d(world2d: np.ndarray, theta: float, t: np.ndarray,
+                   max_range: float = 12.0, max_points: int = 720,
+                   noise: float = 0.01, seed: int = 0):
+    """Range-limited 2D sample in the sensor frame. Returns (xy, valid) as
+    numpy: (max_points, 2) float32 and (max_points,) bool."""
+    rng = np.random.default_rng(seed)
+    d = world2d - t
+    close = np.linalg.norm(d, axis=1) <= max_range
+    pts = world2d[close]
+    if len(pts) > max_points:
+        pts = pts[rng.choice(len(pts), max_points, replace=False)]
+    c, s = np.cos(theta), np.sin(theta)
+    R = np.array([[c, -s], [s, c]])
+    local = (pts - t) @ R + rng.normal(0, noise, (len(pts), 2))
+    xy = np.zeros((max_points, 2), np.float32)
+    valid = np.zeros((max_points,), bool)
+    xy[: len(local)] = local
+    valid[: len(local)] = True
+    return xy, valid
 
 
 def ideal_imu(traj: Trajectory, rate_hz: float = 100.0,

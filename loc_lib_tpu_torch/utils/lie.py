@@ -6,7 +6,8 @@ rotations are 3x3 matrices acting on column vectors, poses are (R, t) pairs
 with `apply(R, t, x) = R @ x + t`, and the Gauss-Newton retraction is the
 right perturbation on SO(3) with an additive translation update. Twists are
 [w, v], rotation first. The SE(3) exp / log, adjoint and closed-form inverse
-Jacobians serve the pose graph (graph/pose_graph.py).
+Jacobians serve the pose graph (graph/pose_graph.py); the SE(2) functions at
+the end serve the 2D stack.
 """
 
 from __future__ import annotations
@@ -252,3 +253,36 @@ def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def se3_from_matrix(M: torch.Tensor):
     return M[..., :3, :3], M[..., :3, 3]
+
+
+# ---------------------------------------------------------------------------
+# SE(2) (the 2D stack): a pose is (theta, t) with t (..., 2)
+# ---------------------------------------------------------------------------
+
+def se2_apply(theta, t, pts):
+    """(...,), (..., 2), (..., N, 2) -> the points rotated by theta and
+    translated by t."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    x = c[..., None] * pts[..., 0] - s[..., None] * pts[..., 1]
+    y = s[..., None] * pts[..., 0] + c[..., None] * pts[..., 1]
+    return torch.stack([x, y], dim=-1) + t[..., None, :]
+
+
+def se2_compose(th_a, t_a, th_b, t_b):
+    """(th_a, t_a) * (th_b, t_b); the angle is not wrapped."""
+    c, s = torch.cos(th_a), torch.sin(th_a)
+    tx = t_a[..., 0] + c * t_b[..., 0] - s * t_b[..., 1]
+    ty = t_a[..., 1] + s * t_b[..., 0] + c * t_b[..., 1]
+    return th_a + th_b, torch.stack([tx, ty], dim=-1)
+
+
+def se2_inverse(theta, t):
+    c, s = torch.cos(theta), torch.sin(theta)
+    tx = -(c * t[..., 0] + s * t[..., 1])
+    ty = -(-s * t[..., 0] + c * t[..., 1])
+    return -theta, torch.stack([tx, ty], dim=-1)
+
+
+def wrap_angle(a):
+    """Wrap angle(s) to (-pi, pi], the reference's KeepAngleInPI."""
+    return torch.atan2(torch.sin(a), torch.cos(a))

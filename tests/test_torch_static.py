@@ -39,23 +39,48 @@ def test_no_jax_imports(path):
 
 def test_every_slice_is_covered():
     """The checks above walk the whole package; the modules of the 3D SLAM
-    slice are among them."""
+    slice and of the 2D stack are among them."""
     paths = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
     for mod in ("graph/pose_graph.py", "graph/scan_context.py", "pipeline/slam3d.py",
-                "pipeline/lio.py", "models/eskf.py", "utils/lie.py"):
+                "pipeline/lio.py", "models/eskf.py", "utils/lie.py", "models/grid2d.py",
+                "graph/pose_graph2d.py", "pipeline/mapping2d.py",
+                "pipeline/mapping2d_device.py", "io/synthetic.py", "io/convert.py"):
         assert mod in paths, mod
 
 
 SCATTER_ADDS = ("index_add", "index_add_", "scatter_add", "scatter_add_")
+# these add (with atomics on CUDA) when called with accumulate=True
+ACCUMULATING_PUTS = ("index_put", "index_put_", "put", "put_")
+
+
+def _accumulating_put(node) -> bool:
+    return (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+            and node.func.attr in ACCUMULATING_PUTS
+            and any(kw.arg == "accumulate" and not (isinstance(kw.value, ast.Constant)
+                                                    and kw.value.value is False)
+                    for kw in node.keywords))
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(REPO)))
 def test_no_scatter_add_sums(path):
-    """Node and voxel sums go through voxel.segment_sum over sorted rows."""
+    """Node, voxel and dense-matrix sums go through voxel.segment_sum over
+    sorted rows: no scatter-add, and no index_put / put with accumulate."""
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
            and n.attr in SCATTER_ADDS]
+    bad += [n.func.attr + "(accumulate=...)" for n in ast.walk(tree) if _accumulating_put(n)]
     assert not bad, f"{path.relative_to(REPO)} calls {bad}"
+
+
+def test_accumulating_puts_are_caught():
+    """The check above sees the accumulating forms and passes the plain ones."""
+    calls = {"H.index_put_((i, j), v, accumulate=True)": True,
+             "torch.index_put(H, (i,), v, accumulate=flag)": True,
+             "H.put_(idx, v, accumulate=True)": True,
+             "H.index_put_((i, j), v)": False,
+             "H.index_put_((i, j), v, accumulate=False)": False}
+    for src, caught in calls.items():
+        assert _accumulating_put(ast.parse(src).body[0].value) == caught, src
 
 
 def test_package_imports_without_jax():
