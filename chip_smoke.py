@@ -40,7 +40,21 @@ Mapping2DDevice.process_scan over bench_suite.py's mapping2d run (80 frames,
 1000 x 1000 grid): submaps, a valid loop, trans RMSE within its bound, two
 runs and the pipelined mode bit-equal; the host-driven Mapping2D against it
 at 48 frames; archives spilled to host memory and matched back on the card
-at 64 frames. Launch counters,
+at 64 frames. Then the distributed layer (phase 12) on torch.distributed:
+12a a world of one rank (NCCL) through the sharded pipelines at a (1, 1)
+mesh: LioSharded on phase 5b's log (ndt_inc; ATE, the gap to 5b's
+single-device run), Slam3dSharded on 64 frames of the 3D SLAM log (loops,
+ATE lowered by the pose graph, the correction written through the sharded
+map) and LocSharded on phase 7's run (ATE, no shard overflow, one K1 launch
+per Gauss-Newton iteration); 12b several ranks spawned on the one card
+(gloo) at meshes (2, 2) and (1, 4): the headline target sharded, the
+sharded ICP and direct-NDT matches against the single-device ones, unique
+voxel ownership, LioSharded with per-shard tables below the live map, the
+edge-sharded two-phase pose graph on phase 10c's graph, every rank's K1
+and K3 against their plain versions on its own shard, and every rank's
+poses equal to rank 0's bits. Phase 13 runs the leaves on the card:
+bfnn.knn against a float64 oracle and voxel.knn, the filters, the ring
+search match and the reflector fix. Launch counters,
 set to 0 before each path and read after
 it, show each path went through its kernels (one K3 launch per NDT or
 p2line_vox linearization). Then it compares a match with
@@ -48,6 +62,9 @@ the gather in torch ops against the shipped one (same bits; launches per
 Gauss-Newton iteration), and only then opens the profiler: device time per
 kernel call, and the time of the paths broken down per layer
 (torch.profiler tables go to an output directory beside this script).
+
+`python3 chip_smoke.py --cards` runs only phase 12b, one rank a card over
+NCCL, on a machine with 4 cards or more.
 
 Prints one line per phase, then a JSON line with the kernels, then the
 card's name and power limit, and as its last line
@@ -1356,7 +1373,8 @@ def phase_lio(device, card, matcher="icp", label="phase 5", ate_limit=ATE_LIMIT_
     """LIO_FRAMES frames of the demo log (capacity 8192, yaw rate 0, 2 m/s)
     through Lio.add_measure after a static IMU init from the first 150
     samples. Returns (options, the state the last scan was matched against,
-    the last scan, its StepResult, the GN iterations of the whole run)."""
+    the last scan, its StepResult, the GN iterations of the whole run, the
+    per-frame poses)."""
     from loc_lib_tpu_torch.eval import metrics
 
     log = demo_log()
@@ -1383,7 +1401,7 @@ def phase_lio(device, card, matcher="icp", label="phase 5", ate_limit=ATE_LIMIT_
           f"p50 {np.percentile(steady, 50):.2f} ms/scan, p95 "
           f"{np.percentile(steady, 95):.2f} ms/scan over frames {LIO_WARMUP}-"
           f"{LIO_FRAMES - 1} (host clock) [{card}]", flush=True)
-    return opts, before, scan, out, int(np.sum(iters))
+    return opts, before, scan, out, int(np.sum(iters)), poses
 
 
 def _modes_on_map(kernel, name, target, opts, scan, modes):
@@ -2964,6 +2982,668 @@ def _profile_lio(device, card, out_dir, matcher):
           f"launches, device {dev_ms:.3f} ms vs host {host_ms:.3f} ms [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the distributed layer (parallel/, pipeline/*_sharded.py)
+# ---------------------------------------------------------------------------
+
+SHARDED_GAP_M = 0.02          # tests/test_map_shard.py:294: sharded vs single-device engine
+SHARDED_MATCH_GAP = 2e-3      # tests/test_map_shard.py:65
+SHARDED_PGO_GAP = 3e-3        # tests/test_parallel.py:120-121
+SLAM_SHARDED_FRAMES = 64      # bench_suite.py:257-338's slam3d_sharded run
+# the JAX package's Slam3dSharded on that run, one run on the CPU at a (1, 1)
+# mesh: 32 keyframes, 68 loops, keyframe ATE 0.051965 -> 0.022767 m; plus
+# 0.04 m, PERF.md section 2's rule
+ATE_LIMIT_SLAM_SHARDED_M = 0.022767 + 0.04
+# LioSharded at (1, 4): per-shard tables of 8,192 voxels, below the live map
+# (16,182 voxels over the 40 frames, 2,916-5,040 a shard, in one CPU run)
+LIO_SHARD_MAP_CAPACITY = 8192
+MESHES_12B = ((2, 2), (1, 4))
+
+
+class _Spy:
+    """Wraps `module.name` while a path runs and records each call's
+    result (or what `keep` makes of it)."""
+
+    def __init__(self, module, name, keep=lambda r: r):
+        self.module, self.name, self.keep = module, name, keep
+        self.orig = getattr(module, name)
+        self.calls = []
+
+    def __call__(self, *args, **kw):
+        res = self.orig(*args, **kw)
+        self.calls.append(self.keep(res))
+        return res
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+class _NcclWorld:
+    """12a's world: one rank, NCCL, joined through a file store in a
+    temporary directory; left (destroyed) on exit."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        import tempfile
+
+        import torch.distributed as dist
+        from loc_lib_tpu_torch.parallel import multihost
+
+        self.tmp = tempfile.TemporaryDirectory()
+        multihost.init(f"file://{self.tmp.name}/store", 1, 0, self.device)
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"a one-rank world on the card must use NCCL, got "
+                                 f"{dist.get_backend()}")
+        return multihost.global_mesh(dp=1, mp=1)
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        self.tmp.cleanup()
+
+
+def phase_lio_sharded(device, card, mesh, single_poses):
+    """12a lio_sharded_mapping (bench_suite.py:196-254): LioSharded over
+    phase 5b's log and options (ndt_inc, 1 m voxels, ESKF, 150 IMU-init
+    samples, 40 frames) at a (1, 1) mesh. Fails unless ATE <= 0.10 m, never
+    LOST, and the largest pose gap to phase 5b's single-device run is under
+    SHARDED_GAP_M. Returns (the summed GN iterations, the poses)."""
+    from loc_lib_tpu_torch.eval import metrics
+    from loc_lib_tpu_torch.pipeline import lio_sharded
+
+    log = demo_log()
+    eng = lio_sharded.LioSharded(mesh, lio_options("ndt_inc"), device=device)
+    for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
+        eng.init_imu(g, a, t)
+    iters, times, idxs = 0, [], []
+    for mg in log.measures(imu_capacity=64):
+        scan = log.frame(mg.scan_index, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.add_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        iters += out.iterations
+        idxs.append(mg.scan_index)
+    poses = np.stack(eng.poses)
+    ate = metrics.ate(poses, log.gt_poses[np.asarray(idxs)])
+    gap = float(np.linalg.norm(poses[:, :3, 3] - single_poses[:, :3, 3], axis=1).max())
+    if not (ate.rmse <= ATE_LIMIT_NDT_INC_M and gap < SHARDED_GAP_M):
+        raise AssertionError(f"12a LioSharded: ATE {ate.rmse:.4f} m, gap to 5b {gap:.3g} m")
+    if eng.health.status == eng.health.LOST:
+        raise AssertionError("12a LioSharded: tracking health LOST")
+    steady = np.asarray(times[LIO_WARMUP:])
+    print(f"phase 12a lio_sharded_mapping (mesh (1, 1), NCCL; {LIO_FRAMES} frames, ndt_inc + "
+          f"ESKF, capacity 8192): ATE RMSE {ate.rmse:.4f} m (bound {ATE_LIMIT_NDT_INC_M}), "
+          f"{len(eng.kf_poses)} keyframes, live voxels {eng.live_voxels_per_shard().tolist()}, "
+          f"health {eng.health.status}; largest pose gap to phase 5b's single-device ndt_inc "
+          f"{gap:.3g} m (bound {SHARDED_GAP_M}), same bits: "
+          f"{np.array_equal(poses, single_poses)}; p50 {np.percentile(steady, 50):.2f} ms/scan "
+          f"(host clock) [{card}]", flush=True)
+    return iters, poses
+
+
+def slam3d_sharded_options():
+    """bench_suite.py:257-338's configuration: LIO ndt_inc (1 m voxels) +
+    ESKF, 0.4 m keyframe gate, ScanContext with an 8-keyframe exclusion and
+    a 0.25 gate, loops gated at 60 effective points and 0.1 m^2, sc_topk 3,
+    p2plane_vox loop registration (20 iterations, 0.5 m gate, 2 m leaves),
+    the pose graph once at the end."""
+    from loc_lib_tpu_torch.graph import scan_context as sc
+    from loc_lib_tpu_torch.models import icp, ndt
+    from loc_lib_tpu_torch.pipeline import lio, slam3d
+
+    return slam3d.Slam3dOptions(
+        lio=lio.LioOptions(matcher="ndt_inc", ndt=ndt.NdtOptions(method="incremental",
+                                                                 voxel_size=1.0),
+                           scan_capacity=SLAM_CAPACITY, with_eskf=True, kf_distance=0.4),
+        sc=sc.ScanContextOptions(exclude_recent=8, dist_threshold=0.25),
+        loop=slam3d.LoopOptions(min_keyframe_gap=8, max_candidate_dist=10.0,
+                                min_effective_pts=60, max_chi2_per_pt=0.1, optimize_every=100,
+                                sc_topk=3),
+        loop_icp=icp.IcpOptions(method="p2plane_vox", max_iteration=20, max_plane_distance=0.5,
+                                grid_leaf=2.0, plane_min_pts=4))
+
+
+def phase_slam3d_sharded(device, card, mesh):
+    """12a slam3d_sharded: Slam3dSharded over 64 frames of the 3D SLAM log
+    at a (1, 1) mesh, then optimize(). Fails unless a loop was accepted, the
+    keyframe ATE after the pose graph is below the ATE before it and within
+    ATE_LIMIT_SLAM_SHARDED_M, the correction was written through the
+    sharded map, and health was never LOST."""
+    from loc_lib_tpu_torch.eval import metrics
+    from loc_lib_tpu_torch.parallel import map_shard
+    from loc_lib_tpu_torch.pipeline.slam3d_sharded import Slam3dSharded
+
+    log = slam3d_log(SLAM_SHARDED_FRAMES)
+    eng = Slam3dSharded(mesh, slam3d_sharded_options(), device=device)
+    for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
+        eng.init_imu(g, a, t)
+    times = []
+    for mg in log.measures(imu_capacity=64):
+        scan = log.frame(mg.scan_index, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.add_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if eng.lio.health.status == eng.lio.health.LOST:
+            raise AssertionError(f"12a slam3d_sharded: LOST at frame {mg.scan_index}")
+    kf_gt = log.gt_poses[np.asarray(eng.kf_frame)]
+    before = metrics.ate(eng.keyframe_poses(), kf_gt).rmse
+    with _Spy(map_shard, "apply_correction_sharded") as writes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ran = eng.optimize()
+        torch.cuda.synchronize()
+        opt_ms = (time.perf_counter() - t0) * 1e3
+    after = metrics.ate(eng.keyframe_poses(), kf_gt).rmse
+    if not (ran and eng.loops and after < before and after <= ATE_LIMIT_SLAM_SHARDED_M
+            and writes.calls):
+        raise AssertionError(f"12a slam3d_sharded: optimize ran {ran}, {len(eng.loops)} loops, "
+                             f"ATE {before:.4f} -> {after:.4f} m, {len(writes.calls)} "
+                             "write-throughs")
+    print(f"phase 12a slam3d_sharded (mesh (1, 1), NCCL; {SLAM_SHARDED_FRAMES} frames, capacity "
+          f"{SLAM_CAPACITY}, ndt_inc front end, sc_topk 3, p2plane_vox loop registration): "
+          f"{len(eng.kf_R)} keyframes, {len(eng.loops)} loops accepted, "
+          f"{int(eng.loop_inliers.sum())} inliers; keyframe ATE {before:.4f} -> {after:.4f} m "
+          f"after the pose graph (bound {ATE_LIMIT_SLAM_SHARDED_M:.4f}); the correction "
+          f"written through the sharded map ({len(writes.calls)} call); optimize() "
+          f"{opt_ms:.1f} ms; live voxels {eng.live_voxels_per_shard().tolist()}; p50 "
+          f"{np.percentile(times[LIO_WARMUP:], 50):.2f} ms/scan (host clock) [{card}]",
+          flush=True)
+
+
+def phase_loc_sharded(device, card, mesh, single_poses):
+    """12a LocSharded: phase 7's loc_matching run (prior map make_world(
+    120000, extent 80, seed 0), box 150 m, margin 50 m, 131,072-row crop,
+    p2plane_vox, ESKF; 40 frames) at a (1, 1) mesh. Fails unless ATE <=
+    ATE_LIMIT_LOC_M, no shard dropped a point, and health was never LOST.
+    Returns the summed GN iterations."""
+    from loc_lib_tpu_torch.eval import metrics
+    from loc_lib_tpu_torch.io import synthetic
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.parallel import map_shard
+    from loc_lib_tpu_torch.pipeline import loc, loc_sharded
+
+    log = demo_log()
+    world = synthetic.make_world(num_points=120000, extent=80.0, seed=0)
+    eng = loc_sharded.LocSharded(mesh, world, loc.LocOptions(icp=icp.IcpOptions(
+        method="p2plane_vox")), device=device)
+    eng.set_init_pose(log.gt_poses[0][:3, :3], log.gt_poses[0][:3, 3])
+    times = []
+    with _Spy(map_shard, "icp_scan_match_sharded", lambda r: r.iterations) as matches:
+        for mg in log.measures(imu_capacity=64):
+            scan = log.frame(mg.scan_index, device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.update_measure(scan, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    poses = np.stack(eng.poses)
+    ate = metrics.ate(poses, log.gt_poses[:len(poses)])
+    overflow = eng.shard_overflow()
+    if not (ate.rmse <= ATE_LIMIT_LOC_M and not overflow.any()):
+        raise AssertionError(f"12a LocSharded: ATE {ate.rmse:.4f} m, overflow {overflow}")
+    if eng.health.status == eng.health.LOST:
+        raise AssertionError("12a LocSharded: tracking health LOST")
+    gap = float(np.linalg.norm(poses[:, :3, 3] - single_poses[:, :3, 3], axis=1).max())
+    print(f"phase 12a LocSharded (mesh (1, 1), NCCL; loc_matching, {len(poses)} frames, "
+          f"p2plane_vox + ESKF, box 150 m, crop 131,072 rows, shard capacity "
+          f"{eng.shard_capacity}): ATE RMSE {ate.rmse:.4f} m (bound {ATE_LIMIT_LOC_M:.4f}), "
+          f"shard overflow {overflow.tolist()}, {eng.num_recrops} re-crops, health "
+          f"{eng.health.status}; largest pose gap to phase 7's Loc {gap:.3g} m, same bits: "
+          f"{np.array_equal(poses, single_poses)} (the election outside the kernel, then K1 "
+          f"plane given, on the shard's own key window); "
+          f"p50 {np.percentile(times[4:], 50):.2f} ms/scan (host clock) [{card}]", flush=True)
+    return int(sum(matches.calls))
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of every tensor in a (nested) NamedTuple."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, tuple):
+        return sum(_tree_bytes(x) for x in tree)
+    return 0
+
+
+def _map_mb(target, m) -> dict:
+    """MB held by an ICP target and an NDT map, and by their voxel rows
+    alone (without the fixed dense_dims window of the dense index)."""
+    icp_rows = _tree_bytes(target) - _tree_bytes(target.dense)
+    ndt_rows = _tree_bytes(m) - _tree_bytes((m.dense_table, m.dense_lo))
+    return {k: v / 2 ** 20 for k, v in (("icp", _tree_bytes(target)), ("ndt", _tree_bytes(m)),
+                                         ("icp_rows", icp_rows), ("ndt_rows", ndt_rows))}
+
+
+def rank_12b(case: dict) -> dict:
+    """One rank of 12b (several ranks on the one card, gloo): the headline
+    target sharded over "mp" and its source over "dp", the sharded ICP and
+    direct-NDT matches; LioSharded (at (1, 4)); the edge-sharded two-phase
+    pose graph (at (2, 2)). Launch counters are set to 0 before the paths
+    and read after them; then K1 (plane given, after the election) and K3
+    (from this shard's map) are held against their plain versions on this
+    rank's own shard. Returns numpy results."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from loc_lib_tpu_torch.eval import metrics
+    from loc_lib_tpu_torch.graph import pose_graph as pg
+    from loc_lib_tpu_torch.models import icp, ndt
+    from loc_lib_tpu_torch.ops import kernels, voxel
+    from loc_lib_tpu_torch.parallel import graph as pgraph, map_shard, match, mesh as mesh_mod
+    from loc_lib_tpu_torch.pipeline import lio_sharded
+
+    device = (torch.device("cuda", torch.cuda.current_device()) if case["device"] == "cuda"
+              else torch.device(case["device"]))
+    dp, mp = case["mesh"]
+    mesh = mesh_mod.make_mesh_2d(dp, mp)
+    if dist.get_backend() != case["backend"]:
+        raise AssertionError(f"the ranks use {dist.get_backend()}, not {case['backend']}")
+    me = mesh_mod.axis_index(mesh, "mp")
+    tgt, src, _, _, R_init, t_init = headline_workload(device)
+    cap = N_TARGET * 3 // (2 * mp)
+    iopts = icp.IcpOptions(method="p2plane_vox")
+    nopts = ndt.NdtOptions(method="direct", voxel_size=1.0)
+    out = {"rank": dist.get_rank(), "mp_index": me, "seconds": {}}
+    reduces = [0]
+    all_reduce = dist.all_reduce
+
+    def counting_all_reduce(*a, **kw):
+        reduces[0] += 1
+        return all_reduce(*a, **kw)
+
+    dist.all_reduce = counting_all_reduce      # this rank process's own module
+    # one 44-float all-reduce of a CUDA tensor, as a GN iteration makes it,
+    # after the first collective of every group the paths use (NCCL sets a
+    # group's communicator up at its first collective)
+    buf = torch.zeros(44, device=device)
+    for axes in ("dp", "mp", ("dp", "mp")):
+        mesh_mod.psum(buf, mesh, axes)
+        mesh_mod.pmin(buf, mesh, axes)
+    for _ in range(5):
+        mesh_mod.psum(buf, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        mesh_mod.psum(buf, mesh)
+    torch.cuda.synchronize()
+    out["all_reduce_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = map_shard.set_target_sharded(mesh, tgt, iopts, cap)
+    torch.cuda.synchronize()
+    t1, n0 = time.perf_counter(), reduces[0]
+    res = map_shard.icp_scan_match_sharded(mesh, st, iopts, src, R_init, t_init)
+    torch.cuda.synchronize()
+    t2, n1 = time.perf_counter(), reduces[0]
+    # the same match again: the first one pays this process's first calls
+    # into the CUDA libraries (the 6x6 solve's handles, kernel modules)
+    again = map_shard.icp_scan_match_sharded(mesh, st, iopts, src, R_init, t_init)
+    torch.cuda.synchronize()
+    t2b = time.perf_counter()
+    if not (torch.equal(again.R, res.R) and torch.equal(again.t, res.t)):
+        raise AssertionError("two sharded ICP matches on one input differ")
+    sm = map_shard.build_direct_sharded(mesh, tgt, nopts, cap)
+    torch.cuda.synchronize()
+    t3, n2 = time.perf_counter(), reduces[0]
+    nres = map_shard.ndt_scan_match_sharded(mesh, sm, nopts, src, R_init, t_init)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    out["seconds"]["matches"] = t4 - t0
+    out["match_ms"] = {"icp first": (t2 - t1) * 1e3, "icp": (t2b - t2) * 1e3,
+                       "ndt": (t4 - t3) * 1e3}
+    out["reduces"] = {"icp": n1 - n0, "ndt": reduces[0] - n2}
+    if res.t.device != device or nres.t.device != device:
+        raise AssertionError("a sharded match left the rank's device")
+    out["icp"] = {"R": res.R.cpu().numpy(), "t": res.t.cpu().numpy(),
+                  "iterations": res.iterations, "num_effective": int(res.num_effective)}
+    out["ndt"] = {"R": nres.R.cpu().numpy(), "t": nres.t.cpu().numpy(),
+                  "iterations": nres.iterations, "num_effective": int(nres.num_effective)}
+    keys = st.target.grid.voxel_keys
+    c = voxel.key_to_coords(keys)[st.target.plane_valid & (keys != voxel.INVALID_KEY)]
+    out["owned"] = torch.stack([c[:, 0] + st.kx[me], c[:, 1], c[:, 2]], 1).cpu().numpy()
+    out["overflow"] = np.concatenate([st.overflow.cpu().numpy(), sm.overflow.cpu().numpy()])
+    out["shard_mb"] = _map_mb(st.target, sm.map)
+    if case.get("lio"):
+        log = demo_log()
+        opts = lio_options("ndt_inc")
+        opts = dataclasses.replace(opts, ndt=dataclasses.replace(
+            opts.ndt, map_capacity=LIO_SHARD_MAP_CAPACITY))
+        eng = lio_sharded.LioSharded(mesh, opts, device=device)
+        for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
+            eng.init_imu(g, a, t)
+        idxs = []
+        t0 = time.perf_counter()
+        for mg in log.measures(imu_capacity=64):
+            eng.add_measure(log.frame(mg.scan_index, device), mg.imu_gyro, mg.imu_acce,
+                            mg.imu_stamp, mg.imu_valid)
+            idxs.append(mg.scan_index)
+        torch.cuda.synchronize()
+        out["seconds"]["lio"] = time.perf_counter() - t0
+        out["lio"] = {"poses": np.stack(eng.poses), "live": eng.live_voxels_per_shard(),
+                      "ate": metrics.ate(np.stack(eng.poses),
+                                         log.gt_poses[np.asarray(idxs)]).rmse,
+                      "health": eng.health.status, "map_capacity": LIO_SHARD_MAP_CAPACITY}
+    if case.get("pgo"):
+        R, t, edges = pgo_graph(device)
+        opts = dataclasses.replace(pg.PgoOptions(), max_iterations=3, max_cg_iterations=100)
+        t0 = time.perf_counter()
+        Rp, tp, inl = pgraph.optimize_two_phase(mesh, R, t, edges, opts)
+        torch.cuda.synchronize()
+        out["seconds"]["pgo"] = time.perf_counter() - t0
+        out["pgo"] = {"R": Rp.cpu().numpy(), "t": tp.cpu().numpy(), "inlier": inl.cpu().numpy()}
+    torch.cuda.synchronize()
+    out["launches"] = dict(kernels.LAUNCHES)
+    # the kernels on this rank's own shard, at the final poses
+    local = match.local_cloud(src, mesh)
+    plane, w = map_shard.elect(mesh, st.target, local, res.R, res.t,
+                               icp._index(st.target, iopts, st.target.dense))
+    args = (local.xyz, plane, w, res.R, res.t, iopts.max_plane_distance)
+    got = kernels.p2plane_fused_terms(*args)
+    e1, r1 = _compare(f"rank {out['rank']} K1 plane given", got,
+                      kernels.p2plane_fused_terms_plain(*args), kernels.p2plane_rows_plain(*args))
+    margs = ndt._from_map_args(sm.map, nopts, local, nres.R, nres.t, False)
+    got = kernels.ndt_fused_terms_from_map(*margs)
+    e3, r3 = _compare(f"rank {out['rank']} K3 from map", got,
+                      kernels.ndt_from_map_terms_plain(*margs),
+                      kernels.ndt_from_map_rows_plain(*margs), 3 * margs[8])
+    out["checks"] = {"K1": (e1, r1, int(w.sum())), "K3": (e3, r3, int(got[2]))}
+    return out
+
+
+def phase_sharded_ranks(device, card, workload, lio_poses, backend="gloo",
+                        rank_device=None):
+    """12b: several ranks on the one card (gloo), spawned by this script
+    (`multihost.launch`), at meshes (2, 2) and (1, 4); with `--cards`, one
+    rank a card (`rank_device` "cuda", NCCL). Fails unless, at
+    each mesh, every rank's sharded ICP and NDT poses equal rank 0's bit
+    for bit and lie within SHARDED_MATCH_GAP of the single-device
+    scan_match, the ICP pose passes the headline's ground-truth gates,
+    every voxel answers on one shard only and no shard overflowed; at
+    (1, 4) LioSharded keeps ATE <= 0.10 m with a live map larger than one
+    shard's table and every shard under its own; at (2, 2) the edge-sharded
+    two-phase pose graph lands within SHARDED_PGO_GAP of the single-device
+    one with the same loop inliers; and every rank's K1 and K3 agree with
+    their plain versions on its own shard. Returns the launches summed over
+    the ranks of both launches (their paths alone)."""
+    import dataclasses
+
+    from loc_lib_tpu_torch.graph import pose_graph as pg
+    from loc_lib_tpu_torch.models import icp, ndt
+    from loc_lib_tpu_torch.parallel import multihost
+
+    tgt, src, R_gt, t_gt, R_init, t_init = workload
+    iopts = icp.IcpOptions(method="p2plane_vox")
+    nopts = ndt.NdtOptions(method="direct", voxel_size=1.0)
+    one_target, one_map = icp.set_target(tgt, iopts), ndt.build_direct(tgt, nopts)
+    one_mb = _map_mb(one_target, one_map)
+    one_icp = icp.scan_match(one_target, iopts, src, R_init, t_init)
+    one_ndt = ndt.scan_match(one_map, nopts, src, R_init, t_init)
+    R, t, edges = pgo_graph(device)
+    popts = dataclasses.replace(pg.PgoOptions(), max_iterations=3, max_cg_iterations=100)
+    one_pgo = [x.cpu().numpy() for x in pg.optimize_two_phase(R, t, edges, popts)]
+    total = {}
+    for shape in MESHES_12B:
+        case = {"mesh": shape, "lio": shape == (1, 4), "pgo": shape == (2, 2),
+                "device": rank_device or str(device), "backend": backend}
+        t0 = time.perf_counter()
+        runs = multihost.launch("chip_smoke:rank_12b", shape[0] * shape[1], (case,),
+                                device=case["device"], backend=backend, threads=2,
+                                timeout=600)
+        secs = time.perf_counter() - t0
+        r0 = runs[0]
+        for r in runs[1:]:
+            for key in ("icp", "ndt") + (("lio",) if case["lio"] else ()) + \
+                       (("pgo",) if case["pgo"] else ()):
+                for f, v in r0[key].items():
+                    if not np.array_equal(r[key][f], v):
+                        raise AssertionError(f"12b {shape}: rank {r['rank']} {key}.{f} differs "
+                                             "from rank 0's")
+        gaps = {}
+        for key, one in (("icp", one_icp), ("ndt", one_ndt)):
+            gaps[key] = max(float(np.abs(r0[key]["t"] - one.t.cpu().numpy()).max()),
+                            float(np.abs(r0[key]["R"] - one.R.cpu().numpy()).max()))
+            if gaps[key] > SHARDED_MATCH_GAP:
+                raise AssertionError(f"12b {shape} {key}: {gaps[key]:.3g} from the single-device "
+                                     "match")
+        rot = _rot_err(r0["icp"]["R"].astype(np.float64), R_gt)
+        tr = float(np.linalg.norm(r0["icp"]["t"] - t_gt))
+        if not (rot < PARITY_ROT_RAD and tr < PARITY_TRANS_M):
+            raise AssertionError(f"12b {shape}: sharded ICP {np.degrees(rot):.3f} deg / {tr:.4f} m "
+                                 "off the ground truth")
+        owned = np.concatenate([next(r for r in runs if r["mp_index"] == s)["owned"]
+                                for s in range(shape[1])])
+        if len(np.unique(owned, axis=0)) != len(owned) or len(owned) < 1000:
+            raise AssertionError(f"12b {shape}: a voxel answers on two shards ({len(owned)})")
+        if any(r["overflow"].any() for r in runs):
+            raise AssertionError(f"12b {shape}: a shard overflowed")
+        checks = {k: max(r["checks"][k][1] for r in runs) for k in ("K1", "K3")}
+        per_it = {k: r0["reduces"][k] / r0[k]["iterations"] for k in ("icp", "ndt")}
+        where = "one card a rank, NCCL" if rank_device else "on one card, gloo"
+        line = (f"phase 12b mesh {shape} ({shape[0] * shape[1]} ranks {where}; "
+                f"spawned, {secs:.1f} s of command time): headline target sharded over mp, "
+                f"shards of <= {N_TARGET * 3 // (2 * shape[1])} points, {len(owned)} answering "
+                f"voxels each on one shard, no overflow; the largest rank's shard holds "
+                + ", ".join(f"{k} {max(r['shard_mb'][k] for r in runs):.2f}" for k in one_mb)
+                + " MB (one device's whole target and map: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in one_mb.items())
+                + " MB; *_rows: without the fixed dense window); sharded ICP "
+                f"{r0['icp']['iterations']} "
+                f"GN iterations, {np.degrees(rot):.4f} deg / {100 * tr:.3f} cm off the ground "
+                f"truth, {gaps['icp']:.3g} from icp.scan_match; sharded direct NDT "
+                f"{gaps['ndt']:.3g} from ndt.scan_match; every rank's poses rank 0's bits; "
+                f"all-reduces per GN iteration {per_it['icp']:.2f} (ICP) / {per_it['ndt']:.2f} "
+                f"(NDT), a 44-float all-reduce {r0['all_reduce_ms']:.3f} ms (host clock), "
+                f"match {r0['match_ms']['icp']:.1f} / {r0['match_ms']['ndt']:.1f} ms on rank 0 "
+                f"(the process's first ICP match {r0['match_ms']['icp first']:.1f} ms); "
+                f"K1 / K3 vs plain on every rank's shard, largest err/bound {checks['K1']:.3g} "
+                f"/ {checks['K3']:.3g}")
+        if case["lio"]:
+            lo = r0["lio"]
+            live, cap = lo["live"], lo["map_capacity"]
+            gap = float(np.linalg.norm(lo["poses"][:, :3, 3] - lio_poses[:, :3, 3], axis=1).max())
+            if not (lo["ate"] <= ATE_LIMIT_NDT_INC_M and live.sum() > cap and (live < cap).all()
+                    and lo["health"] != "LOST"):
+                raise AssertionError(f"12b {shape} LioSharded: ATE {lo['ate']:.4f}, live {live}, "
+                                     f"capacity {cap}, health {lo['health']}")
+            line += (f"; LioSharded {LIO_FRAMES} frames: ATE RMSE {lo['ate']:.4f} m (bound "
+                     f"{ATE_LIMIT_NDT_INC_M}), live voxels {live.tolist()} (total {live.sum()} > "
+                     f"{cap} a shard), health {lo['health']}, largest gap to 12a {gap:.3g} m")
+        if case["pgo"]:
+            po = r0["pgo"]
+            e = len(one_pgo[2])
+            gap = max(float(np.abs(po["t"] - one_pgo[1]).max()),
+                      float(np.abs(po["R"] - one_pgo[0]).max()))
+            if not (gap < SHARDED_PGO_GAP and np.array_equal(po["inlier"][:e], one_pgo[2])
+                    and not po["inlier"][e:].any()):
+                raise AssertionError(f"12b {shape} pose graph: gap {gap:.3g}, inliers "
+                                     f"{int(po['inlier'].sum())} vs {int(one_pgo[2].sum())}")
+            line += (f"; edge-sharded optimize_two_phase on 10c's graph: {gap:.3g} from the "
+                     f"single-device solve, the same {int(one_pgo[2].sum())} loop inliers")
+        secs_line = ", ".join(f"{k} {max(r['seconds'][k] for r in runs):.1f} s"
+                              for k in r0["seconds"])
+        print(f"{line}; slowest rank: {secs_line} [{card}]", flush=True)
+        for r in runs:
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_lio_sharded_profile(device, card, out_dir):
+    """A LioSharded step at a (1, 1) mesh (a fresh one-rank NCCL world)
+    under the profiler, after 8 frames of warm-up: launches, device vs
+    host time; its table goes to `out_dir`."""
+    from loc_lib_tpu_torch.pipeline import lio_sharded
+
+    log = demo_log(10)
+    with _NcclWorld(device) as mesh:
+        eng = lio_sharded.LioSharded(mesh, lio_options("ndt_inc"), device=device)
+        for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
+            eng.init_imu(g, a, t)
+        mgs = list(log.measures(imu_capacity=64))
+        for mg in mgs[:-1]:
+            eng.add_measure(log.frame(mg.scan_index, device), mg.imu_gyro, mg.imu_acce,
+                            mg.imu_stamp, mg.imu_valid)
+        mg = mgs[-1]
+        last = log.frame(mg.scan_index, device)
+        n, dev_ms, host_ms, prof = _profiled(
+            lambda: eng.add_measure(last, mg.imu_gyro, mg.imu_acce, mg.imu_stamp,
+                                    mg.imu_valid), 1)
+    (out_dir / "profile_lio_sharded_step.txt").write_text(
+        prof.key_averages().table(sort_by="cpu_time_total", row_limit=40))
+    print(f"phase 12 profile: one LioSharded step at (1, 1) (NCCL, no collective at one rank) "
+          f"under the profiler: {n:.0f} device launches, device {dev_ms:.3f} ms vs host "
+          f"{host_ms:.3f} ms, busy {100 * dev_ms / host_ms:.1f}% [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the leaves (filters, bfnn, ring search, reflector)
+# ---------------------------------------------------------------------------
+
+def phase_leaves(device, card, workload):
+    """13: bfnn.knn (k = 1 and 5) of the headline's 8,192 source points
+    against its 65,536-point target, exact against a float64 numpy oracle on
+    256 queries and never farther than voxel.knn's answer; the filters on
+    the same cloud against numpy; scan_match_rings on
+    tests/test_small_ops.py:44's workload; reflector.process_scan on
+    tests/test_small_ops.py:91's scene."""
+    from loc_lib_tpu_torch.models import reflector
+    from loc_lib_tpu_torch.ops import bfnn, filters, ring_search, voxel
+
+    tgt, src = workload[0], workload[1]
+    t0 = time.perf_counter()
+    T = tgt.xyz.cpu().numpy().astype(np.float64)
+    tm = tgt.mask.cpu().numpy()
+    Q = src.xyz.cpu().numpy().astype(np.float64)
+    sub = np.random.default_rng(3).choice(np.flatnonzero(src.mask.cpu().numpy()), 256, False)
+    ref = np.where(tm[None], ((Q[sub, None] - T[None]) ** 2).sum(-1), np.inf)
+    grid = voxel.build_hash_grid(tgt, 1.0, bucket_size=8)
+    lines = []
+    for k in (1, 5):
+        torch.cuda.synchronize()
+        tk = time.perf_counter()
+        _, idx, d2, valid = bfnn.knn(tgt, src.xyz, src.mask, k)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - tk) * 1e3
+        if d2.device.type != device.type:
+            raise AssertionError("bfnn.knn left the card")
+        idx, d2, valid = idx.cpu().numpy(), d2.cpu().numpy(), valid.cpu().numpy()
+        want = np.sort(ref, axis=1)[:, :k]
+        got64 = np.take_along_axis(ref, idx[sub].astype(np.int64), axis=1)
+        tol = 4 * 2.0 ** -24 * ((Q[sub] ** 2).sum(1)[:, None] + (T[tm] ** 2).sum(1).max())
+        if not (valid[sub].all() and np.all(np.abs(got64 - want) <= tol)
+                and np.all(np.abs(d2[sub] - want) <= tol)):
+            raise AssertionError(f"13 bfnn k={k}: not the float64 nearest neighbours")
+        _, _, gd2, gvalid = voxel.knn(grid, src.xyz, src.mask, k)
+        gd2, gvalid = gd2.cpu().numpy(), gvalid.cpu().numpy()
+        slack = (4 * 2.0 ** -24 * ((Q ** 2).sum(1)[:, None] + (T[tm] ** 2).sum(1).max()))
+        if not np.all(gd2[gvalid] >= (d2 - slack)[gvalid]):
+            raise AssertionError(f"13 bfnn k={k}: voxel.knn found a nearer neighbour")
+        lines.append(f"k={k} {ms:.1f} ms, exact on 256 queries, voxel.knn never nearer "
+                     f"({int(gvalid.sum())} grid answers)")
+    box = filters.box_filter(tgt, [0.0, 0.0, 0.0], [60.0, 40.0, 10.0]).mask.cpu().numpy()
+    rng = filters.range_filter(tgt, 4.0, 50.0).mask.cpu().numpy()
+    Tf = tgt.xyz.cpu().numpy()
+    want_box = tm & np.all((Tf >= [-30, -20, -5]) & (Tf <= [30, 20, 5]), axis=1)
+    r = np.linalg.norm(Tf.astype(np.float64), axis=1)
+    edge = np.abs(r - 4.0) < 1e-5
+    edge |= np.abs(r - 50.0) < 1e-4
+    want_rng = tm & (r >= 4.0) & (r <= 50.0)
+    if not (np.array_equal(box, want_box) and np.array_equal(rng[~edge], want_rng[~edge])
+            and np.array_equal(filters.remove_nonfinite(tgt).mask.cpu().numpy(), tm)):
+        raise AssertionError("13 filters disagree with numpy")
+    lines.append(f"filters: box keeps {int(box.sum())}, range {int(rng.sum())} of "
+                 f"{int(tm.sum())}, as numpy")
+    # ring search: the cylindrical room of tests/test_small_ops.py:44
+    def room(R_w=None, t_w=None, num_rings=8, ring_len=256):
+        g = np.random.default_rng(0)
+        az = (np.arange(ring_len) + 0.5) / ring_len * 2 * np.pi - np.pi
+        pts, ring = [], []
+        for k in range(num_rings):
+            el = -0.2 + 0.05 * k
+            radius = 8.0 + 0.5 * np.sin(3 * az) + g.normal(0, 0.01, ring_len)
+            p = np.stack([radius * np.cos(az), radius * np.sin(az), radius * el], 1)
+            if R_w is not None:
+                p = (p - t_w) @ R_w
+            pts.append(p)
+            ring.append(np.full(ring_len, k, np.int32))
+        return (torch.from_numpy(np.concatenate(pts).astype(np.float32)).to(device),
+                torch.from_numpy(np.concatenate(ring)).to(device))
+    R_w = _so3_exp(np.array([0.0, 0.0, 0.01])).astype(np.float32)
+    t_w = np.array([0.05, 0.02, 0.0], np.float32)
+    (x0, ring), (x1, _) = room(), room(R_w, t_w)
+    ok = torch.ones(x0.shape[0], dtype=torch.bool, device=device)
+    p0 = ring_search.organize_rings(x0, ring, ok, 8, 256)
+    p1 = ring_search.organize_rings(x1, ring, ok, 8, 256)
+    rres = ring_search.scan_match_rings(p0, p1, ring_search.RingOptions(
+        num_rings=8, ring_len=256, eps=1e-4, max_iteration=40))
+    terr = float(np.linalg.norm(rres.t.cpu().numpy() - t_w))
+    if not (terr < 0.03 and int(rres.num_effective) > 500):
+        raise AssertionError(f"13 scan_match_rings: {terr:.4f} m off, "
+                             f"{int(rres.num_effective)} effective")
+    lines.append(f"scan_match_rings {terr * 100:.2f} cm off in {rres.iterations} iterations")
+    # reflector: four markers seen from (theta, tx, ty)
+    theta, tx, ty = 0.3, 0.4, -0.2
+    map_xy = np.array([[2.0, 0.0], [0.0, 3.0], [-2.5, -1.0], [3.0, 2.5]], np.float32)
+    c, s = np.cos(theta), np.sin(theta)
+    m_r = (map_xy - [tx, ty]) @ np.array([[c, -s], [s, c]])
+    B = 720
+    angles = ((np.arange(B) + 0.5) / B * 2 * np.pi - np.pi).astype(np.float32)
+    ranges = np.full(B, 5.5, np.float32)
+    inten = np.full(B, 5.0, np.float32)
+    for mx, my in m_r:
+        a, rr = np.arctan2(my, mx), np.hypot(mx, my)
+        half = max(int(round(0.03 / rr / (2 * np.pi / B))), 1)
+        i0 = int(np.round((a + np.pi) / (2 * np.pi) * B))
+        for k in range(i0 - half, i0 + half + 1):
+            ranges[k % B] = rr
+            inten[k % B] = 200.0
+    to = lambda x: torch.from_numpy(np.asarray(x)).to(device)
+    fix = reflector.process_scan(to(ranges), to(angles), to(inten), to(np.ones(B, bool)),
+                                 to(map_xy), to(np.ones(4, bool)))
+    perr = float(np.linalg.norm(fix.t.cpu().numpy() - [tx, ty]))
+    if not (bool(fix.ok) and perr < 0.05 and abs(float(fix.theta) - theta) < 0.02):
+        raise AssertionError(f"13 reflector: fix {bool(fix.ok)}, {perr:.4f} m off")
+    lines.append(f"reflector fix {perr * 100:.2f} cm / {abs(float(fix.theta) - theta):.2g} rad "
+                 f"off, {int(fix.num_inliers)} markers")
+    print(f"phase 13 leaves ({time.perf_counter() - t0:.1f} s): bfnn.knn of {N_SOURCE} queries "
+          f"against {N_TARGET} target points: " + "; ".join(lines) + f" [{card}]", flush=True)
+
+
+def main_cards() -> int:
+    """`python3 chip_smoke.py --cards`: phase 12b's paths with one rank a
+    card over NCCL (4 cards or more), held to the single-device matches,
+    pose graph and LIO run on card 0; nothing else runs."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        print(f"chip_smoke --cards: {n} card(s), 4 needed", file=sys.stderr)
+        return 2
+    device = torch.device("cuda", 0)
+    card = phase_device(device)
+    phase_build()
+    workload = headline_workload(device)
+    lio_last = phase_lio(device, card, "ndt_inc", "phase 5b", ATE_LIMIT_NDT_INC_M)
+    t0 = time.perf_counter()
+    c = phase_sharded_ranks(device, card, workload, lio_last[5], backend="nccl",
+                            rank_device="cuda")
+    print(f"phase 12b (one rank a card, NCCL) took {time.perf_counter() - t0:.1f} s of command "
+          f"time; launches summed over the ranks: {c} [{card} x {n}]", flush=True)
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": n}}), flush=True)
+    return 0
+
+
 def main() -> int:
     from pathlib import Path
 
@@ -2971,6 +3651,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available; this script runs only on a GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--cards"]:
+        return main_cards()
     from loc_lib_tpu_torch.ops import kernels
 
     device = torch.device("cuda", 0)
@@ -3094,6 +3776,42 @@ def main() -> int:
     m2d_eng = phase_mapping2d(device, card)
     print(f"phase 11 took {time.perf_counter() - t_2d:.1f} s of command time (11a-11e; the "
           f"profile comes after phase 10's) [{card}]", flush=True)
+    # the distributed layer: 12a one rank (NCCL) through the sharded
+    # pipelines, 12b several ranks spawned on the one card (gloo)
+    t_dist = time.perf_counter()
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
+    with _NcclWorld(device) as mesh:
+        (iters, lio_sharded_poses), c = counted(
+            ("ndt_fused_terms", "gn_step", "so3_renormalize"),
+            lambda: phase_lio_sharded(device, card, mesh, ndt_last[5]))
+        one_launch_per_linearization("phase 12a lio_sharded_mapping", c,
+                                     ("ndt_fused_terms", "gn_step"), iters)
+        add(c)
+        _, c = counted(("ndt_fused_terms", "p2plane_pick_fused_terms", "gn_step",
+                        "so3_renormalize"), lambda: phase_slam3d_sharded(device, card, mesh))
+        print(f"phase 12a slam3d_sharded launches: {c}", flush=True)
+        add(c)
+        iters, c = counted(("p2plane_fused_terms", "gn_step", "so3_renormalize"),
+                           lambda: phase_loc_sharded(device, card, mesh,
+                                                     np.stack(loc_vox[0].poses)))
+        one_launch_per_linearization("phase 12a LocSharded", c, ("p2plane_fused_terms", "gn_step"),
+                                     iters)
+        add(c)
+    c = phase_sharded_ranks(device, card, workload, lio_sharded_poses)
+    print(f"phase 12b launches (the ranks' paths, summed over the ranks of both meshes, every "
+          f"counter at 0 before them): {c}", flush=True)
+    for name in ("p2plane_fused_terms", "ndt_fused_terms", "gn_step", "so3_renormalize"):
+        if c.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the ranks of phase 12b")
+    add(c)
+    print(f"phase 12 took {time.perf_counter() - t_dist:.1f} s of command time [{card}]",
+          flush=True)
+    _, c = counted(("gn_step", "so3_renormalize"), lambda: phase_leaves(device, card, workload))
+    add(c)
     # every profiler run comes after the paths' host-clock timings
     phase_headline_timing(device, card, workload, target)
     phase_gather_before_after(device, card, workload, target)
@@ -3108,6 +3826,7 @@ def main() -> int:
                   Path(__file__).resolve().parent / "chiprun_out")
     phase_slam3d_profile(card, slam_eng, pgo_graph_, pgo_opts)
     phase_mapping2d_profile(device, card, m2d_eng)
+    phase_lio_sharded_profile(device, card, Path(__file__).resolve().parent / "chiprun_out")
 
     src = {"p2plane_fused_terms": ("loc_lib_tpu_torch/csrc/p2plane_fused_terms.cu",
                                    "loc_lib_tpu/ops/pallas_kernels.py:75"),
@@ -3137,7 +3856,9 @@ def main() -> int:
           "mode (S = 7, weighted, trunc, on an update_incremental map of the headline target): "
           "the modes the paths run, at the headline inputs; launches of K1, K2, gn_step and "
           "so3_renormalize are those of the headline match and LIO plus those of phase 8's "
-          "scan_match_batch calls and of phase 10's 3D SLAM runs (K1: 10b's two), "
+          "scan_match_batch calls and of phase 10's 3D SLAM runs (K1: 10b's two), and every "
+          "kernel's adds phase 12's sharded paths (12a's three runs, 12b's ranks summed) and "
+          "phase 13's ring match; launches of K3 are those of phase 5b and phase 12; "
           "max_abs_err of K1 and K2 covers their batched forms",
           flush=True)
     print(json.dumps({"kernels": [

@@ -1,6 +1,6 @@
 """SE(3) pose-graph optimization: robust Gauss-Newton over all edges at once
-(port of loc_lib_tpu/graph/pose_graph.py, without the distributed
-`axis_name` reductions, which wait for the torch.distributed slice).
+(port of loc_lib_tpu/graph/pose_graph.py; its `axis_name` reductions are
+the `group=` arguments here, which parallel/graph.py passes).
 
   * every edge is linearized in closed form in one batched pass (the SE(3)
     inverse Jacobians, utils/lie.py);
@@ -15,6 +15,14 @@
     accumulating scatter);
   * Cauchy / Huber reweighting, and `optimize_two_phase`: pre-gate, solve,
     chi2-gate the loop edges, solve again without the outliers.
+
+With `group` (a torch.distributed process group), the edges are this
+rank's shard: the node-indexed sums (Hdiag before its damping and gauge,
+b) and the off-diagonal half of every matvec are all-reduced over the
+group, so they come out replicated, while the edge-indexed outputs stay
+local; the PCG's dot products run on replicated (M, 6) vectors and need no
+reduction. With group=None nothing is reduced and the bits are those of
+the single-device solve.
 
 The gauge is fixed by a strong prior on node 0. The GN loop runs a host
 count of iterations and reads nothing back. The PCG loop is the one place
@@ -191,11 +199,20 @@ def _node_sum(values_i, values_j, seg: EdgeSegments):
             + voxel.segment_sum(values_j[seg.by_j], seg.off_j))
 
 
-def normal_equations(r, Ji, Jj, edges, opts: PgoOptions, m: int, seg: EdgeSegments):
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.clone()
+    torch.distributed.all_reduce(out, group=group)
+    return out
+
+
+def normal_equations(r, Ji, Jj, edges, opts: PgoOptions, m: int, seg: EdgeSegments,
+                     group=None):
     """Block-sparse normal equations of linearized edges (r (E, k), Ji / Jj
     (E, k, k); any tangent size k): Hdiag (M, k, k) with damping and the
     gauge prior on node 0, Hij (E, k, k) off-diagonal blocks (zero for
-    invalid edges), b (M, k), per-edge chi2. Shared by the SE(2) graph."""
+    invalid edges), b (M, k), per-edge chi2. Shared by the SE(2) graph.
+    With `group`, the node sums are all-reduced (one call) before the
+    damping and the gauge are added."""
     chi2 = _chi2(r, edges.info)
     w = _robust_weight(opts, chi2) * edges.valid.to(r.dtype)
     info_w = edges.info * w[:, None, None]
@@ -206,22 +223,27 @@ def normal_equations(r, Ji, Jj, edges, opts: PgoOptions, m: int, seg: EdgeSegmen
     bi = -torch.einsum("eki,ekl,el->ei", Ji, info_w, r)
     bj = -torch.einsum("eki,ekl,el->ei", Jj, info_w, r)
 
-    eye = torch.eye(r.shape[-1], dtype=torch.float32, device=r.device)
-    Hdiag = _node_sum(Hii, Hjj, seg) + opts.damping * eye
+    k = r.shape[-1]
+    eye = torch.eye(k, dtype=torch.float32, device=r.device)
+    node_H = _node_sum(Hii, Hjj, seg)
+    b = _node_sum(bi, bj, seg)
+    if group is not None:
+        sums = _all_reduce(torch.cat([node_H.reshape(m, k * k), b], dim=1), group)
+        node_H, b = sums[:, :k * k].reshape(m, k, k), sums[:, k * k:]
+    Hdiag = node_H + opts.damping * eye
     gauge = torch.zeros((m, 1, 1), dtype=torch.float32, device=r.device)
     gauge[0] = opts.gauge_weight
     Hdiag = Hdiag + gauge * eye
-    b = _node_sum(bi, bj, seg)
     return Hdiag, Hij * edges.valid[:, None, None], b, chi2
 
 
 def _assemble_blocks(R, t, edges: Se3Edges, opts: PgoOptions, m: int,
-                     seg: Optional[EdgeSegments] = None):
+                     seg: Optional[EdgeSegments] = None, group=None):
     """Linearize all edges and assemble the block-sparse normal equations
     (`normal_equations`)."""
     seg = seg if seg is not None else edge_segments(edges.i, edges.j, m)
     r, Ji, Jj = _linearize(R[edges.i], t[edges.i], R[edges.j], t[edges.j], edges.R, edges.t)
-    return normal_equations(r, Ji, Jj, edges, opts, m, seg)
+    return normal_equations(r, Ji, Jj, edges, opts, m, seg, group)
 
 
 def _solve_dense(Hdiag, Hij, b, edges, m: int):
@@ -260,21 +282,25 @@ def _operator(Hdiag, Hij, e_i, e_j, seg: EdgeSegments) -> _Operator:
                      Hij.transpose(-1, -2)[seg.by_j], e_i[seg.by_j], seg)
 
 
-def _apply(op: _Operator, x):
+def _apply(op: _Operator, x, group=None):
     y = (voxel.segment_sum(torch.einsum("eij,ej->ei", op.H_by_i, x[op.j_by_i]), op.seg.off_i)
          + voxel.segment_sum(torch.einsum("eij,ej->ei", op.Ht_by_j, x[op.i_by_j]),
                              op.seg.off_j))
+    if group is not None:
+        y = _all_reduce(y, group)       # the off-diagonal half; Hdiag x after it
     return y + torch.einsum("mij,mj->mi", op.Hdiag, x)
 
 
-def block_matvec(Hdiag, Hij, e_i, e_j, x, m: int, seg: Optional[EdgeSegments] = None):
-    """y = H x with H in block-sparse form; x, y are (M, 6)."""
+def block_matvec(Hdiag, Hij, e_i, e_j, x, m: int, seg: Optional[EdgeSegments] = None,
+                 group=None):
+    """y = H x with H in block-sparse form; x, y are (M, 6). With `group`
+    the edge arrays are this rank's shard and Hdiag is replicated."""
     seg = seg if seg is not None else edge_segments(e_i, e_j, m)
-    return _apply(_operator(Hdiag, Hij, e_i, e_j, seg), x)
+    return _apply(_operator(Hdiag, Hij, e_i, e_j, seg), x, group)
 
 
 def solve_pcg(Hdiag, Hij, e_i, e_j, b, m: int, max_iterations: int, tol: float,
-              seg: Optional[EdgeSegments] = None):
+              seg: Optional[EdgeSegments] = None, group=None):
     """Block-Jacobi preconditioned CG on the block-sparse normal equations;
     never forms H. Stops when |r|^2 <= tol |b|^2 or after max_iterations.
 
@@ -299,7 +325,7 @@ def solve_pcg(Hdiag, Hij, e_i, e_j, b, m: int, max_iterations: int, tol: float,
     for k in range(max_iterations):
         if k and k % CG_CHECK_EVERY == 0 and not bool(active):   # the host read
             break
-        Ap = _apply(op, p)
+        Ap = _apply(op, p, group)
         alpha = rz / torch.clamp(dot(p, Ap), min=eps)
         x_new = x + alpha * p
         r_new = r - alpha * Ap

@@ -544,9 +544,12 @@ def _gates(opts: IcpOptions, dev):
 
 
 def _gauss_newton(terms, target: IcpTarget, opts: IcpOptions, src: PointCloud, R0,
-                  t0) -> MatchResult:
+                  t0, reduce=None) -> MatchResult:
     """The GN loop of `scan_match` over the linearization
-    `terms(target, opts, src, R, t, gate=...)`."""
+    `terms(target, opts, src, R, t, gate=...)`. `reduce`, when given, maps
+    each iteration's local (H, b, count, chi2) to the global one (the
+    distributed matchers' all-reduce, parallel/match.py); every rank then
+    takes the same step."""
     dev = src.device
     gate, wide_gate, warmup = _gates(opts, dev)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
@@ -561,6 +564,8 @@ def _gauss_newton(terms, target: IcpTarget, opts: IcpOptions, src: PointCloud, R
         warm = it < warmup
         H, b, n_eff, chi2 = terms(target, opts, src, R, t,
                                   gate=wide_gate if warm else gate)
+        if reduce is not None:
+            H, b, n_eff, chi2 = reduce(H, b, n_eff, chi2)
         ok = n_eff >= opts.min_effective_pts
         if warm:
             # Marquardt-damped step relative to the largest diagonal while

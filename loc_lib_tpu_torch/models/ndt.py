@@ -383,8 +383,14 @@ def _ndt_terms(m: NdtMap, opts: NdtOptions, src: PointCloud, R, t, weighted: boo
     return H, b, torch.sum(ok).to(torch.int32), chi2
 
 
-def scan_match(m: NdtMap, opts: NdtOptions, src: PointCloud, R0, t0) -> MatchResult:
-    """Gauss-Newton NDT alignment of `src` to the map from (R0, t0)."""
+def scan_match(m: NdtMap, opts: NdtOptions, src: PointCloud, R0, t0, reduce=None,
+               n_points=None) -> MatchResult:
+    """Gauss-Newton NDT alignment of `src` to the map from (R0, t0).
+
+    The distributed matchers (parallel/) pass `reduce`, which maps each
+    iteration's local (H, b, n_res, chi2) to the global one, and
+    `n_points`, the source point count over all ranks that direct mode
+    gates on (default: src.count())."""
     weighted = opts.method == "incremental"
     dev = src.device
     R = torch.as_tensor(R0, dtype=torch.float32, device=dev)
@@ -395,8 +401,10 @@ def scan_match(m: NdtMap, opts: NdtOptions, src: PointCloud, R0, t0) -> MatchRes
     it = 0
     while it < opts.max_iteration:
         H, b, n_res, chi2 = _ndt_terms(m, opts, src, R, t, weighted)
+        if reduce is not None:
+            H, b, n_res, chi2 = reduce(H, b, n_res, chi2)
         # weighted: per-residual count; direct: every source point (quirk)
-        n_eff = n_res if weighted else src.count()
+        n_eff = n_res if weighted else (src.count() if n_points is None else n_points)
         ok = n_eff >= opts.min_effective_pts
         # filters, retraction and stop test: one launch (kernels.gn_step)
         R, t, converged = kernels.gn_step(mathx.solve_gn_6x6(H, b), ok, R, t, opts.eps, True)

@@ -115,8 +115,10 @@ def init_state(opts: LocOptions, R_il=None, t_il=None, *, device) -> LocState:
     return st._replace(**_build_target(opts, empty, z3))
 
 
-def step(state: LocState, scan: PointCloud, opts: LocOptions):
-    """One scan: predict, match against the crop, fuse, box-edge test."""
+def step(state: LocState, scan: PointCloud, opts: LocOptions, match=None):
+    """One scan: predict, match against the crop, fuse, box-edge test.
+    `match(scan, R0, t0)`, when given, replaces the match against the
+    state's target (the sharded Loc's distributed match)."""
     _check_matcher(opts)
     if opts.with_eskf:
         Ri, ti = eskf_mod.nominal_se3(state.eskf)
@@ -125,7 +127,9 @@ def step(state: LocState, scan: PointCloud, opts: LocOptions):
         dR, dt = lie.se3_compose(state.R, state.t, *lie.se3_inverse(state.last_R, state.last_t))
         R0, t0 = lie.se3_compose(dR, dt, state.R, state.t)
 
-    if opts.matcher == "icp":
+    if match is not None:
+        res = match(scan, R0, t0)
+    elif opts.matcher == "icp":
         res = icp.scan_match(state.icp_target, opts.icp, scan, R0, t0)
     else:
         res = ndt.scan_match(state.ndt_map, opts.ndt, scan, R0, t0)
@@ -159,12 +163,12 @@ def predict_imu(state: LocState, gyro, acce, timestamp) -> LocState:
 
 
 def step_measure(state: LocState, scan: PointCloud, imu_gyro, imu_acce, imu_stamp,
-                 imu_valid, opts: LocOptions):
+                 imu_valid, opts: LocOptions, match=None):
     """One measure group: ESKF-predict through the padded IMU packet, then
     `step`."""
     new_eskf = eskf_mod.predict_scan(state.eskf, imu_gyro, imu_acce, imu_stamp, imu_valid,
                                      eskf_mod.EskfOptions())
-    return step(state._replace(eskf=new_eskf), scan, opts)
+    return step(state._replace(eskf=new_eskf), scan, opts, match)
 
 
 def set_init_pose(state: LocState, R, t) -> LocState:

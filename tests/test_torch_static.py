@@ -1,9 +1,11 @@
 """Static checks on the port package: it must run where jax is absent, so no
-module under loc_lib_tpu_torch/ (nor chip_smoke.py, nor chip_kernel_study.py)
-may import jax or the JAX package, and every module must import with torch
-alone. The modules of every slice are covered, 3D SLAM's graph/ included, and
-none sums floats with a scatter-add (CUDA adds those with atomics, so one
-input could give different bits on different runs)."""
+module under loc_lib_tpu_torch/ (nor chip_smoke.py, nor chip_kernel_study.py,
+nor tests/test_torch_dist_workers.py, the rank functions the distributed
+tests spawn) may import jax or the JAX package, and every module must import
+with torch alone. The modules of every slice are covered, 3D SLAM's graph/ and the
+distributed layer included, and none sums floats with a scatter-add (CUDA
+adds those with atomics, so one input could give different bits on different
+runs)."""
 import ast
 import importlib
 import pathlib
@@ -27,8 +29,12 @@ def _imports(path):
             yield node.module
 
 
+WORKERS = REPO / "tests" / "test_torch_dist_workers.py"
+
+
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_kernel_study.py"]
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_kernel_study.py",
+                                        WORKERS]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
@@ -39,12 +45,17 @@ def test_no_jax_imports(path):
 
 def test_every_slice_is_covered():
     """The checks above walk the whole package; the modules of the 3D SLAM
-    slice and of the 2D stack are among them."""
+    slice, the 2D stack, the leaves and the distributed layer are among
+    them."""
     paths = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
     for mod in ("graph/pose_graph.py", "graph/scan_context.py", "pipeline/slam3d.py",
                 "pipeline/lio.py", "models/eskf.py", "utils/lie.py", "models/grid2d.py",
                 "graph/pose_graph2d.py", "pipeline/mapping2d.py",
-                "pipeline/mapping2d_device.py", "io/synthetic.py", "io/convert.py"):
+                "pipeline/mapping2d_device.py", "io/synthetic.py", "io/convert.py",
+                "ops/filters.py", "ops/bfnn.py", "ops/ring_search.py", "models/reflector.py",
+                "parallel/mesh.py", "parallel/multihost.py", "parallel/match.py",
+                "parallel/map_shard.py", "parallel/graph.py", "pipeline/loc_sharded.py",
+                "pipeline/lio_sharded.py", "pipeline/slam3d_sharded.py"):
         assert mod in paths, mod
 
 
@@ -61,7 +72,8 @@ def _accumulating_put(node) -> bool:
                     for kw in node.keywords))
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(REPO)))
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [WORKERS],
+                         ids=lambda p: str(p.relative_to(REPO)))
 def test_no_scatter_add_sums(path):
     """Node, voxel and dense-matrix sums go through voxel.segment_sum over
     sorted rows: no scatter-add, and no index_put / put with accumulate."""
