@@ -16,7 +16,7 @@ the rank's contiguous block of a replicated tensor's leading rows.
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Union
+from typing import Iterable, Union
 
 import torch
 import torch.distributed as dist
@@ -34,30 +34,27 @@ def _require_world(n: int) -> None:
                          f"{dist.get_world_size()}")
 
 
-def _device_type(device_type: Optional[str]) -> str:
+def _device_type() -> str:
     """The mesh's device type: "cuda" on an NCCL world, else "cpu" (a gloo
     world, also when its ranks compute on a card: gloo reduces in host
     memory wherever the tensors live, and the mesh's device type only
     places DTensors)."""
-    if device_type is not None:
-        return device_type
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def make_mesh(n_devices: int | None = None, axis: str = "dp",
-              device_type: Optional[str] = None) -> DeviceMesh:
+def make_mesh(n_devices: int | None = None, axis: str = "dp") -> DeviceMesh:
     """1-D mesh over all ranks (n_devices, when given, must equal the world
     size)."""
     n = dist.get_world_size() if n_devices is None and dist.is_initialized() else n_devices
     _require_world(n or 0)
-    return init_device_mesh(_device_type(device_type), (n,), mesh_dim_names=(axis,))
+    return init_device_mesh(_device_type(), (n,), mesh_dim_names=(axis,))
 
 
-def make_mesh_2d(dp: int, mp: int, device_type: Optional[str] = None) -> DeviceMesh:
+def make_mesh_2d(dp: int, mp: int) -> DeviceMesh:
     """2-D mesh dp x mp (source rows x map shards), rank = dp_index * mp +
     mp_index."""
     _require_world(dp * mp)
-    return init_device_mesh(_device_type(device_type), (dp, mp), mesh_dim_names=("dp", "mp"))
+    return init_device_mesh(_device_type(), (dp, mp), mesh_dim_names=("dp", "mp"))
 
 
 def replicated(mesh: DeviceMesh) -> list:

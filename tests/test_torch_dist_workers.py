@@ -190,6 +190,21 @@ def _step_out(res) -> dict:
             "num_effective": int(res.num_effective), "chi2": float(res.chi2)}
 
 
+def _lio_state(f: dict) -> lio_sharded.LioShardedState:
+    """A LioShardedState from the JAX engine's state as numpy."""
+    return lio_sharded.LioShardedState(
+        **{k: _t(f[k]) for k in ("R", "t", "last_R", "last_t", "last_kf_R", "last_kf_t",
+                                 "R_il", "t_il")},
+        num_kfs=int(f["num_kfs"]), frame_idx=int(f["frame_idx"]),
+        eskf=convert.eskf_state_from_numpy(f["eskf"], DEV))
+
+
+def _ndt_sharded(fr: dict, me: int) -> map_shard.ShardedNdtMap:
+    """This rank's shard (me along "mp") of the JAX engine's sharded map."""
+    return map_shard.ShardedNdtMap(map=convert.ndt_map_from_numpy(fr["shards"][me], DEV),
+                                   lo=_t(fr["lo"]), hi=_t(fr["hi"]), overflow=_t(fr["overflow"]))
+
+
 def _lio_carried(mesh, case: dict) -> list:
     """One sharded LIO step per frame, from the JAX engine's replicated
     state and this rank's shard of its map before the frame; on a keyframe
@@ -198,15 +213,7 @@ def _lio_carried(mesh, case: dict) -> list:
     opts = lio_options(case["lio_opts"])
     out = []
     for fr in case["lio_carried"]:
-        f = fr["state"]
-        state = lio_sharded.LioShardedState(
-            **{k: _t(f[k]) for k in ("R", "t", "last_R", "last_t", "last_kf_R", "last_kf_t",
-                                     "R_il", "t_il")},
-            num_kfs=int(f["num_kfs"]), frame_idx=int(f["frame_idx"]),
-            eskf=convert.eskf_state_from_numpy(f["eskf"], DEV))
-        sm = map_shard.ShardedNdtMap(map=convert.ndt_map_from_numpy(fr["shards"][me], DEV),
-                                     lo=_t(fr["lo"]), hi=_t(fr["hi"]),
-                                     overflow=_t(fr["overflow"]))
+        state, sm = _lio_state(fr["state"]), _ndt_sharded(fr, me)
         scan = _pc(*fr["scan"])
         _, res = lio_sharded.step_measure(mesh, sm, state, scan, *_imu(fr), opts)
         rec = dict(_step_out(res), is_keyframe=res.is_keyframe, iterations=res.iterations)
@@ -282,8 +289,28 @@ def _slam_free(mesh, case: dict) -> dict:
     eng = Slam3dSharded(mesh, slam_options(case["slam_opts"]), device=DEV)
     _drive(eng, log, 150, eng.add_measure)
     return {"kf_t": np.stack(eng.kf_t), "kf_frame": np.array(eng.kf_frame),
-            "loops": len(eng.loops), "live": eng.live_voxels_per_shard(),
+            "loops": len(eng.loops), "loop_pairs": [(l.i, l.j) for l in eng.loops],
+            "live": eng.live_voxels_per_shard(),
             "inliers": None if eng.loop_inliers is None else eng.loop_inliers.copy()}
+
+
+def _slam_carried(mesh, case: dict) -> dict:
+    """Slam3dSharded.optimize() on the JAX engine's state before its last
+    pose-graph solve: its keyframe poses and loop edges, its front end's
+    state and this rank's shard of its map. Returns the optimized poses,
+    the loop inliers, the corrected front-end state and map shard."""
+    fr = case["slam_carried"]
+    eng = Slam3dSharded(mesh, slam_options(case["slam_opts"]), device=DEV)
+    eng.kf_R, eng.kf_t = list(fr["kf_R"]), list(fr["kf_t"])
+    eng.loops = [slam3d.LoopEdge(*edge) for edge in fr["loops"]]
+    eng.lio.state = _lio_state(fr["state"])
+    eng.lio.sm = _ndt_sharded(fr, mesh_mod.axis_index(mesh, "mp"))
+    assert eng.optimize()
+    st = eng.lio.state
+    return {"kf_R": np.stack(eng.kf_R), "kf_t": np.stack(eng.kf_t),
+            "inliers": eng.loop_inliers.copy(),
+            "state": {k: getattr(st, k).numpy() for k in ("R", "t", "last_kf_R", "last_kf_t")},
+            "shard": _ndt_shard(eng.lio.sm), "live": eng.live_voxels_per_shard()}
 
 
 def map_shard_case(case: dict) -> dict:
@@ -293,7 +320,8 @@ def map_shard_case(case: dict) -> dict:
     out = dict(_rank(), mp_index=mesh_mod.axis_index(mesh, "mp"), seconds={})
     for name, fn in (("matchers", _matchers), ("lio_carried", _lio_carried),
                      ("loc_carried", _loc_carried), ("lio_free", _lio_free),
-                     ("loc_free", _loc_free), ("slam_free", _slam_free)):
+                     ("loc_free", _loc_free), ("slam_free", _slam_free),
+                     ("slam_carried", _slam_carried)):
         if name in case["run"]:
             t0 = time.perf_counter()
             out[name] = fn(mesh, case)
@@ -317,7 +345,7 @@ def multihost_main(store: str, out_path: str) -> None:
     from loc_lib_tpu_torch.parallel import multihost
 
     torch.set_num_threads(1)
-    assert multihost.init(init_method=store)
+    assert multihost.init(init_method=store, device="cpu")
     try:
         assert multihost.is_multiprocess() and dist.get_world_size() == 2
         mesh = multihost.global_mesh(dp=1, mp=2)

@@ -6,8 +6,10 @@ The port runs in spawned CPU processes joined over gloo, one rank each
 (`multihost.launch`, rank functions in tests/test_torch_dist_workers.py), on
 (dp, mp) meshes of (2, 2), (1, 4) and (1, 1); JAX runs its shard_map
 programs on the same mesh shapes of the conftest's CPU devices. One launch
-per mesh shape runs every scenario of that shape (module-scoped fixture);
-the tests assert on its results, one case per scenario and shape.
+per mesh shape runs every scenario of that shape (module-scoped fixture),
+plus one at (2, 2) for the free runs, which need nothing from JAX and so
+start at once; the tests assert on their results, one case per scenario
+and shape.
 
 Stated tolerances:
   * slab bounds (lo, hi, kx), overflow counts and each slab's points: equal
@@ -42,9 +44,17 @@ Stated tolerances:
     larger than one shard's table and no shard full; LocSharded within 0.02
     m of Loc; Slam3dSharded closes loops and stays within 0.15 m of Slam3d,
     keyframe ATE < 0.25 m;
+  * Slam3dSharded against JAX's at (2, 2) (test_torch_slam3d.py's rules):
+    the free runs keep the same keyframes, loop pairs and inlier mask,
+    keyframes within 0.02 m; optimize() on JAX's state before its last
+    pose-graph solve gives the same inlier mask, keyframe and front-end
+    poses within twice JAX's own 1-ulp sensitivity, and the map corrected
+    through the shards with JAX's keys, counts, ages and flags (moments
+    within the raw-moment bounds below plus the corrections' difference);
   * every rank returns the same poses, bit for bit.
 """
 import concurrent.futures
+import copy
 import pathlib
 
 import jax
@@ -53,6 +63,7 @@ import numpy as np
 import pytest
 import torch
 
+from loc_lib_tpu.graph import scan_context as jsc
 from loc_lib_tpu.io import synthetic as jsynthetic
 from loc_lib_tpu.models import icp as jicp, ndt as jndt
 from loc_lib_tpu.ops import pointcloud as jpc
@@ -60,6 +71,8 @@ from loc_lib_tpu.ops.pointcloud import PointCloud as JPointCloud, PAD_COORD
 from loc_lib_tpu.parallel import map_shard as jmap_shard, mesh as jmesh
 from loc_lib_tpu.pipeline import lio as jlio, lio_sharded as jlio_sharded
 from loc_lib_tpu.pipeline import loc as jloc, loc_sharded as jloc_sharded
+from loc_lib_tpu.pipeline import slam3d as jslam
+from loc_lib_tpu.pipeline.slam3d_sharded import Slam3dSharded as JSlam3dSharded
 from loc_lib_tpu.utils import lie as jlie
 from loc_lib_tpu_torch.io import logdir
 from loc_lib_tpu_torch.models import icp, ndt
@@ -264,11 +277,64 @@ def _loc_carried(shape):
     return frames, outs
 
 
+def _jslam_opts() -> jslam.Slam3dOptions:
+    kw = dict(SLAM_OPTS)
+    return jslam.Slam3dOptions(lio=_jopts(kw.pop("lio"), jlio, jndt),
+                               sc=jsc.ScanContextOptions(**kw.pop("sc")),
+                               loop=jslam.LoopOptions(**kw.pop("loop")),
+                               loop_icp=jicp.IcpOptions(**kw.pop("loop_icp")), **kw)
+
+
+def _slam_snapshot(eng):
+    """A copy of a JAX Slam3dSharded that optimize() can change without
+    touching `eng` (its arrays are immutable; the lists are copied)."""
+    s = copy.copy(eng)
+    s.__dict__.pop("optimize", None)
+    for k in ("kf_R", "kf_t", "kf_frame", "loops"):
+        setattr(s, k, list(getattr(eng, k)))
+    s.lio = copy.copy(eng.lio)
+    return s
+
+
+def _slam_carried(shape):
+    """JAX's Slam3dSharded free run over SLAM_LOG; a copy of it taken just
+    before its last optimize(), that copy optimized, and the same with its
+    keyframe poses nudged by one ulp; the copy as numpy for the ranks."""
+    log = logdir.make_demo_log(**SLAM_LOG)
+    eng = JSlam3dSharded(jmesh.make_mesh_2d(*shape), _jslam_opts())
+    for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
+        eng.init_imu(g, a, t)
+    before = []
+    optimize = eng.optimize
+
+    def spy():
+        before[:] = [_slam_snapshot(eng)]
+        return optimize()
+
+    eng.optimize = spy
+    for mg in log.measures(imu_capacity=64):
+        eng.add_measure(_jcloud(log.scan_xyz[mg.scan_index], log.scan_mask[mg.scan_index]),
+                        *_jimu(mg))
+    pre = before[0]
+    done, nudged = _slam_snapshot(pre), _slam_snapshot(pre)
+    nudged.kf_R = [np.nextafter(r, np.float32(np.inf)) for r in pre.kf_R]
+    nudged.kf_t = [np.nextafter(t, np.float32(np.inf)) for t in pre.kf_t]
+    assert done.optimize() and nudged.optimize()
+    sm = _plain(pre.lio.sm)
+    carried = dict(kf_R=[np.asarray(r) for r in pre.kf_R], kf_t=[np.asarray(t) for t in pre.kf_t],
+                   loops=[(int(l.i), int(l.j), np.asarray(l.R), np.asarray(l.t),
+                           float(l.chi2_per_pt), int(l.num_effective)) for l in pre.loops],
+                   state=_plain(pre.lio.state), shards=[_take(sm["map"], s) for s in range(shape[1])],
+                   lo=sm["lo"], hi=sm["hi"], overflow=sm["overflow"])
+    return {"engine": eng, "pre": pre, "done": done, "nudged": nudged, "carried": carried}
+
+
 @pytest.fixture(scope="module")
 def ref(data):
     out = {shape: _jax_matchers(data, shape) for shape in MESHES}
     out["lio"] = _lio_carried((2, 2))
     out["loc"] = _loc_carried((2, 2))
+    out["slam"] = _slam_carried((2, 2))
     return out
 
 
@@ -278,9 +344,10 @@ def ref(data):
 
 @pytest.fixture(scope="module")
 def port(data, request):
-    """The three launches run side by side, with the JAX package's and the
-    port's single-device work of this process in between: the (1, 1) launch
-    needs nothing from JAX, the others carry its states across."""
+    """The launches run side by side, with the JAX package's and the port's
+    single-device work of this process in between: the (1, 1) launch and
+    the (2, 2) free runs need nothing from JAX, the others carry its states
+    across."""
     base = dict(data, lio_opts=LIO_OPTS, lio_log=LIO_LOG, loc_opts=LOC_OPTS, loc_log=LOC_LOG,
                 loc_world=np.asarray(_loc_world()), loc_shard_capacity=LOC_SHARD_CAPACITY,
                 slam_log=SLAM_LOG, slam_opts=SLAM_OPTS)
@@ -288,23 +355,28 @@ def port(data, request):
     def launch(case):
         shape = case["mesh"]
         return multihost.launch("test_torch_dist_workers:map_shard_case", shape[0] * shape[1],
-                                (case,), extra_paths=[TESTS])
+                                (case,), device="cpu", extra_paths=[TESTS])
 
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         runs = {(1, 1): pool.submit(launch, dict(
             base, mesh=(1, 1), run=("matchers", "lio_free"),
-            lio_opts=dict(LIO_OPTS, ndt=dict(LIO_OPTS["ndt"], map_capacity=65536))))}
+            lio_opts=dict(LIO_OPTS, ndt=dict(LIO_OPTS["ndt"], map_capacity=65536)))),
+            "free": pool.submit(launch, dict(base, mesh=(2, 2), run=("loc_free", "slam_free")))}
         ref = request.getfixturevalue("ref")
         runs[(2, 2)] = pool.submit(launch, dict(
             base, mesh=(2, 2), lio_carried=ref["lio"][0], loc_carried=ref["loc"][0],
             ndt_inc_carried=ref[(2, 2)]["ndt_inc_carried"],
-            run=("matchers", "lio_carried", "loc_carried", "loc_free", "slam_free")))
+            slam_carried=ref["slam"]["carried"],
+            run=("matchers", "lio_carried", "loc_carried", "slam_carried")))
         runs[(1, 4)] = pool.submit(launch, dict(
             base, mesh=(1, 4), ndt_inc_carried=ref[(1, 4)]["ndt_inc_carried"],
             run=("matchers", "lio_free")))
         request.getfixturevalue("single")
         request.getfixturevalue("jax_single")
-        return {shape: f.result() for shape, f in runs.items()}
+        out = {key: f.result() for key, f in runs.items()}
+    for r, free in zip(out[(2, 2)], out.pop("free")):
+        r.update(loc_free=free["loc_free"], slam_free=free["slam_free"])
+    return out
 
 
 def _single_lio(map_capacity):
@@ -625,3 +697,79 @@ def test_slam3d_sharded_closes_loops_like_single_device(port, single):
         gt_rel = np.linalg.inv(log.gt_poses[0])[None] @ gt
         ate = np.linalg.norm(got["kf_t"] - gt_rel[:, :3, 3], axis=1)
         assert float(np.sqrt(np.mean(ate ** 2))) < 0.25, ate
+
+
+def test_slam3d_sharded_free_run_matches_jax(port, ref):
+    """The same keyframes, loop pairs and inlier mask as JAX's Slam3dSharded
+    free run at (2, 2); keyframe positions within 0.02 m of JAX's (measured
+    5.7 mm); every rank the same bits."""
+    jeng = ref["slam"]["engine"]
+    runs = port[(2, 2)]
+    got = runs[0]["slam_free"]
+    for r in runs[1:]:
+        for f in ("kf_t", "inliers", "live"):
+            np.testing.assert_array_equal(r["slam_free"][f], got[f], err_msg=f)
+    assert list(got["kf_frame"]) == list(jeng.kf_frame)
+    assert got["loop_pairs"] == [(l.i, l.j) for l in jeng.loops] and got["loop_pairs"]
+    np.testing.assert_array_equal(got["inliers"], jeng.loop_inliers)
+    gap = np.linalg.norm(got["kf_t"] - np.stack(jeng.kf_t), axis=1).max()
+    assert gap < 0.02, gap
+
+
+def test_slam3d_sharded_optimize_matches_jax_on_carried_state(port, ref):
+    """Slam3dSharded.optimize() on JAX's state just before its last
+    pose-graph solve (keyframe poses, loop edges, the front end's state and
+    map shards carried across): the same inlier mask; keyframe poses and
+    the corrected front-end poses within twice the change a 1-ulp nudge of
+    the keyframe poses makes in JAX's own optimize() (measured: no more
+    than JAX's own change); each shard of the map corrected through the
+    shards with JAX's live count, keys, counts, ages and flags, its means
+    and covariances within _assert_shard_equals_jax's raw-moment bounds
+    plus what the two corrections' difference moves a voxel at its range
+    (measured up to 4.9 u |mu|); every rank the same bits."""
+    jr = ref["slam"]
+    done, nudged, pre = jr["done"], jr["nudged"], jr["pre"]
+    runs = port[(2, 2)]
+    got = runs[0]["slam_carried"]
+    for r in runs[1:]:
+        for f in ("kf_R", "kf_t", "inliers", "live"):
+            np.testing.assert_array_equal(r["slam_carried"][f], got[f], err_msg=f)
+    np.testing.assert_array_equal(got["inliers"], done.loop_inliers)
+    assert got["inliers"].any()
+    for f in ("kf_t", "kf_R"):
+        want = np.stack(getattr(done, f))
+        self_gap = np.abs(np.stack(getattr(nudged, f)) - want).max()
+        port_gap = np.abs(got[f] - want).max()
+        assert 0 < self_gap and port_gap <= 2 * self_gap, (f, port_gap, self_gap)
+    for f in ("R", "t", "last_kf_R", "last_kf_t"):
+        want = np.asarray(getattr(done.lio.state, f))
+        self_gap = np.abs(np.asarray(getattr(nudged.lio.state, f)) - want).max()
+        port_gap = np.abs(got["state"][f] - want).max()
+        assert port_gap <= 2 * self_gap, (f, port_gap, self_gap)
+    # the two corrections' difference, and how far it moves a point at range r
+    k = len(done.kf_R) - 1
+    pre_R = np.asarray(pre.kf_R[k], np.float64)
+    dR_gap = np.abs((got["kf_R"][k] - np.asarray(done.kf_R[k], np.float64)) @ pre_R.T).max()
+    dt_gap = (np.abs(got["kf_t"][k] - np.asarray(done.kf_t[k])).max()
+              + 3 * dR_gap * np.abs(np.asarray(pre.kf_t[k])).max())
+    sm = done.lio.sm
+    np.testing.assert_array_equal(got["live"], done.live_voxels_per_shard())
+    for s in range(2):
+        shard = _rank_of(runs, s)["slam_carried"]["shard"]
+        np.testing.assert_array_equal(shard["lo"], np.asarray(sm.lo))
+        np.testing.assert_array_equal(shard["hi"], np.asarray(sm.hi))
+        rows, jrows = _rows(shard["keys"]), _rows(sm.map.keys[s])
+        assert set(rows) == set(jrows), s
+        idx = np.array([rows[key] for key in jrows], np.int64)
+        jidx = np.array(list(jrows.values()), np.int64)
+        for f in ("count", "age", "estimated"):
+            np.testing.assert_array_equal(shard[f][idx], np.asarray(getattr(sm.map, f)[s])[jidx],
+                                          err_msg=f)
+        mu = np.asarray(sm.map.mean[s], np.float64)[jidx]
+        cov = np.asarray(sm.map.cov[s], np.float64)[jidx]
+        r = np.sqrt(np.sum(mu * mu, 1))
+        big = np.abs(cov).max((1, 2))
+        assert (np.abs(shard["mean"][idx] - mu).max(1)
+                <= 8 * U * r + 3 * dR_gap * r + dt_gap + 1e-30).all()
+        assert (np.abs(shard["cov"][idx] - cov).max((1, 2))
+                <= 16 * U * (r * r + big) + 6 * dR_gap * big).all()

@@ -18,6 +18,8 @@ import sys
 
 import numpy as np
 import pytest
+import torch
+import torch.distributed as dist
 
 from loc_lib_tpu_torch.parallel import multihost
 
@@ -78,5 +80,29 @@ def test_launch_reports_a_failing_rank():
     """A rank that raises ends the launch with its error output; the other
     ranks are stopped."""
     with pytest.raises(RuntimeError, match="of 2 failed") as err:
-        multihost.launch("test_torch_dist_workers:failing_rank", 2, extra_paths=[TESTS], timeout=120)
+        multihost.launch("test_torch_dist_workers:failing_rank", 2, device="cpu",
+                         extra_paths=[TESTS], timeout=120)
     assert "this rank fails on purpose" in str(err.value)
+
+
+def test_init_and_launch_default_to_the_card(monkeypatch, tmp_path):
+    """A rank computes on the card unless it asks for the CPU: without a
+    card, init with a world configured and launch raise instead of
+    setting up a gloo world on the host; with one, init takes it and
+    NCCL."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    store = f"file://{tmp_path / 'store'}"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            multihost.init(store, 1, 0)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            multihost.launch("test_torch_dist_workers:failing_rank", 2, extra_paths=[TESTS])
+        assert not dist.is_initialized()
+        return
+    assert multihost.init(store, 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        assert torch.cuda.current_device() == 0
+    finally:
+        dist.destroy_process_group()

@@ -5,8 +5,8 @@ The port runs in spawned CPU processes joined over gloo, one rank each
 (`multihost.launch`, rank functions in tests/test_torch_dist_workers.py), on a
 1-D "dp" mesh of 2 and of 4 ranks; JAX runs its shard_map programs on the
 same number of the conftest's CPU devices. One launch per mesh size runs
-every scenario of this file (module-scoped fixture); the tests assert on
-its results.
+every scenario of this file (module-scoped fixture), side by side with
+JAX's work; the tests assert on its results.
 
 Stated tolerances:
   * every rank returns the same bits (the all-reduce is replicated);
@@ -24,6 +24,7 @@ Stated tolerances:
     (test_parallel.py:106's bound), per-edge chi2 within 5% / 1e-3; the
     two-phase loop inlier set equal to JAX's and to the single-device one.
 """
+import concurrent.futures
 import pathlib
 
 import jax.numpy as jnp
@@ -101,22 +102,31 @@ def case():
             "edges_good": edges_good, "edges_all": edges_all}
 
 
+def _launch(target, n, case):
+    return multihost.launch(f"test_torch_dist_workers:{target}", n, (case,), device="cpu",
+                            extra_paths=[TESTS])
+
+
 @pytest.fixture(scope="module")
-def port(case):
-    """The port's ranks (one launch per mesh size) and its single-device
-    results."""
-    runs = {n: multihost.launch("test_torch_dist_workers:parallel_case", n, (case,),
-                                extra_paths=[TESTS]) for n in RANKS}
-    tgt, src = _pc(*case["tgt"]), _pc(*case["src"])
-    eye, z = torch.eye(3), torch.zeros(3)
-    iopts = icp.IcpOptions(method="p2plane")
-    nopts = ndt.NdtOptions(voxel_size=2.0, method="direct")
-    R0, t0 = torch.from_numpy(case["R_est"]), torch.from_numpy(case["t_est"])
-    edges = lambda d: pg.Se3Edges(**{k: torch.from_numpy(v) for k, v in d.items()})
-    single = {"icp": icp.scan_match(icp.set_target(tgt, iopts), iopts, src, eye, z),
-              "ndt": ndt.scan_match(ndt.build_direct(tgt, nopts), nopts, src, eye, z),
-              "pgo": pg.optimize(R0, t0, edges(case["edges_good"])),
-              "two_phase": pg.optimize_two_phase(R0, t0, edges(case["edges_all"]))}
+def port(case, request):
+    """The port's ranks (one launch per mesh size, and a world of one rank
+    for the group= test), run side by side with JAX's distributed results
+    and the port's single-device ones."""
+    with concurrent.futures.ThreadPoolExecutor(len(RANKS) + 1) as pool:
+        launches = {n: pool.submit(_launch, "parallel_case", n, case) for n in RANKS}
+        launches["one_rank"] = pool.submit(_launch, "one_rank_group_case", 1, case)
+        request.getfixturevalue("ref")
+        tgt, src = _pc(*case["tgt"]), _pc(*case["src"])
+        eye, z = torch.eye(3), torch.zeros(3)
+        iopts = icp.IcpOptions(method="p2plane")
+        nopts = ndt.NdtOptions(voxel_size=2.0, method="direct")
+        R0, t0 = torch.from_numpy(case["R_est"]), torch.from_numpy(case["t_est"])
+        edges = lambda d: pg.Se3Edges(**{k: torch.from_numpy(v) for k, v in d.items()})
+        single = {"icp": icp.scan_match(icp.set_target(tgt, iopts), iopts, src, eye, z),
+                  "ndt": ndt.scan_match(ndt.build_direct(tgt, nopts), nopts, src, eye, z),
+                  "pgo": pg.optimize(R0, t0, edges(case["edges_good"])),
+                  "two_phase": pg.optimize_two_phase(R0, t0, edges(case["edges_all"]))}
+        runs = {key: f.result() for key, f in launches.items()}
     return runs, single
 
 
@@ -231,12 +241,11 @@ def test_hooks_left_unset_give_the_single_device_bits(case):
             assert torch.equal(torch.as_tensor(getattr(a, f)), torch.as_tensor(getattr(b, f))), f
 
 
-def test_pose_graph_group_of_one_rank_gives_the_bits_of_none(case):
+def test_pose_graph_group_of_one_rank_gives_the_bits_of_none(port):
     """graph/pose_graph.py's group= path in a world of one rank: the node
     sums and the off-diagonal matvec all-reduced over it give the bits of
     group=None; and a 1-rank mesh gives the GN loops no reduction hook."""
-    res = multihost.launch("test_torch_dist_workers:one_rank_group_case", 1, (case,),
-                           extra_paths=[TESTS])[0]
+    res = port[0]["one_rank"][0]
     assert res["hook"] is None
     for k, v in res["none"].items():
         np.testing.assert_array_equal(res["world"][k], v, err_msg=k)
