@@ -54,7 +54,16 @@ edge-sharded two-phase pose graph on phase 10c's graph, every rank's K1
 and K3 against their plain versions on its own shard, and every rank's
 poses equal to rank 0's bits. Phase 13 runs the leaves on the card:
 bfnn.knn against a float64 oracle and voxel.knn, the filters, the ring
-search match and the reflector fix. Launch counters,
+search match and the reflector fix. Phase 14 runs the four apps through
+their CLIs with no device argument (the card): mapping --demo, then
+--config with a written slam.yaml selecting ndt_inc (K3), --ckpt-every 10
+and --resume (the resumed poses are the uninterrupted run's bits),
+matching --demo (K2), run_slam on the slam3d_loop log with the app's
+default options (K1 / K1-batch loop registration, a loop with an inlier),
+mapping2d --demo and --host-driven, mapping and matching --mp-shards 1 in
+a one-rank NCCL world (the single-device bits), and entry(); every report's
+ATE within the JAX package's plus 0.04 m, every artifact written, the
+native host runtime built. Launch counters,
 set to 0 before each path and read after
 it, show each path went through its kernels (one K3 launch per NDT or
 p2line_vox linearization). Then it compares a match with
@@ -3619,6 +3628,277 @@ def phase_leaves(device, card, workload):
           f"against {N_TARGET} target points: " + "; ".join(lines) + f" [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the apps, through their CLIs
+# ---------------------------------------------------------------------------
+
+# The JAX package's app reports on the CPU for each --demo run (one run
+# each, PERF.md section 2) plus 0.04 m, the section's rule.
+JAX_ATE_APP_MAPPING_M = 0.0473      # apps.mapping --demo (30 frames, icp / p2plane)
+JAX_ATE_APP_NDT_INC_M = 0.0501      # apps.mapping --demo --config (ndt_inc)
+JAX_ATE_APP_MATCHING_M = 1.151475   # apps.matching --demo (20 frames, p2plane_vox, no IMU)
+APP_CKPT_EVERY = 10
+NDT_INC_YAML = ("# apps.mapping --config: incremental NDT (slam.yaml's enums)\n"
+                "lio_mapping:\n  matching_method: 2\n  ndt_option:\n    method: 1\n")
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+
+
+class _Engines:
+    """Records every engine an app builds while a run lasts: `module.name`
+    is replaced by a subclass that keeps each instance."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.engines = []
+
+    def __enter__(self):
+        engines = self.engines
+
+        class Recorded(self.orig):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                engines.append(self)
+
+        setattr(self.module, self.name, Recorded)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _artifacts(out, names, label):
+    """Every artifact exists; each PNG starts with the PNG signature. The
+    report and the PNGs are copied under chiprun_out/apps/<label>/."""
+    import shutil
+    from pathlib import Path
+
+    keep = Path(__file__).resolve().parent / "chiprun_out" / "apps" / label
+    keep.mkdir(parents=True, exist_ok=True)
+    for name in names:
+        p = Path(out) / name
+        if not p.exists():
+            raise AssertionError(f"14 {label}: {name} was not written")
+        if name.endswith(".png") and p.read_bytes()[:8] != PNG_MAGIC:
+            raise AssertionError(f"14 {label}: {name} is not a PNG")
+        if name.endswith((".png", ".json")):
+            shutil.copy(p, keep / p.name)
+
+
+def _stage_line(rep) -> str:
+    return ", ".join(f"{k} {v:.2f} ms" for k, v in rep["stage_ms"].items())
+
+
+def phase_apps(device, card, counted, one_launch_per_linearization, out_root):
+    """14: the four apps through their `main` (the CLI a user runs, with no
+    device argument: the card) and the entry point. 14a mapping --demo (30
+    frames, capacity 8192, LioOptions(): icp / p2plane), then --config with
+    a written slam.yaml selecting ndt_inc (one K3 launch per GN iteration);
+    14b --ckpt-every 10, then --resume from frame 19's checkpoint: the
+    resumed poses are the uninterrupted run's bits; 14c matching --demo (K2,
+    one launch per GN iteration); 14d run_slam on phase 10's slam3d_loop log
+    with the app's default options (a loop with an inlier, K1 / K1-batch,
+    scan_context.png); 14e mapping2d --demo and --host-driven; 14g entry().
+    (14f, --mp-shards 1 in the one-rank NCCL world, is `phase_apps_sharded`.)
+    Fails unless native.available(), every report's ATE is within JAX + 0.04
+    m and every artifact exists. Stage times are host-clock means: the apps
+    pass no block_on. Returns (launch counts summed over the runs, the 14c
+    Loc poses, the 14f twin's poses)."""
+    import dataclasses
+    import os
+
+    from loc_lib_tpu_torch import entry
+    from loc_lib_tpu_torch.apps import mapping, mapping2d, matching, slam
+    from loc_lib_tpu_torch.io import logdir, native
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.pipeline import lio, loc, slam3d
+
+    t_all = time.perf_counter()
+    if not native.available():
+        raise AssertionError("14: the native host runtime did not build (g++ is on this "
+                             "machine)")
+    total = {}
+
+    def add(c):
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        return r, time.perf_counter() - t0
+
+    map_files = ("trajectory_kitti.txt", "trajectory_tum.txt", "global_map.npz",
+                 "map_topdown.png", "report.json", "key_frames/manifest.json")
+    # 14a: mapping --demo, the default front end (knn p2plane: gn_step only)
+    d = os.path.join(out_root, "mapping")
+    with _Engines(lio, "Lio") as rec:
+        (rep, secs), c = counted(("gn_step", "so3_renormalize"),
+                                 lambda: timed(lambda: mapping.main(["--demo", "--out", d])))
+    add(c)
+    _artifacts(d, map_files, "mapping")
+    plain_poses = np.stack(rec.engines[0].poses)
+    if not rep["ate_rmse_m"] <= JAX_ATE_APP_MAPPING_M + 0.04:
+        raise AssertionError(f"14a mapping: ATE {rep['ate_rmse_m']} m")
+    print(f"phase 14a apps.mapping --demo: {rep['frames']} frames, {rep['keyframes']} "
+          f"keyframes, {rep['map_points']} map points, ATE {rep['ate_rmse_m']} m (bound "
+          f"{JAX_ATE_APP_MAPPING_M + 0.04:.4f}), stage means {_stage_line(rep)} (host clock), "
+          f"{secs:.1f} s with the demo log; launches {c} [{card}]", flush=True)
+    # 14a: --config selecting ndt_inc
+    cfg = os.path.join(out_root, "ndt_inc.yaml")
+    with open(cfg, "w") as f:
+        f.write(NDT_INC_YAML)
+    d = os.path.join(out_root, "mapping_ndt_inc")
+    with _Spy(lio, "step_measure", lambda r: r[1].iterations) as steps:
+        (rep, secs), c = counted(("ndt_fused_terms", "gn_step"), lambda: timed(
+            lambda: mapping.main(["--demo", "--config", cfg, "--out", d])))
+    add(c)
+    _artifacts(d, map_files, "mapping_ndt_inc")
+    one_launch_per_linearization("phase 14a mapping --config (ndt_inc)", c,
+                                 ("ndt_fused_terms", "gn_step"), sum(steps.calls))
+    if not rep["ate_rmse_m"] <= JAX_ATE_APP_NDT_INC_M + 0.04:
+        raise AssertionError(f"14a mapping --config: ATE {rep['ate_rmse_m']} m")
+    print(f"phase 14a apps.mapping --demo --config (ndt_inc): {rep['frames']} frames, "
+          f"{rep['keyframes']} keyframes, ATE {rep['ate_rmse_m']} m (bound "
+          f"{JAX_ATE_APP_NDT_INC_M + 0.04:.4f}), stage means {_stage_line(rep)} (host clock), "
+          f"{secs:.1f} s [{card}]", flush=True)
+    # 14b: checkpoints every 10 scans, then resume from frame 19's
+    d = os.path.join(out_root, "mapping_ckpt")
+    with _Engines(lio, "Lio") as rec:
+        full, c = counted((), lambda: mapping.main(
+            ["--demo", "--ckpt-every", str(APP_CKPT_EVERY), "--out", d]))
+        add(c)
+        kept = sorted(os.listdir(os.path.join(d, "ckpt")))
+        os.unlink(os.path.join(d, "ckpt", kept[-1]))
+        tail, c = counted((), lambda: mapping.main(
+            ["--demo", "--ckpt-every", str(APP_CKPT_EVERY), "--resume", "--out", d]))
+        add(c)
+    whole, resumed = np.stack(rec.engines[0].poses), np.stack(rec.engines[1].poses)
+    start = int(kept[-2][5:13]) + 1
+    if not (np.array_equal(whole, plain_poses) and len(resumed) == full["frames"] - start
+            and np.array_equal(resumed, whole[-len(resumed):])):
+        raise AssertionError(f"14b: resumed poses differ from the uninterrupted run's "
+                             f"(checkpoints {kept})")
+    _artifacts(d, map_files, "mapping_resumed")
+    print(f"phase 14b apps.mapping --ckpt-every {APP_CKPT_EVERY} then --resume: checkpoints "
+          f"{kept}, the last removed; resumed at frame {start}: {tail['frames']} frames, the "
+          f"uninterrupted run's bits (and the checkpointing run 14a's); keyframe store "
+          f"{full['keyframes']} -> {tail['keyframes']} [{card}]", flush=True)
+    # 14c: matching --demo: K2, one launch per GN iteration
+    d = os.path.join(out_root, "matching")
+    with _Engines(loc, "Loc") as rec, _Spy(icp, "scan_match", lambda r: r.iterations) as m:
+        (rep, secs), c = counted(("p2plane_pick_fused_terms", "gn_step"), lambda: timed(
+            lambda: matching.main(["--demo", "--out", d])))
+    add(c)
+    one_launch_per_linearization("phase 14c matching --demo", c,
+                                 ("p2plane_pick_fused_terms", "gn_step"), sum(m.calls))
+    _artifacts(d, ("trajectory_kitti.txt", "trajectory_tum.txt", "report.json"), "matching")
+    loc_poses = np.stack(rec.engines[0].poses)
+    if not rep["ate_rmse_m"] <= JAX_ATE_APP_MATCHING_M + 0.04:
+        raise AssertionError(f"14c matching: ATE {rep['ate_rmse_m']} m")
+    print(f"phase 14c apps.matching --demo: {rep['frames']} frames, ATE "
+          f"{rep['ate_rmse_m']:.4f} m (bound {JAX_ATE_APP_MATCHING_M + 0.04:.4f}), "
+          f"{rec.engines[0].num_recrops} re-crops, stage means {_stage_line(rep)} (host clock), "
+          f"{secs:.1f} s [{card}]", flush=True)
+    # 14d: run_slam on the slam3d_loop log, the app's default options
+    log = slam3d_log(SLAM_FRAMES)
+    d = os.path.join(out_root, "slam")
+    opts = slam3d.Slam3dOptions(lio=lio.LioOptions(scan_capacity=log.scan_xyz.shape[1]))
+    (rep, secs), c = counted(("p2plane_fused_terms", "gn_step"), lambda: timed(
+        lambda: slam.run_slam(log, opts, d)))
+    add(c)
+    _artifacts(d, ("odometry_kitti.txt", "keyframes_optimized_kitti.txt", "global_map.npz",
+                   "map_topdown.png", "scan_context.png", "report.json"), "slam")
+    if not (rep["loops"] >= 1 and rep["loop_inliers"] >= 1):
+        raise AssertionError(f"14d slam: {rep['loops']} loops, {rep['loop_inliers']} inliers")
+    print(f"phase 14d apps.slam.run_slam (slam3d_loop log, {SLAM_FRAMES} frames, the app's "
+          f"default options: loop_icp {opts.loop_icp.method}): {rep['frames']} frames, "
+          f"{rep['keyframes']} keyframes, {rep['loops']} loops, {rep['loop_inliers']} inliers, "
+          f"{rep['map_points']} map points, stage means {_stage_line(rep)} (host clock), "
+          f"{secs:.1f} s; launches {c} [{card}]", flush=True)
+    # 14e: mapping2d --demo, the device engine and the host-driven one
+    for label, extra in (("mapping2d", []), ("mapping2d_host", ["--host-driven"])):
+        d = os.path.join(out_root, label)
+        (rep, secs), c = counted((), lambda: timed(
+            lambda: mapping2d.main(["--demo", "--out", d] + extra)))
+        add(c)
+        _artifacts(d, ("trajectory_tum.txt", "submaps.npz", "occupancy_global.png",
+                       "report.json"), label)
+        if not rep["submaps"] >= 1 or rep["frames"] != 40:
+            raise AssertionError(f"14e {label}: {rep}")
+        print(f"phase 14e apps.mapping2d {' '.join(['--demo'] + extra)}: {rep['frames']} frames, "
+              f"{rep['submaps']} submaps, {rep['loops']} loops, {secs:.1f} s "
+              f"({rep['frames'] / secs:.1f} scans/s with the demo's render) [{card}]",
+              flush=True)
+    # the single-device twin of 14f's sharded mapping (what --mp-shards runs)
+    twin_log = logdir.make_demo_log(num_frames=30)
+    twin_opts = dataclasses.replace(lio.LioOptions(scan_capacity=twin_log.scan_xyz.shape[1]),
+                                    matcher="ndt_inc")
+    with _Engines(lio, "Lio") as rec:
+        _, c = counted(("ndt_fused_terms",), lambda: mapping.run_mapping(
+            twin_log, twin_opts, os.path.join(out_root, "mapping_twin")))
+    add(c)
+    twin_poses = np.stack(rec.engines[0].poses)
+    # 14g: entry() once on the card
+    (fn, args), c = counted(("gn_step",), lambda: _entry_twice(entry, device))
+    add(c)
+    print(f"phase 14g entry(): two LIO steps on {args[1].device}, finite; launches {c} "
+          f"[{card}]", flush=True)
+    print(f"phase 14 (14a-14e, 14g) took {time.perf_counter() - t_all:.1f} s of command time "
+          f"[{card}]", flush=True)
+    return total, loc_poses, twin_poses
+
+
+def _entry_twice(entry, device):
+    fn, args = entry.entry()
+    state, out = fn(*args)
+    state, out2 = fn(state, args[1], args[2])
+    if not (args[1].device == device and torch.isfinite(out.t).all()
+            and torch.isfinite(out2.t).all()):
+        raise AssertionError("14g entry(): not on the card, or not finite")
+    return fn, args
+
+
+def phase_apps_sharded(device, card, counted, loc_poses, twin_poses, out_root):
+    """14f: `mapping --mp-shards 1` and `matching --mp-shards 1` inside the
+    caller's one-rank NCCL world (the CLI joins no second group and leaves
+    the caller's as it is): LioSharded (K3 on the rank's own shard) and
+    LocSharded (the election, then K1 plane given) give the poses of the
+    single-device runs bit for bit, as 12a does. Returns launch counts."""
+    import os
+
+    import torch.distributed as dist
+    from loc_lib_tpu_torch.apps import mapping, matching
+    from loc_lib_tpu_torch.pipeline import lio_sharded, loc_sharded
+
+    t0 = time.perf_counter()
+    total = {}
+    for label, app, mod, cls, names, single in (
+            ("mapping", mapping, lio_sharded, "LioSharded", ("ndt_fused_terms", "gn_step"),
+             twin_poses),
+            ("matching", matching, loc_sharded, "LocSharded", ("p2plane_fused_terms", "gn_step"),
+             loc_poses)):
+        d = os.path.join(out_root, label + "_mp1")
+        with _Engines(mod, cls) as rec:
+            rep, c = counted(names, lambda: app.main(["--demo", "--mp-shards", "1", "--out", d]))
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+        if not dist.is_initialized():
+            raise AssertionError(f"14f {label}: the app destroyed the caller's process group")
+        poses = np.stack(rec.engines[0].poses)
+        gap = float(np.linalg.norm(poses[:, :3, 3] - single[:, :3, 3], axis=1).max())
+        if not np.array_equal(poses, single):
+            raise AssertionError(f"14f {label} --mp-shards 1: poses differ from the "
+                                 f"single-device run's (largest gap {gap:.3g} m)")
+        _artifacts(d, ("trajectory_kitti.txt", "report.json"), label + "_mp1")
+        print(f"phase 14f apps.{label} --demo --mp-shards 1 (one NCCL rank): {rep['frames']} "
+              f"frames, ATE {rep['ate_rmse_m']:.4f} m, the single-device run's bits; "
+              f"launches {c} [{card}]", flush=True)
+    print(f"phase 14f took {time.perf_counter() - t0:.1f} s of command time [{card}]",
+          flush=True)
+    return total
+
+
 def main_cards() -> int:
     """`python3 chip_smoke.py --cards`: phase 12b's paths with one rank a
     card over NCCL (4 cards or more), held to the single-device matches,
@@ -3812,6 +4092,15 @@ def main() -> int:
           flush=True)
     _, c = counted(("gn_step", "so3_renormalize"), lambda: phase_leaves(device, card, workload))
     add(c)
+    # the apps through their CLIs (14a-14e, 14g), then --mp-shards 1 in a
+    # one-rank NCCL world (14f)
+    import tempfile
+    with tempfile.TemporaryDirectory() as app_out:
+        c, loc_app_poses, twin_poses = phase_apps(device, card, counted,
+                                                  one_launch_per_linearization, app_out)
+        add(c)
+        with _NcclWorld(device):
+            add(phase_apps_sharded(device, card, counted, loc_app_poses, twin_poses, app_out))
     # every profiler run comes after the paths' host-clock timings
     phase_headline_timing(device, card, workload, target)
     phase_gather_before_after(device, card, workload, target)
@@ -3858,7 +4147,8 @@ def main() -> int:
           "so3_renormalize are those of the headline match and LIO plus those of phase 8's "
           "scan_match_batch calls and of phase 10's 3D SLAM runs (K1: 10b's two), and every "
           "kernel's adds phase 12's sharded paths (12a's three runs, 12b's ranks summed) and "
-          "phase 13's ring match; launches of K3 are those of phase 5b and phase 12; "
+          "phase 13's ring match and phase 14's app runs (14a-14g); launches of K3 are "
+          "those of phase 5b, phase 12 and phase 14; "
           "max_abs_err of K1 and K2 covers their batched forms",
           flush=True)
     print(json.dumps({"kernels": [

@@ -1,5 +1,6 @@
-"""Trajectory evaluation: ATE (numpy; copy of loc_lib_tpu/eval/metrics.py's
-ATE, kept here because the JAX package cannot be imported without jax).
+"""Trajectory evaluation: ATE and RPE (numpy; a copy of
+loc_lib_tpu/eval/metrics.py, kept here because the JAX package cannot be
+imported without jax).
 Conventions follow the TUM RGB-D benchmark definitions."""
 
 from __future__ import annotations
@@ -47,4 +48,32 @@ def ate(est_poses: np.ndarray, gt_poses: np.ndarray, align: bool = True) -> AteR
         median=float(np.median(err)),
         max=float(np.max(err)),
         trans_errors=err,
+    )
+
+
+class RpeResult(NamedTuple):
+    trans_rmse: float
+    rot_rmse_deg: float
+    trans_errors: np.ndarray
+    rot_errors_deg: np.ndarray
+
+
+def rpe(est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1) -> RpeResult:
+    """Relative pose error over frame gaps of `delta`."""
+    est = np.asarray(est_poses)
+    gt = np.asarray(gt_poses)
+    te, re = [], []
+    for i in range(len(est) - delta):
+        d_est = np.linalg.inv(est[i]) @ est[i + delta]
+        d_gt = np.linalg.inv(gt[i]) @ gt[i + delta]
+        e = np.linalg.inv(d_gt) @ d_est
+        te.append(np.linalg.norm(e[:3, 3]))
+        c = np.clip((np.trace(e[:3, :3]) - 1) / 2, -1, 1)
+        re.append(np.degrees(np.arccos(c)))
+    te, re = np.asarray(te), np.asarray(re)
+    return RpeResult(
+        trans_rmse=float(np.sqrt(np.mean(te ** 2))) if len(te) else 0.0,
+        rot_rmse_deg=float(np.sqrt(np.mean(re ** 2))) if len(re) else 0.0,
+        trans_errors=te,
+        rot_errors_deg=re,
     )

@@ -1,7 +1,7 @@
-"""Offline replay: log alignment into per-scan measure groups, and the wheel
-odometry and velocity logs (numpy; a copy of loc_lib_tpu/io/replay.py's
-measure sync, OdomLog and VelocityLog, kept here because the JAX package
-cannot be imported without jax).
+"""Offline replay: log alignment into per-scan measure groups, the wheel
+odometry and velocity logs, and the GNSS ENU converter (numpy; a copy of
+loc_lib_tpu/io/replay.py, kept here because the JAX package cannot be
+imported without jax).
 
 For each lidar scan, gather every IMU (and GNSS) sample since the previous
 scan and linearly interpolate the straddling sample to the scan timestamp.
@@ -141,3 +141,42 @@ def sync_measures(
         yield MeasureGroup(scan_index=k, scan_stamp=float(t_scan),
                            imu_stamp=stamp, imu_gyro=gyro, imu_acce=acce,
                            imu_valid=valid, gnss=g)
+
+
+# ---------------------------------------------------------------------------
+# GNSS ENU conversion (GeographicLib LocalCartesian replacement,
+# sensor_data/gnss_data.cpp:16-53)
+# ---------------------------------------------------------------------------
+
+_WGS84_A = 6378137.0
+_WGS84_F = 1.0 / 298.257223563
+_WGS84_E2 = _WGS84_F * (2 - _WGS84_F)
+
+
+def _lla_to_ecef(lat, lon, alt):
+    lat, lon = np.deg2rad(lat), np.deg2rad(lon)
+    s, c = np.sin(lat), np.cos(lat)
+    n = _WGS84_A / np.sqrt(1 - _WGS84_E2 * s * s)
+    x = (n + alt) * c * np.cos(lon)
+    y = (n + alt) * c * np.sin(lon)
+    z = (n * (1 - _WGS84_E2) + alt) * s
+    return np.array([x, y, z])
+
+
+class EnuConverter:
+    """lat/lon/alt -> local ENU meters about a fixed origin
+    (GnssData::InitOriginPosition/UpdateXYZ, gnss_data.cpp:16-53)."""
+
+    def __init__(self, lat0: float, lon0: float, alt0: float):
+        self.origin_ecef = _lla_to_ecef(lat0, lon0, alt0)
+        lat, lon = np.deg2rad(lat0), np.deg2rad(lon0)
+        sl, cl = np.sin(lat), np.cos(lat)
+        so, co = np.sin(lon), np.cos(lon)
+        self.R = np.array([
+            [-so, co, 0.0],
+            [-sl * co, -sl * so, cl],
+            [cl * co, cl * so, sl],
+        ])
+
+    def to_enu(self, lat: float, lon: float, alt: float) -> np.ndarray:
+        return self.R @ (_lla_to_ecef(lat, lon, alt) - self.origin_ecef)

@@ -21,18 +21,27 @@ import torch
 
 from ..utils import lie, mathx
 
+DEG2RAD = math.pi / 180.0
+
 
 @dataclasses.dataclass(frozen=True)
 class EskfOptions:
-    """The JAX package's EskfOptions fields that predict, observe_se3 and
-    observe_wheel_speed read (same names and defaults). Noise terms are
-    discrete-time (not multiplied by dt), as in the reference."""
+    """Mirror of the JAX package's EskfOptions (same names and defaults).
+    Noise terms are discrete-time (not multiplied by dt), as in the
+    reference. The GNSS and lidar noise fields are read by nothing, as in
+    JAX."""
 
     imu_dt: float = 0.01
     gyro_var: float = 1e-5
     acce_var: float = 1e-2
     bias_gyro_var: float = 1e-6
     bias_acce_var: float = 1e-4
+    gnss_pos_noise: float = 0.1
+    gnss_height_noise: float = 0.1
+    gnss_ang_noise_deg: float = 1.0
+    lidar_pos_noise: float = 0.1
+    lidar_height_noise: float = 0.1
+    lidar_ang_noise_deg: float = 1.0
     update_bias_gyro: bool = True
     update_bias_acce: bool = True
     # wheel odometry

@@ -55,6 +55,8 @@ class LoamOption:
     feature: LoamFeatureOptions = LoamFeatureOptions()
     surf_icp: icp.IcpOptions = icp.IcpOptions(method="p2plane_vox")
     edge_icp: icp.IcpOptions = icp.IcpOptions(method="p2line_vox")
+    min_edge_pts: int = 20          # read by nothing, as in JAX
+    min_surf_pts: int = 20
     max_iteration: int = 20
     use_edge_points: bool = True
     use_surf_points: bool = True

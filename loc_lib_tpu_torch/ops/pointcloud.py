@@ -42,13 +42,15 @@ PAD_COORD = 1e6
 
 def card_device(device=None) -> torch.device:
     """The device an entry point puts its tensors on: `device` when the
-    caller names one, else the first CUDA card. Without a card it raises;
-    it never falls back to the CPU (callers that want the CPU say so)."""
+    caller names one, else the current CUDA card (the first, unless
+    `torch.cuda.set_device` chose another, as `multihost.init` does for a
+    rank). Without a card it raises; it never falls back to the CPU
+    (callers that want the CPU say so)."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available: pass device='cpu' to run on the CPU")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def _pad_to(n_points: int, arr: np.ndarray, fill) -> np.ndarray:

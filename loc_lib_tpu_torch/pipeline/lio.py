@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.pointcloud import PointCloud, PAD_COORD
+from ..ops.pointcloud import PointCloud, PAD_COORD, card_device
 from ..ops import voxel as voxel_ops
 from ..models import icp, ndt, loam, eskf as eskf_mod
 from ..utils import lie
@@ -57,6 +57,7 @@ class LioOptions:
     scan_filter_leaf: float = 1.0
     map_filter_leaf: float = 0.5
     scan_capacity: int = 8192         # padded points per filtered scan
+    imu_capacity: int = 64            # padded IMU samples per measure group
     with_eskf: bool = True
     # matcher="icp_vox_inc": every Nth accepted keyframe, rebuild the moment
     # table from the keyframe window at the current poses instead of
@@ -419,8 +420,10 @@ class Lio:
     keyframe poses, and watches tracking health."""
 
     def __init__(self, opts: LioOptions = LioOptions(), R_il=None, t_il=None, *,
-                 device, pipelined: bool = False):
-        """`pipelined=True`: lag-1 results. `add_measure` / `add_cloud`
+                 device=None, pipelined: bool = False):
+        """`device`: where the state lives and the steps run (default: the
+        card, see `pointcloud.card_device`; it raises without one).
+        `pipelined=True`: lag-1 results. `add_measure` / `add_cloud`
         return the PREVIOUS scan's StepResult (None on the first call) and
         record it after the current scan's step is enqueued; `flush` drains
         the last one. The recorded poses equal sequential mode's bit for bit:
@@ -428,7 +431,7 @@ class Lio:
         update of the state is out of place). Keep it False where a caller
         uses each scan's result at once (Slam3d does)."""
         self.opts = opts
-        self.device = torch.device(device)
+        self.device = card_device(device)
         self.state = init_state(opts, R_il, t_il, device=self.device)
         self.pipelined = pipelined
         self._pend_out: Optional[StepResult] = None

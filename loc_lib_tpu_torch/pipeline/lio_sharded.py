@@ -35,7 +35,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..models import eskf as eskf_mod
-from ..ops.pointcloud import PointCloud
+from ..ops.pointcloud import PointCloud, card_device
 from ..parallel import map_shard, mesh as mesh_mod
 from ..utils import health as health_mod
 from ..utils import lie
@@ -112,6 +112,11 @@ def _corrected_state(s: LioShardedState, dR, dt) -> LioShardedState:
                       eskf=e)
 
 
+def world_scan(scan: PointCloud, R, t) -> PointCloud:
+    """The scan moved into the world frame, pads kept far away."""
+    return lio_mod._world_scan(scan.xyz, scan.mask, R, t)
+
+
 class LioSharded:
     """Host driver mirroring `pipeline/lio.Lio` (matcher ndt_inc) with the
     incremental voxel table split over the mesh's "mp" axis. Size the
@@ -122,10 +127,12 @@ class LioSharded:
     imbalance_check_every: int = 16
 
     def __init__(self, mesh: DeviceMesh, opts: LioOptions = LioOptions(), R_il=None,
-                 t_il=None, *, device):
+                 t_il=None, *, device=None):
+        """`device`: this rank's device (default: its card, see
+        `pointcloud.card_device`; it raises without one)."""
         self.mesh = mesh
         self.opts = opts
-        self.device = torch.device(device)
+        self.device = card_device(device)
         self.state = init_state(R_il, t_il, device=self.device)
         self.sm: Optional[map_shard.ShardedNdtMap] = None
         self.poses: list[np.ndarray] = []
@@ -172,7 +179,7 @@ class LioSharded:
                                        imu_acce, imu_stamp, imu_valid, self.opts)
         self._record(out)
         if out.is_keyframe:
-            ws = lio_mod._world_scan(scan.xyz, scan.mask, out.R, out.t)
+            ws = world_scan(scan, out.R, out.t)
             self.sm = map_shard.update_incremental_sharded(self.mesh, self.sm, ws, inc)
             self._kf_since_check += 1
             if self._kf_since_check >= self.imbalance_check_every:

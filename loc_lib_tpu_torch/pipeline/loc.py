@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.pointcloud import PointCloud, PAD_COORD, from_numpy
+from ..ops.pointcloud import PointCloud, PAD_COORD, card_device, from_numpy
 from ..models import icp, ndt, eskf as eskf_mod
 from ..utils import lie
 from ..utils import health as health_mod
@@ -32,15 +32,18 @@ from ..utils import health as health_mod
 
 @dataclasses.dataclass(frozen=True)
 class LocOptions:
-    """Mirror of the JAX package's LocOptions (same names and defaults),
-    with only the fields the port reads: scans are matched at the capacity
-    they come with."""
+    """Mirror of the JAX package's LocOptions (same names and defaults).
+    `scan_filter_leaf` and `scan_capacity` are set by io/config.py and the
+    matching app and read by nothing on the engine path, as in JAX: scans
+    are matched at the capacity they come with."""
 
     matcher: str = "icp"                # icp | ndt
     icp: icp.IcpOptions = icp.IcpOptions(method="p2plane_vox")
     ndt: ndt.NdtOptions = ndt.NdtOptions()
     box_size: float = 150.0             # cube edge of the crop (m)
     recrop_margin: float = 50.0         # re-crop when this close to an edge
+    scan_filter_leaf: float = 1.0
+    scan_capacity: int = 8192
     local_map_capacity: int = 131072
     with_eskf: bool = True
 
@@ -192,9 +195,12 @@ class Loc:
     tracking health (every frame, the first included)."""
 
     def __init__(self, global_map_xyz: np.ndarray, opts: LocOptions = LocOptions(),
-                 R_il=None, t_il=None, *, device):
+                 R_il=None, t_il=None, *, device=None):
+        """`device`: where the global map, the state and the steps live
+        (default: the card, see `pointcloud.card_device`; it raises without
+        one)."""
         self.opts = opts
-        self.device = torch.device(device)
+        self.device = card_device(device)
         gm = from_numpy(global_map_xyz, device=self.device)
         self.map_xyz = gm.xyz
         self.map_mask = gm.mask

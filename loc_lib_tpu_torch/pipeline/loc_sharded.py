@@ -26,11 +26,15 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..models import eskf as eskf_mod
-from ..ops.pointcloud import PointCloud, PAD_COORD
+from ..ops.pointcloud import PointCloud, PAD_COORD, card_device
 from ..parallel import map_shard, mesh as mesh_mod
 from ..utils import health as health_mod
 from . import loc as loc_mod
 from .loc import LocOptions, LocState, StepResult
+
+
+# the replicated per-scan state: loc.LocState with its target fields None
+LocShardedState = LocState
 
 
 def init_state(R_il=None, t_il=None, *, device) -> LocState:
@@ -65,13 +69,15 @@ class LocSharded:
 
     def __init__(self, mesh: DeviceMesh, global_map_xyz: np.ndarray,
                  opts: LocOptions = LocOptions(), shard_capacity: Optional[int] = None,
-                 R_il=None, t_il=None, *, device):
+                 R_il=None, t_il=None, *, device=None):
+        """`device`: this rank's device (default: its card, see
+        `pointcloud.card_device`; it raises without one)."""
         if opts.matcher != "icp" or opts.icp.method != "p2plane_vox":
             raise ValueError("the sharded Loc runs the voxel-plane path (icp, p2plane_vox), "
                              f"got {opts.matcher}/{opts.icp.method}")
         self.mesh = mesh
         self.opts = opts
-        self.device = torch.device(device)
+        self.device = card_device(device)
         mp = mesh_mod.axis_size(mesh, "mp")
         self.shard_capacity = (shard_capacity if shard_capacity is not None
                                else -(-opts.local_map_capacity // mp) * 2)

@@ -6,8 +6,10 @@ rotations are 3x3 matrices acting on column vectors, poses are (R, t) pairs
 with `apply(R, t, x) = R @ x + t`, and the Gauss-Newton retraction is the
 right perturbation on SO(3) with an additive translation update. Twists are
 [w, v], rotation first. The SE(3) exp / log, adjoint and closed-form inverse
-Jacobians serve the pose graph (graph/pose_graph.py); the SE(2) functions at
-the end serve the 2D stack.
+Jacobians serve the pose graph (graph/pose_graph.py); the quaternion and
+roll-pitch-yaw helpers serve the trajectory writers and the config
+(io/trajectory.py, io/config.py); the SE(2) functions at the end serve the
+2D stack.
 """
 
 from __future__ import annotations
@@ -109,6 +111,16 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
 
 def _matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...j->...i", A, x)
+
+
+def se3_identity(dtype=torch.float32, device=None):
+    return (torch.eye(3, dtype=dtype, device=device),
+            torch.zeros((3,), dtype=dtype, device=device))
+
+
+def se3_apply(R: torch.Tensor, t: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Transform points: (..., 3, 3), (..., 3), (N, 3) -> (N, 3)."""
+    return pts @ R.transpose(-1, -2) + t
 
 
 def se3_compose(Ra, ta, Rb, tb):
@@ -253,6 +265,77 @@ def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def se3_from_matrix(M: torch.Tensor):
     return M[..., :3, :3], M[..., :3, 3]
+
+
+# ---------------------------------------------------------------------------
+# Quaternions / Euler (for I/O: TUM trajectories, extrinsic configs)
+# ---------------------------------------------------------------------------
+
+def quat_from_rotm(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion (w, x, y, z), Shepperd's method:
+    four candidate constructions, the one with the largest score wins
+    (`torch.argmax`, like `jnp.argmax`, returns the first of equal
+    maxima)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw0 = torch.sqrt(torch.clamp(1.0 + tr, min=_EPS)) * 0.5
+    q0 = torch.stack([qw0, (m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0)], dim=-1)
+    qx1 = torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=_EPS)) * 0.5
+    q1 = torch.stack([(m21 - m12) / (4 * qx1), qx1, (m01 + m10) / (4 * qx1),
+                      (m02 + m20) / (4 * qx1)], dim=-1)
+    qy2 = torch.sqrt(torch.clamp(1.0 - m00 + m11 - m22, min=_EPS)) * 0.5
+    q2 = torch.stack([(m02 - m20) / (4 * qy2), (m01 + m10) / (4 * qy2), qy2,
+                      (m12 + m21) / (4 * qy2)], dim=-1)
+    qz3 = torch.sqrt(torch.clamp(1.0 - m00 - m11 + m22, min=_EPS)) * 0.5
+    q3 = torch.stack([(m10 - m01) / (4 * qz3), (m02 + m20) / (4 * qz3),
+                      (m12 + m21) / (4 * qz3), qz3], dim=-1)
+    cand = torch.stack([q0, q1, q2, q3], dim=-2)               # (..., 4, 4)
+    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], dim=-1)
+    idx = torch.argmax(scores, dim=-1)
+    q = torch.gather(cand, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def rotm_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) -> rotation matrix."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, alpha) -> torch.Tensor:
+    """Normalized spherical lerp (the measurement synchronizer's quaternion
+    interpolation): q1 flipped into q0's hemisphere, lerped, normalized."""
+    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    q = q0 + (q1 - q0) * alpha
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def rotm_from_rpy(roll, pitch, yaw) -> torch.Tensor:
+    """ZYX Euler (applied Rz @ Ry @ Rx) -> float32 rotation matrix, the
+    convention of the T_imu_lidar extrinsic."""
+    roll, pitch, yaw = (torch.as_tensor(v, dtype=torch.float32) for v in (roll, pitch, yaw))
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    z, o = torch.zeros_like(cy), torch.ones_like(cy)
+    Rz = torch.stack([torch.stack([cy, -sy, z], -1), torch.stack([sy, cy, z], -1),
+                      torch.stack([z, z, o], -1)], -2)
+    Ry = torch.stack([torch.stack([cp, z, sp], -1), torch.stack([z, o, z], -1),
+                      torch.stack([-sp, z, cp], -1)], -2)
+    Rx = torch.stack([torch.stack([o, z, z], -1), torch.stack([z, cr, -sr], -1),
+                      torch.stack([z, sr, cr], -1)], -2)
+    return Rz @ Ry @ Rx
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+G_M_S2 = 9.81  # gravity magnitude used throughout the reference
+
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=-2, eps: float = 1e-9):
     """Mean over `dim` counting only mask==True rows. mask: (..., N)."""
@@ -171,6 +173,12 @@ def clamped_inverse_3x3(cov: torch.Tensor, rel_floor: float = 1e-3):
     floor = vals[..., 2:3] * rel_floor
     inv = 1.0 / torch.clamp(torch.maximum(vals, floor), min=1e-12)
     return torch.einsum("...ij,...j,...kj->...ik", vecs, inv, vecs)
+
+
+def regularized_inverse_3x3(cov: torch.Tensor, jitter: float = 1e-3):
+    """info = (sigma + jitter*I)^-1, the incremental-NDT first-scan variant."""
+    eye = torch.eye(3, dtype=cov.dtype, device=cov.device)
+    return torch.linalg.inv(cov + jitter * eye)
 
 
 def cholesky_3x3(A: torch.Tensor):

@@ -1,5 +1,5 @@
 """Rank functions of the distributed parity tests (tests/test_torch_parallel.py,
-test_torch_map_shard.py, test_torch_multihost.py).
+test_torch_map_shard.py, test_torch_multihost.py, test_torch_apps.py).
 
 `loc_lib_tpu_torch.parallel.multihost.launch` runs each of them in spawned
 CPU processes joined over gloo, one per rank, with this directory on the
@@ -410,4 +410,32 @@ def one_rank_group_case(case: dict) -> dict:
         dx, n = pg.solve_pcg(Hd, Hij, edges.i, edges.j, b, m, 50, 1e-7, seg, group=group)
         out[name] = {"Hdiag": Hd.numpy(), "b": b.numpy(), "dx": dx.numpy(), "n": int(n)}
     out["hook"] = pmatch.psum_terms(mesh_mod.make_mesh(1), ("dp", "mp"))
+    return out
+
+
+def sharded_apps_case(case: dict) -> dict:
+    """The mapping and matching apps with --mp-shards at the world size, on
+    the logs and options the test passes (one out dir per rank, so a dir a
+    rank must not write can be checked). Returns each app's report and its
+    KITTI trajectory where this rank wrote one."""
+    import os
+
+    from loc_lib_tpu_torch.apps.mapping import run_mapping
+    from loc_lib_tpu_torch.apps.matching import run_matching
+    from loc_lib_tpu_torch.io import trajectory
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    out = {"rank": rank}
+    for app, run in (("mapping", lambda d: run_mapping(
+                          case["map_log"], lio_options(case["lio_opts"]), d,
+                          mp_shards=world, device=DEV)),
+                     ("matching", lambda d: run_matching(
+                          case["loc_log"], case["world"], loc_options(case["loc_opts"]), d,
+                          init_pose=case["loc_log"].gt_poses[0], mp_shards=world,
+                          device=DEV))):
+        d = os.path.join(case["out"], f"{app}_rank{rank}")
+        out[app] = run(d)
+        path = os.path.join(d, "trajectory_kitti.txt")
+        out[app + "_poses"] = trajectory.load_kitti(path) if os.path.exists(path) else None
+        out[app + "_dir_exists"] = os.path.isdir(d)
     return out

@@ -2,10 +2,10 @@
 module under loc_lib_tpu_torch/ (nor chip_smoke.py, nor chip_kernel_study.py,
 nor tests/test_torch_dist_workers.py, the rank functions the distributed
 tests spawn) may import jax or the JAX package, and every module must import
-with torch alone. The modules of every slice are covered, 3D SLAM's graph/ and the
-distributed layer included, and none sums floats with a scatter-add (CUDA
-adds those with atomics, so one input could give different bits on different
-runs)."""
+with torch alone. Every module of the JAX package has its counterpart, with
+every public name (the check that the port does everything the JAX package
+does), and no port module sums floats with a scatter-add (CUDA adds those
+with atomics, so one input could give different bits on different runs)."""
 import ast
 import importlib
 import pathlib
@@ -43,20 +43,75 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+JAX_PKG = REPO / "loc_lib_tpu"
+# JAX module -> its counterpart, where the path differs
+COUNTERPART = {"ops/pallas_kernels.py": "ops/kernels.py"}   # + the kernels in csrc/
+# public names of the JAX package with no counterpart, each with its reason
+NOT_PORTED = {
+    ("ops/pallas_kernels.py", "on_tpu"): "a TPU probe: the kernels run on the card, or "
+                                         "their plain versions on the CPU",
+    ("ops/voxel.py", "NEARBY6"): "stencils are device-parametrised functions "
+                                 "(voxel.nearby6 / center1 / nearby27), cached per device",
+    ("ops/voxel.py", "CENTER1"): "as NEARBY6",
+    ("ops/voxel.py", "NEARBY27"): "as NEARBY6",
+}
+
+
+def _defined(path) -> set:
+    """Public names a module defines at top level (def, class, assignment)."""
+    out = set()
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(n.name)
+        elif isinstance(n, ast.Assign):
+            out |= {t.id for t in n.targets if isinstance(t, ast.Name)}
+        elif isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name):
+            out.add(n.target.id)
+    return {x for x in out if not x.startswith("_")}
+
+
+def _bound(path) -> set:
+    """Names a module binds at top level: its definitions and imports."""
+    out = _defined(path)
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, (ast.Import, ast.ImportFrom)):
+            out |= {(a.asname or a.name).split(".")[0] for a in n.names}
+    return out
+
+
+def _jax_modules():
+    return sorted(str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("*.py"))
+
+
 def test_every_slice_is_covered():
-    """The checks above walk the whole package; the modules of the 3D SLAM
-    slice, the 2D stack, the leaves and the distributed layer are among
-    them."""
+    """The port does everything the JAX package does: every module of it
+    has a counterpart at the same path (ops/pallas_kernels.py: ops/kernels.py
+    and the kernels in csrc/), so the checks above walk the modules of
+    every slice."""
+    missing = [rel for rel in _jax_modules() if not (PKG / COUNTERPART.get(rel, rel)).exists()]
+    assert not missing, f"no counterpart in loc_lib_tpu_torch/ for {missing}"
+    assert {p.name for p in (PKG / "csrc").glob("*.cu")} >= {
+        "p2plane_fused_terms.cu", "p2plane_pick_fused_terms.cu", "ndt_fused_terms.cu"}
     paths = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
-    for mod in ("graph/pose_graph.py", "graph/scan_context.py", "pipeline/slam3d.py",
-                "pipeline/lio.py", "models/eskf.py", "utils/lie.py", "models/grid2d.py",
-                "graph/pose_graph2d.py", "pipeline/mapping2d.py",
-                "pipeline/mapping2d_device.py", "io/synthetic.py", "io/convert.py",
-                "ops/filters.py", "ops/bfnn.py", "ops/ring_search.py", "models/reflector.py",
-                "parallel/mesh.py", "parallel/multihost.py", "parallel/match.py",
-                "parallel/map_shard.py", "parallel/graph.py", "pipeline/loc_sharded.py",
-                "pipeline/lio_sharded.py", "pipeline/slam3d_sharded.py"):
-        assert mod in paths, mod
+    assert {COUNTERPART.get(rel, rel) for rel in _jax_modules()} <= paths
+
+
+@pytest.mark.parametrize("rel", _jax_modules())
+def test_every_public_name_has_its_counterpart(rel):
+    """Every public top-level name of a JAX module exists in its
+    counterpart, but for NOT_PORTED's names, each with its reason."""
+    port = PKG / COUNTERPART.get(rel, rel)
+    missing = {n for n in _defined(JAX_PKG / rel) - _bound(port) if (rel, n) not in NOT_PORTED}
+    assert not missing, f"{rel}: {sorted(missing)} missing from {port.relative_to(REPO)}"
+
+
+def test_the_entry_points_and_the_exceptions_are_current():
+    """__graft_entry__.py's analog is loc_lib_tpu_torch/entry.py; every
+    NOT_PORTED entry still names a JAX name the port lacks."""
+    assert {"entry", "dryrun_multichip"} <= _defined(PKG / "entry.py")
+    for (rel, name), reason in NOT_PORTED.items():
+        assert name in _defined(JAX_PKG / rel) and reason
+        assert name not in _bound(PKG / COUNTERPART.get(rel, rel)), (rel, name)
 
 
 SCATTER_ADDS = ("index_add", "index_add_", "scatter_add", "scatter_add_")
