@@ -8,7 +8,8 @@ and alternated (host times spread too widely between processes): the
 wrappers' host time per call, the linearizations (gather + kernel) per
 call for p2plane_vox, p2plane_vox_oct, NDT (`ndt._ndt_terms`) and
 p2line_vox, launches and ms per headline match and per 3-iteration NDT
-match, and per-scan times of LIO `icp`, LIO `ndt_inc`, LOAM and Loc with
+match, launches and ms of the ESKF's propagation through one IMU packet
+and of one LIO icp `step_measure`, and per-scan times of LIO `icp`, LIO `ndt_inc`, LOAM and Loc with
 both methods, and the host synchronizations per LIO scan. One row has no
 parent side: 64 loop-registration matches as ONE `icp.scan_match_batch` call
 against 64 scalar `icp.scan_match` calls (the parent has no batched path).
@@ -182,6 +183,10 @@ def ab(device, card, parent_dir, reps=10):
     # trees have) and the whole linearization (gather + kernel)
     calls = {}
     tgt_edges, src_edges = cs._loam_style_edges(tgt_pc, device), cs._loam_style_edges(src, device)
+    log = cs.demo_log(10)
+    mgs = list(log.measures(imu_capacity=64))
+    mg = mgs[8]
+    packet = (mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
     for side, get in trees.items():
         icp, ndt, kernels = get("models.icp"), get("models.ndt"), get("ops.kernels")
         pc = get("ops.pointcloud")
@@ -218,6 +223,24 @@ def ab(device, card, parent_dir, reps=10):
             "match p2plane_vox_oct": lambda i=icp, tg=target, o=oo, s=s:
                 i.scan_match(tg, o, s, R, t),
         }
+        # the ESKF's propagation through one IMU packet, and a whole LIO icp
+        # step from the state a run reaches at frame 8 (both pure functions)
+        eskf, lio = get("models.eskf"), get("pipeline.lio")
+        st = eskf.init_state(gravity=[0.0, 0.0, -9.81], time=float(mg.imu_stamp[0]) - 0.01,
+                             device=device)
+        calls[side]["step ESKF predict_scan, one demo-log packet"] = \
+            lambda e=eskf, st=st: e.predict_scan(st, *packet, e.EskfOptions())
+        lopts = lio.LioOptions(icp=icp.IcpOptions(method="p2plane_vox"), scan_capacity=8192,
+                               with_eskf=True)
+        eng = lio.Lio(lopts, device=device)
+        for tk, gk, ak in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
+            eng.init_imu(gk, ak, tk)
+        for m in mgs[:8]:
+            eng.add_measure(log.frame(m.scan_index, device), m.imu_gyro, m.imu_acce,
+                            m.imu_stamp, m.imu_valid)
+        calls[side]["step LIO icp step_measure, frame 8"] = \
+            lambda l=lio, st=eng.state, sc=log.frame(mg.scan_index, device), o=lopts: \
+            l.step_measure(st, sc, *packet, o)
     # every timing first, the profiler runs last (once the profiler has
     # run, later launches in the process cost the host more)
     iters = {}
@@ -225,22 +248,27 @@ def ab(device, card, parent_dir, reps=10):
         host = {"parent": [], "change": []}
         evt = {"parent": [], "change": []}
         is_match = name.startswith("match")
+        is_step = is_match or name.startswith("step")
         for r in range(reps):
             for side in order(r):
                 fn = calls[side][name]
-                if is_match:
+                if is_step:
                     fn()
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    iters[name] = fn().iterations
+                    out = fn()
                     torch.cuda.synchronize()
                     host[side].append((time.perf_counter() - t0) * 1e3)
+                    if is_match:
+                        iters[name] = out.iterations
                 else:
                     host[side].append(cs._enqueue_us(fn, 200))
                     evt[side].append(cs._time_in_turns({"k": fn}, 25)["k"])
         if is_match:
             _pairs(f"{name}, host ms per match ({iters[name]} iterations)", "ms",
                    host["parent"], host["change"], card)
+        elif is_step:
+            _pairs(f"{name}, host ms per call", "ms", host["parent"], host["change"], card)
         else:
             _pairs(f"{name}, host us to enqueue one call", "us", host["parent"], host["change"],
                    card)

@@ -5,7 +5,9 @@
 
 Builds the hand-written kernels from csrc/ (failing if a body spills
 registers), holds each against its plain PyTorch version on the card (the
-pose-update kernels gn_step and so3_renormalize at 1 to 300 lanes, and every
+pose-update kernels gn_step and so3_renormalize at 1 to 300 lanes, the ESKF's
+IMU propagation eskf_predict_scan on the demo log's packets and on packets
+with every gate case against the plain version in float64, and every
 fused-terms kernel in all its modes: plane / rows given, and from the target or the map
 with the gather inside the kernel, where K3 must also give the bits of the
 torch gather followed by the rows-given kernel), then drives the
@@ -66,7 +68,8 @@ ATE within the JAX package's plus 0.04 m, every artifact written, the
 native host runtime built. Launch counters,
 set to 0 before each path and read after
 it, show each path went through its kernels (one K3 launch per NDT or
-p2line_vox linearization). Then it compares a match with
+p2line_vox linearization, one eskf_predict_scan launch per
+eskf.predict_scan call). Then it compares a match with
 the gather in torch ops against the shipped one (same bits; launches per
 Gauss-Newton iteration), and only then opens the profiler: device time per
 kernel call, and the time of the paths broken down per layer
@@ -635,6 +638,215 @@ def phase_kernels_pose_update(device, card):
                 timing[name] = {"ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": by,
                                 "err": errs[name]}
     return timing, profile_later
+
+
+# ESKF propagation (csrc/eskf_predict.cu). Bytes a call must move: the
+# state in (p, v, R, bg, ba, g, cov, time: 349 floats), Q (324), the state
+# out (p, v, R, cov, time: 340), and of the packet what each row's kind needs:
+# a whole 32 B row for a sample that updates, stamp and valid (8 B) for one
+# the dt gate skips, valid (4 B) for padding. Operations a sample that
+# updates needs: T = F cov and T F^T counted from F's structure
+# (_eskf_product_ops), the adds of Q's nonzeros, and thread 0's nominal
+# update, so3_exp and F blocks, 284 counted from the source.
+ESKF_STATE_BYTES = (349 + 324 + 340) * 4
+ESKF_ROW_BYTES = {"update": 32, "gated": 8, "padding": 4}
+ESKF_NOMINAL_FLOPS = 284
+ESKF_OUT = ("p", "v", "R", "cov", "time")      # what eskf_predict_scan returns
+# the kernel against the float64 plain version: per field, its error scaled
+# (cov entry (i, j) by sqrt(cov_ii cov_jj), p / v / R by their largest
+# entry) at most twice the float32 plain version's own, plus this
+ESKF_SLACK = 1e-6
+
+
+def _eskf_product_ops() -> int:
+    """float32 operations of one F product (F cov, or T F^T) from F's
+    structure: the identity but for F[0:3, 3:6] = I dt, F[3:6, 6:9] and
+    F[3:6, 12:15] full, F[3:6, 15:18] = I dt, F[6:9, 6:9] full (in place of
+    its unit diagonal) and F[6:9, 9:12] = -I dt. A row of F with n entries, u
+    of them a unit diagonal, costs n - u products and n - 1 sums for each of
+    the 18 columns; an identity row costs none."""
+    eye = np.eye(3, dtype=bool)
+    entry = np.eye(18, dtype=bool)
+    for rows, cols, block in (((0, 3), (3, 6), eye), ((3, 6), (6, 9), True),
+                              ((3, 6), (12, 15), True), ((3, 6), (15, 18), eye),
+                              ((6, 9), (6, 9), True), ((6, 9), (9, 12), eye)):
+        entry[rows[0]:rows[1], cols[0]:cols[1]] = block
+    unit = np.eye(18, dtype=bool)
+    unit[6:9, 6:9] = False
+    n, u = entry.sum(axis=1), unit.sum(axis=1)
+    per_row = np.where((n == 1) & (u == 1), 0, (n - u) + (n - 1))
+    return int(per_row.sum()) * 18
+
+
+def _eskf_work(time0, stamps, valid, imu_dt, Q) -> tuple:
+    """(bytes, float32 operations, samples that update) that one packet
+    needs from the state time `time0`: each row's kind as the kernel
+    evaluates it in float32 (padding, skipped by the dt gate, or updating)."""
+    t, gate = np.float32(time0), np.float32(5.0 * imu_dt)
+    rows = {"update": 0, "gated": 0, "padding": 0}
+    for s, ok in zip(np.asarray(stamps, np.float32), np.asarray(valid)):
+        if not ok:
+            rows["padding"] += 1
+            continue
+        dt = np.float32(s - t)
+        t = s
+        rows["update" if np.float32(0.0) <= dt <= gate else "gated"] += 1
+    n_bytes = ESKF_STATE_BYTES + sum(ESKF_ROW_BYTES[k] * n for k, n in rows.items())
+    per_update = 2 * _eskf_product_ops() + int(torch.count_nonzero(Q)) + ESKF_NOMINAL_FLOPS
+    return n_bytes, per_update * rows["update"], rows["update"]
+
+
+def _eskf_errors(got, ref64) -> dict:
+    """Largest scaled |got - ref64| of p, v, R and cov (tuples in ESKF_OUT's
+    order)."""
+    out = {}
+    for f, x, ref in zip(ESKF_OUT[:4], got, ref64):
+        if f == "cov":
+            d = torch.sqrt(torch.diagonal(ref).abs())
+            scale = d[:, None] * d[None, :]
+        else:
+            scale = ref.abs().max()
+        diff = (x.double() - ref).abs()
+        out[f] = float(torch.max(torch.where(diff > 0, diff / scale, 0.0)))
+    return out
+
+
+def _eskf_close(label, got, plain32, plain64) -> float:
+    """The kernel's (p, v, R, cov, time) against the plain version's on the
+    same inputs: p, v, R and cov within ESKF_SLACK's bound of the float64
+    plain version, time bit-equal to the float32 plain version's. Returns
+    the largest |kernel - float32 plain| over p, v, R and cov."""
+    ek, ep = _eskf_errors(got, plain64), _eskf_errors(plain32, plain64)
+    bad = {f: (ek[f], ep[f]) for f in ek if not ek[f] <= 2.0 * ep[f] + ESKF_SLACK}
+    if bad:
+        raise AssertionError(f"eskf_predict_scan, {label}: scaled error (kernel, float32 plain) "
+                             f"against the float64 plain version {bad}")
+    if not torch.equal(got[4], plain32[4]):
+        raise AssertionError(f"eskf_predict_scan, {label}: time {float(got[4])!r} != plain "
+                             f"{float(plain32[4])!r}")
+    return max(float(torch.max(torch.abs(x - y))) for x, y in zip(got[:4], plain32[:4]))
+
+
+def _eskf_gate_packets(log, time0):
+    """Packets of 64 from the log's IMU stream after `time0`, one per gate
+    case: padding only; a dt > 5 imu_dt gap; a dt < 0 step; invalid samples
+    between valid ones; no valid sample."""
+    k0 = int(np.searchsorted(log.imu.stamps, time0, side="right"))
+    g = np.zeros((64, 3), np.float32)
+    a = np.zeros((64, 3), np.float32)
+    s = np.zeros(64, np.float32)
+    v = np.zeros(64, bool)
+    g[:40], a[:40] = log.imu.gyro[k0:k0 + 40], log.imu.acce[k0:k0 + 40]
+    s[:40], v[:40] = log.imu.stamps[k0:k0 + 40], True
+    cases = {"padding": (g, a, s, v)}
+    gap = s.copy()
+    gap[9:40] += 0.2
+    cases["dt > 5 imu_dt"] = (g, a, gap, v)
+    back = s.copy()
+    back[20] = back[19] - 0.03
+    cases["dt < 0"] = (g, a, back, v)
+    holes = v.copy()
+    holes[[3, 4, 30]] = False
+    cases["holes"] = (g, a, s, holes)
+    cases["all invalid"] = (g, a, s, np.zeros_like(v))
+    return cases
+
+
+def phase_kernels_eskf_predict(device, card):
+    """The ESKF's propagation kernel (eskf_predict_scan) against its plain
+    version on the card: on each of the demo log's 40 packets (from the
+    static init, each state observed at the true pose before the next
+    packet) and on synthetic packets with every gate case (padding, a dt >
+    5 imu_dt gap, a dt < 0 step, holes, no valid sample, the packet as device
+    tensors), p / v / R / cov within the bound of the float64 plain version
+    (ESKF_SLACK), time bit-equal to the float32 plain version's; a planted
+    error (cov[0, 0] * 1.001, a dropped Q) rejected; one launch per call.
+    Then times at a demo-log packet."""
+    from loc_lib_tpu_torch.models import eskf
+    from loc_lib_tpu_torch.ops import kernels
+    from loc_lib_tpu_torch.pipeline import lio
+
+    log = demo_log()
+    init = lio.ImuStaticInit(device=device)
+    state = None
+    for t, g, a in zip(log.imu.stamps, log.imu.gyro, log.imu.acce):
+        state = init.add(g, a, t)
+        if state is not None:
+            break
+    if state is None:
+        raise AssertionError("eskf_predict_scan: the static IMU init never succeeded")
+    opts = eskf.EskfOptions()
+    Q = eskf.process_noise(opts, device)
+    to64 = lambda s: tuple(x.double() for x in s)
+    as_state = lambda s, out: s._replace(**dict(zip(ESKF_OUT, out)))
+
+    def held(label, s, packet):
+        before = kernels.LAUNCHES["eskf_predict_scan"]
+        got = kernels.eskf_predict_scan(*s, *packet, Q, opts.imu_dt)
+        if kernels.LAUNCHES["eskf_predict_scan"] != before + 1:
+            raise AssertionError(f"eskf_predict_scan, {label}: not one launch")
+        p32 = kernels.eskf_predict_scan_plain(*s, *packet, Q, opts.imu_dt)
+        p64 = kernels.eskf_predict_scan_plain(*to64(s), *packet, Q.double(), opts.imu_dt)
+        return got, p32, p64, _eskf_close(label, got, p32, p64)
+
+    err, s, mgs, mid = 0.0, state, list(log.measures(imu_capacity=64)), None
+    for i, mg in enumerate(mgs):
+        packet = (mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+        if i == len(mgs) // 2:
+            mid = (s, packet)
+        got, _, p64, e = held(f"demo packet {i}", s, packet)
+        err = max(err, e)
+        T = torch.tensor(log.gt_poses[mg.scan_index], dtype=torch.float32, device=device)
+        s = eskf.observe_se3(as_state(s, got), T[:3, :3], T[:3, 3], opts)
+    s = mid[0]          # a state with IMU samples after its time
+    cases = _eskf_gate_packets(log, float(s.time))
+    for label, packet in cases.items():
+        got, p32, p64, e = held(label, s, packet)
+        err = max(err, e)
+        if label == "all invalid" and not all(torch.equal(x, getattr(s, f))
+                                              for f, x in zip(ESKF_OUT, got)):
+            raise AssertionError("eskf_predict_scan: a packet with no valid sample moved the "
+                                 "state")
+    on_device = tuple(torch.from_numpy(np.asarray(x)).to(device) for x in cases["holes"])
+    got, _, _, e = held("packet as device tensors", s, on_device)
+    err = max(err, e)
+    bad_cov = got[3].clone()
+    bad_cov[0, 0] *= 1.001
+    want = kernels.eskf_predict_scan_plain(*s, *on_device, Q, opts.imu_dt)
+    want64 = kernels.eskf_predict_scan_plain(*to64(s), *on_device, Q.double(), opts.imu_dt)
+    for planted, bad in (("cov[0, 0] * 1.001", got[:3] + (bad_cov, got[4])),
+                         ("Q dropped", kernels.eskf_predict_scan(*s, *on_device,
+                                                                 torch.zeros_like(Q),
+                                                                 opts.imu_dt))):
+        try:
+            _eskf_close(planted, bad, want, want64)
+        except AssertionError:
+            continue
+        raise AssertionError(f"eskf_predict_scan: the check accepts a planted error ({planted})")
+    torch.cuda.synchronize()
+    print(f"phase 3 eskf_predict_scan vs plain (float64 plain: scaled error <= 2 x the float32 "
+          f"plain's + {ESKF_SLACK:g}; time bit-equal): {len(mgs)} demo-log packets, gate cases "
+          f"{', '.join(cases)}, a packet as device tensors; planted errors (cov[0, 0] * 1.001, "
+          f"Q dropped) rejected; largest |kernel - float32 plain| {err:.3g} [{card}]", flush=True)
+
+    s, packet = mid
+    call = lambda: kernels.eskf_predict_scan(*s, *packet, Q, opts.imu_dt)
+    ms, pms = _time_alternating(call, lambda: kernels.eskf_predict_scan_plain(
+        *s, *packet, Q, opts.imu_dt), reps=10)
+    host = _enqueue_us(call)
+    n_bytes, flops, n_upd = _eskf_work(float(s.time), packet[2], packet[3], opts.imu_dt, Q)
+    bound_ms, by = _bound(n_bytes, flops)
+    print(f"phase 3 eskf_predict_scan, one demo-log packet ({len(packet[2])} rows, {n_upd} "
+          f"updating samples) [{card}]: {ms:.4f} ms vs plain {pms:.4f} ms (median of 20 "
+          f"per-call CUDA-event samples in turns, the packet's host-to-device copy included) | "
+          f"host time to enqueue {host:.1f} us | bound {bound_ms:.9f} ms by {by} ({n_bytes} B, "
+          f"{flops} float32 ops, F's structure counted)", flush=True)
+    timing = {"ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": by, "err": err}
+    # the profiler's device time: the launch alone, the packet already on the card
+    packed = kernels.imu_packet(*packet, device)
+    s = tuple(x.contiguous() for x in s)
+    return timing, {"eskf_predict_scan": (
+        lambda: kernels._eskf_predict_scan_launch(*s, packed, Q, opts.imu_dt), True)}
 
 
 def _cells_and_slots(index, keys):
@@ -2430,12 +2642,18 @@ def phase_slam3d(device, card):
     Returns (the second run's engine, the first run's launch counts)."""
     from loc_lib_tpu_torch.ops import kernels
 
+    from loc_lib_tpu_torch.models import eskf
+
     log = slam3d_log(SLAM_FRAMES)
     opts = slam3d_options()
     kernels.reset_launch_counts()
-    with _BatchSpy("p2plane_pick_fused_terms") as spy:
+    with _BatchSpy("p2plane_pick_fused_terms") as spy, \
+            _Spy(eskf, "predict_scan", keep=lambda r: None) as predicts:
         run = drive_slam3d(device, opts, log)
     counts = dict(kernels.LAUNCHES)
+    if not 0 < counts["eskf_predict_scan"] == len(predicts.calls):
+        raise AssertionError(f"3D SLAM: {counts['eskf_predict_scan']} eskf_predict_scan launches "
+                             f"for {len(predicts.calls)} eskf.predict_scan calls")
     eng = run["engine"]
     if not spy.calls:
         raise AssertionError("3D SLAM: no batched loop registration ran")
@@ -2474,16 +2692,22 @@ def phase_slam3d_default_loop_icp(device, card):
     from loc_lib_tpu_torch.ops import kernels
     from loc_lib_tpu_torch.pipeline import slam3d
 
+    from loc_lib_tpu_torch.models import eskf
+
     log = slam3d_log(SLAM_SHORT_FRAMES)
     total = 0
     for topk in (1, 3):
         kernels.reset_launch_counts()
-        with _BatchSpy("p2plane_fused_terms") as spy:
+        with _BatchSpy("p2plane_fused_terms") as spy, \
+                _Spy(eskf, "predict_scan", keep=lambda r: None) as predicts:
             run = drive_slam3d(device, slam3d_options(slam3d.Slam3dOptions().loop_icp, topk), log)
         k1 = kernels.LAUNCHES["p2plane_fused_terms"]
         if k1 <= 0 or (topk == 3) != bool(spy.calls):
             raise AssertionError(f"10b sc_topk {topk}: {k1} K1 launches, {len(spy.calls)} "
                                  "batched registrations")
+        if not 0 < kernels.LAUNCHES["eskf_predict_scan"] == len(predicts.calls):
+            raise AssertionError(f"10b sc_topk {topk}: {kernels.LAUNCHES['eskf_predict_scan']} "
+                                 f"eskf_predict_scan launches for {len(predicts.calls)} calls")
         total += k1
         print(f"phase 10b default loop_icp (p2plane_vox_oct), {SLAM_SHORT_FRAMES} frames, "
               f"sc_topk {topk} [{card}]: {_loops_line(run)}; keyframe ATE {run['before']:.4f} "
@@ -2979,6 +3203,10 @@ def _profile_lio(device, card, out_dir, matcher):
         torch.cuda.synchronize()
         kf_ms.append((time.perf_counter() - t0) * 1e3)
     mg = mgs[-1]
+    from loc_lib_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()      # this repo's kernels in one step, unprofiled
+    eng.add_measure(last, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+    ours = {k: v for k, v in kernels.LAUNCHES.items() if v}
     n, dev_ms, host_ms, prof = _profiled(
         lambda: eng.add_measure(last, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid), 1)
     name = "profile_lio_step.txt" if matcher == "icp" else f"profile_lio_{matcher}_step.txt"
@@ -2988,7 +3216,8 @@ def _profile_lio(device, card, out_dir, matcher):
     print(f"phase 6 profile LIO {matcher} frames 8-{frames - 2} (host clock): {ranges}; "
           "_push_keyframe "
           f"{np.median(kf_ms):.2f} ms; one step under the profiler: {n:.0f} device "
-          f"launches, device {dev_ms:.3f} ms vs host {host_ms:.3f} ms [{card}]", flush=True)
+          f"launches (this repo's kernels among them: {ours}), device {dev_ms:.3f} ms vs host "
+          f"{host_ms:.3f} ms [{card}]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3950,16 +4179,26 @@ def main() -> int:
     pose_timing, calls = phase_kernels_pose_update(device, card)
     timing.update(pose_timing)
     to_profile.update(calls)
+    timing["eskf_predict_scan"], calls = phase_kernels_eskf_predict(device, card)
+    to_profile.update(calls)
+    from loc_lib_tpu_torch.models import eskf
+    eskf_launches = []      # eskf_predict_scan's launches on each counted path
 
     def counted(names, fn):
         """Run one path with every counter set to 0 just before it; each
-        kernel in `names` must have launched in it. Returns (result, counts)."""
+        kernel in `names` must have launched in it, and eskf_predict_scan
+        exactly once per eskf.predict_scan call. Returns (result, counts)."""
         kernels.reset_launch_counts()
-        result = fn()
+        with _Spy(eskf, "predict_scan", keep=lambda r: None) as spy:
+            result = fn()
         counts = dict(kernels.LAUNCHES)
         for name in names:
             if counts[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched by its path")
+        if counts["eskf_predict_scan"] != len(spy.calls):
+            raise AssertionError(f"{counts['eskf_predict_scan']} eskf_predict_scan launches for "
+                                 f"{len(spy.calls)} eskf.predict_scan calls")
+        eskf_launches.append(counts["eskf_predict_scan"])
         return result, counts
 
     def one_launch_per_linearization(label, counts, names, iterations):
@@ -3973,37 +4212,38 @@ def main() -> int:
 
     # the first slice's main path: the headline match and LIO (icp)
     (target, lio_last), launches = counted(
-        ("p2plane_fused_terms", "p2plane_pick_fused_terms", "gn_step", "so3_renormalize"),
+        ("p2plane_fused_terms", "p2plane_pick_fused_terms", "gn_step", "so3_renormalize",
+         "eskf_predict_scan"),
         lambda: (phase_headline(device, card, workload), phase_lio(device, card)))
     k2_err = phase_lio_k2_check(lio_last)
     # this slice's main path: LIO ndt_inc, the incremental-NDT cell
-    ndt_last, c = counted(("ndt_fused_terms",), lambda: phase_lio(
+    ndt_last, c = counted(("ndt_fused_terms", "eskf_predict_scan"), lambda: phase_lio(
         device, card, "ndt_inc", "phase 5b", ATE_LIMIT_NDT_INC_M))
     launches["ndt_fused_terms"] = c["ndt_fused_terms"]
     one_launch_per_linearization("phase 5b", c, ("ndt_fused_terms",), ndt_last[4])
     k3_err = phase_lio_k3_check(ndt_last, "phase 5b")
     # the other two matchers of the NDT family on the same log
-    direct_last, c = counted(("ndt_fused_terms",), lambda: phase_lio(
+    direct_last, c = counted(("ndt_fused_terms", "eskf_predict_scan"), lambda: phase_lio(
         device, card, "ndt", "phase 5c", ATE_LIMIT_NDT_M))
     one_launch_per_linearization("phase 5c", c, ("ndt_fused_terms",), direct_last[4])
     k3_err = max(k3_err, phase_lio_k3_check(direct_last, "phase 5c"))
-    _, c = counted(("p2plane_pick_fused_terms",), lambda: phase_lio(
+    _, c = counted(("p2plane_pick_fused_terms", "eskf_predict_scan"), lambda: phase_lio(
         device, card, "icp_vox_inc", "phase 5d", ATE_LIMIT_VOX_INC_M))
     print(f"phase 5d launches: {c}", flush=True)
     # this slice: run-to-run deterministic map builds, LOAM odometry (K2 +
     # K3 at S = 1) and localization against the prior map (K2, K1)
     phase_determinism(device, card, workload)
-    loam_last, c = counted(("p2plane_pick_fused_terms", "ndt_fused_terms"),
+    loam_last, c = counted(("p2plane_pick_fused_terms", "ndt_fused_terms", "eskf_predict_scan"),
                            lambda: phase_loam(device, card))
     one_launch_per_linearization("phase 5e", c, ("p2plane_pick_fused_terms", "ndt_fused_terms"),
                                  loam_last[5])
     e3, e2 = phase_loam_checks(loam_last)
     k3_err, k2_err = max(k3_err, e3), max(k2_err, e2)
-    loc_vox, c = counted(("p2plane_pick_fused_terms",), lambda: phase_loc(
+    loc_vox, c = counted(("p2plane_pick_fused_terms", "eskf_predict_scan"), lambda: phase_loc(
         device, card, "p2plane_vox", "phase 7", ATE_LIMIT_LOC_M))
     print(f"phase 7 launches (p2plane_vox): {c}", flush=True)
     phase_loc_crop_timing(card, loc_vox, "phase 7")
-    loc_oct, c = counted(("p2plane_fused_terms",), lambda: phase_loc(
+    loc_oct, c = counted(("p2plane_fused_terms", "eskf_predict_scan"), lambda: phase_loc(
         device, card, "p2plane_vox_oct", "phase 7b", ATE_LIMIT_LOC_OCT_M))
     print(f"phase 7b launches (p2plane_vox_oct): {c}", flush=True)
     phase_loc_crop_timing(card, loc_oct, "phase 7b")
@@ -4011,10 +4251,10 @@ def main() -> int:
     k2_err = max(k2_err, phase_loc_k2_check(loc_vox))
     # re-crops: a 110 m box re-crops once the pose is 5 m from the crop
     # centre; a 60 m box (half-size 30 m < the 50 m margin) on every frame
-    rc, c = counted(("p2plane_pick_fused_terms",), lambda: phase_loc(
+    rc, c = counted(("p2plane_pick_fused_terms", "eskf_predict_scan"), lambda: phase_loc(
         device, card, "p2plane_vox", "phase 7c", ATE_LIMIT_LOC_RECROP_M, box_size=110.0)[0])
     print(f"phase 7c launches (110 m box): {c}", flush=True)
-    short, c = counted(("p2plane_pick_fused_terms",), lambda: phase_loc(
+    short, c = counted(("p2plane_pick_fused_terms", "eskf_predict_scan"), lambda: phase_loc(
         device, card, "p2plane_vox", "phase 7d", frames=8, box_size=60.0)[0])
     print(f"phase 7d launches (60 m box): {c}", flush=True)
     for label, eng in (("110 m", rc), ("60 m", short)):
@@ -4047,6 +4287,7 @@ def main() -> int:
         if c[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the 3D SLAM path")
         launches[name] += c[name]
+    eskf_launches.append(c["eskf_predict_scan"])
     launches["p2plane_fused_terms"] += phase_slam3d_default_loop_icp(device, card)
     pgo_graph_, pgo_opts = phase_pgo_full_width(device, card)
     print(f"phase 10 took {time.perf_counter() - t_slam:.1f} s of command time (10a-10c; the "
@@ -4066,16 +4307,18 @@ def main() -> int:
 
     with _NcclWorld(device) as mesh:
         (iters, lio_sharded_poses), c = counted(
-            ("ndt_fused_terms", "gn_step", "so3_renormalize"),
+            ("ndt_fused_terms", "gn_step", "so3_renormalize", "eskf_predict_scan"),
             lambda: phase_lio_sharded(device, card, mesh, ndt_last[5]))
         one_launch_per_linearization("phase 12a lio_sharded_mapping", c,
                                      ("ndt_fused_terms", "gn_step"), iters)
         add(c)
         _, c = counted(("ndt_fused_terms", "p2plane_pick_fused_terms", "gn_step",
-                        "so3_renormalize"), lambda: phase_slam3d_sharded(device, card, mesh))
+                        "so3_renormalize", "eskf_predict_scan"),
+                       lambda: phase_slam3d_sharded(device, card, mesh))
         print(f"phase 12a slam3d_sharded launches: {c}", flush=True)
         add(c)
-        iters, c = counted(("p2plane_fused_terms", "gn_step", "so3_renormalize"),
+        iters, c = counted(("p2plane_fused_terms", "gn_step", "so3_renormalize",
+                            "eskf_predict_scan"),
                            lambda: phase_loc_sharded(device, card, mesh,
                                                      np.stack(loc_vox[0].poses)))
         one_launch_per_linearization("phase 12a LocSharded", c, ("p2plane_fused_terms", "gn_step"),
@@ -4109,7 +4352,8 @@ def main() -> int:
     for name, label in (("p2plane_fused_terms", "K1 from target"),
                         ("p2plane_pick_fused_terms", "K2 from target"),
                         ("ndt_fused_terms", "K3 from map: from map"),
-                        ("gn_step", "gn_step"), ("so3_renormalize", "so3_renormalize")):
+                        ("gn_step", "gn_step"), ("so3_renormalize", "so3_renormalize"),
+                        ("eskf_predict_scan", "eskf_predict_scan")):
         timing[name]["device_ms"] = dev_ms[label]
     phase_profile(device, card, workload, target,
                   Path(__file__).resolve().parent / "chiprun_out")
@@ -4127,7 +4371,12 @@ def main() -> int:
            # projection, which XLA fuses into the reference's program
            "gn_step": ("loc_lib_tpu_torch/csrc/gn_update.cu", "loc_lib_tpu/models/icp.py:705"),
            "so3_renormalize": ("loc_lib_tpu_torch/csrc/gn_update.cu",
-                               "loc_lib_tpu/models/icp.py:721")}
+                               "loc_lib_tpu/models/icp.py:721"),
+           # no TPU kernel: the IMU packet's lax.scan, which XLA fuses
+           "eskf_predict_scan": ("loc_lib_tpu_torch/csrc/eskf_predict.cu",
+                                 "loc_lib_tpu/models/eskf.py:139 predict_scan (lax.scan of "
+                                 "predict :98)")}
+    launches["eskf_predict_scan"] = sum(eskf_launches)
     errs = {k: v["err"] for k, v in timing.items()}
     errs["p2plane_fused_terms"] = max(errs["p2plane_fused_terms"], k1_err,
                                       given_errs["p2plane_fused_terms"],
@@ -4140,7 +4389,8 @@ def main() -> int:
           "them (K1-K3 each build their rows from a gather, an election and a gate, then reduce "
           "them; gn_step and so3_renormalize, the pose update of a GN iteration and the final "
           "projection, are chains of elementwise operations and 3x3 products, timed at one "
-          "match); ms, plain_ms, device_ms and bound_ms of K1 and K2 are those of the "
+          "match; eskf_predict_scan is a sequential scan of 18 x 18 products over an IMU "
+          "packet); ms, plain_ms, device_ms and bound_ms of K1 and K2 are those of the "
           "from-target mode and, since this revision, those of K3 are those of the from-map "
           "mode (S = 7, weighted, trunc, on an update_incremental map of the headline target): "
           "the modes the paths run, at the headline inputs; launches of K1, K2, gn_step and "
@@ -4149,7 +4399,10 @@ def main() -> int:
           "kernel's adds phase 12's sharded paths (12a's three runs, 12b's ranks summed) and "
           "phase 13's ring match and phase 14's app runs (14a-14g); launches of K3 are "
           "those of phase 5b, phase 12 and phase 14; "
-          "max_abs_err of K1 and K2 covers their batched forms",
+          "max_abs_err of K1 and K2 covers their batched forms; launches of eskf_predict_scan "
+          "are those of every counted path (phases 5-5e, 7-7d, 10a, 12a, 14), one per "
+          "eskf.predict_scan call, and its ms / plain_ms include the packet's host-to-device "
+          "copy at one demo-log packet",
           flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
@@ -4158,7 +4411,8 @@ def main() -> int:
          "device_ms": timing[name]["device_ms"], "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"], "library_ms": None}
         for name in ("p2plane_fused_terms", "p2plane_pick_fused_terms",
-                     "ndt_fused_terms", "gn_step", "so3_renormalize")]}), flush=True)
+                     "ndt_fused_terms", "gn_step", "so3_renormalize",
+                     "eskf_predict_scan")]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..ops import voxel
+from ..ops.pointcloud import card_device
 from ..utils import lie
 
 # PCG iterations between two host reads of the stop flag: any value gives the
@@ -422,9 +423,11 @@ def concat_edges(a, b):
     return type(a)(*[torch.cat([x, y]) for x, y in zip(a, b)])
 
 
-def make_pad_edges(k: int, device) -> Se3Edges:
-    """k invalid identity self-edges (node 0 -> node 0, valid=False): their
-    contribution to the normal equations is exactly zero."""
+def make_pad_edges(k: int, device=None) -> Se3Edges:
+    """k invalid identity self-edges (node 0 -> node 0, valid=False) on
+    `device` (default: the card): their contribution to the normal equations
+    is exactly zero."""
+    device = card_device(device)
     return Se3Edges(
         i=torch.zeros((k,), dtype=torch.int64, device=device),
         j=torch.zeros((k,), dtype=torch.int64, device=device),

@@ -70,8 +70,9 @@ def _restore(like, prefix: str, data) -> Any:
             f"checkpoint leaf {key} shape {arr.shape} != expected {tuple(np.shape(like))}"
             " — options/capacities differ from the saving run")
     if isinstance(like, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device=like.device,
-                                                               dtype=like.dtype)
+        # ascontiguousarray makes a 0-d array 1-d: keep the leaf's shape
+        return torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape)).to(
+            device=like.device, dtype=like.dtype)
     if isinstance(like, (bool, int, float)):
         return type(like)(arr.item())
     return arr.astype(np.asarray(like).dtype)

@@ -11,7 +11,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.pointcloud import PointCloud, from_numpy
+from ..ops.pointcloud import PointCloud, card_device, from_numpy
 
 
 def make_world(num_points: int = 60000, extent: float = 120.0,
@@ -111,12 +111,13 @@ def render_scan(world: np.ndarray, R: np.ndarray, t: np.ndarray,
 
 def annotate_rings(pc: PointCloud, num_rings: int = 16,
                    min_elev_deg: float = -16.0, max_elev_deg: float = 16.0, *,
-                   device) -> PointCloud:
+                   device=None) -> PointCloud:
     """Attach spinning-lidar ring structure to a sensor-frame scan: ring =
     elevation-angle bin, rows re-ordered by (ring, azimuth), valid rows
     first, so each ring's points are azimuth-contiguous (the layout LOAM's
     curvature stencil assumes). Computed in numpy on the host; the result
-    lies on `device`."""
+    lies on `device` (default: the card)."""
+    device = card_device(device)
     xyz = pc.xyz.cpu().numpy()
     mask = pc.mask.cpu().numpy()
     x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]

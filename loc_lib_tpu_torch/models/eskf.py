@@ -4,9 +4,11 @@ dead-reckoning integrator (port of loc_lib_tpu/models/eskf.py).
 A pure `(state, measurement) -> state` function pair (`predict`,
 `observe_se3`) over an `EskfState` NamedTuple of tensors. State order
 matches the reference: p, v, R, bg, ba, g. `predict_scan` propagates a
-padded IMU packet; JAX's `lax.scan` with a per-sample keep/skip select
-becomes a host loop over the packet's valid samples (exactly the samples the
-select would keep), so a scan costs one small launch chain per IMU sample.
+padded IMU packet; JAX's `lax.scan` of `predict` with a per-sample
+keep/skip select, which XLA fuses into one program, is ONE launch of the
+hand-written kernel `ops.kernels.eskf_predict_scan` on the card, and its
+plain version (the same scan as torch ops, the select a `torch.where`) on
+the CPU.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import kernels
+from ..ops.pointcloud import card_device
 from ..utils import lie, mathx
 
 DEG2RAD = math.pi / 180.0
@@ -70,8 +74,10 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def init_state(bg=None, ba=None, gravity=None, cov_scale: float = 1e-4,
-               time: float = 0.0, *, device) -> EskfState:
-    """Initial conditions on `device`: cov = I * cov_scale."""
+               time: float = 0.0, *, device=None) -> EskfState:
+    """Initial conditions on `device` (default: the card, see
+    `pointcloud.card_device`): cov = I * cov_scale."""
+    device = card_device(device)
     z = torch.zeros(3, dtype=torch.float32, device=device)
     return EskfState(
         p=z, v=z.clone(), R=torch.eye(3, dtype=torch.float32, device=device),
@@ -83,11 +89,11 @@ def init_state(bg=None, ba=None, gravity=None, cov_scale: float = 1e-4,
     )
 
 
-def process_noise(opts: EskfOptions, device) -> torch.Tensor:
-    """Process noise: the reference uses the variances directly. Q depends
-    only on (opts, device), so it is built once per pair and shared: callers
-    read it, never write it."""
-    return _diag_on(device, (0.0,) * 3 + (opts.acce_var,) * 3 + (opts.gyro_var,) * 3
+def process_noise(opts: EskfOptions, device=None) -> torch.Tensor:
+    """Process noise on `device` (default: the card): the reference uses the
+    variances directly. Q depends only on (opts, device), so it is built once
+    per pair and shared: callers read it, never write it."""
+    return _diag_on(card_device(device), (0.0,) * 3 + (opts.acce_var,) * 3 + (opts.gyro_var,) * 3
                     + (opts.bias_gyro_var,) * 3 + (opts.bias_acce_var,) * 3 + (0.0,) * 3)
 
 
@@ -106,57 +112,25 @@ def _diag_on(device, values: tuple) -> torch.Tensor:
     return torch.diag(d)
 
 
-def predict(s: EskfState, gyro, acce, timestamp, opts: EskfOptions,
-            Q: torch.Tensor) -> EskfState:
-    """One IMU propagation step. Skips the update (time still advances) when
-    dt > 5*imu_dt or dt < 0. `Q` is `process_noise(opts, device)`."""
-    dt = timestamp - s.time
-    ok = (dt <= 5.0 * opts.imu_dt) & (dt >= 0)
-    dt = torch.where(ok, dt, 0.0)
+_PREDICTED = ("p", "v", "R", "cov", "time")     # what propagation changes; bg, ba, g do not
 
-    acc_w = s.R @ (acce - s.ba)
-    new_p = s.p + s.v * dt + 0.5 * acc_w * dt * dt + 0.5 * s.g * dt * dt
-    new_v = s.v + acc_w * dt + s.g * dt
-    new_R = s.R @ lie.so3_exp((gyro - s.bg) * dt)
 
-    # F is assembled after R is overwritten, as in the reference
-    dev = s.p.device
-    eye = torch.eye(3, dtype=torch.float32, device=dev)
-    F = torch.eye(18, dtype=torch.float32, device=dev)
-    F[0:3, 3:6] = eye * dt
-    F[3:6, 6:9] = -new_R @ lie.hat(acce - s.ba) * dt
-    F[3:6, 12:15] = -new_R * dt
-    F[3:6, 15:18] = eye * dt
-    F[6:9, 6:9] = lie.so3_exp(-(gyro - s.bg) * dt)
-    F[6:9, 9:12] = -eye * dt
-    new_cov = F @ s.cov @ F.T + Q
-
-    return EskfState(
-        p=torch.where(ok, new_p, s.p),
-        v=torch.where(ok, new_v, s.v),
-        R=torch.where(ok, new_R, s.R),
-        bg=s.bg, ba=s.ba, g=s.g,
-        cov=torch.where(ok, new_cov, s.cov),
-        time=timestamp,
-    )
+def predict(s: EskfState, gyro, acce, timestamp, opts: EskfOptions) -> EskfState:
+    """One IMU propagation step (`kernels.eskf_predict_plain` with the
+    options' Q). Skips the update (time still advances) when dt > 5*imu_dt
+    or dt < 0."""
+    return s._replace(**dict(zip(_PREDICTED, kernels.eskf_predict_plain(
+        *s, gyro, acce, timestamp, process_noise(opts, s.p.device), opts.imu_dt))))
 
 
 def predict_scan(s: EskfState, gyros, acces, timestamps, valid,
                  opts: EskfOptions) -> EskfState:
-    """Propagate through a padded IMU packet. `valid` (host bool array or
-    tensor) masks padding; invalid samples leave the state unchanged, so
-    only the valid ones are run."""
-    dev = s.p.device
-    Q = process_noise(opts, dev)
-    keep = np.flatnonzero(np.asarray(valid.cpu() if isinstance(valid, torch.Tensor) else valid))
-    if len(keep) == 0:
-        return s
-    g = _f32(gyros, dev)
-    a = _f32(acces, dev)
-    ts = _f32(timestamps, dev)
-    for k in keep.tolist():
-        s = predict(s, g[k], a[k], ts[k], opts, Q)
-    return s
+    """Propagate through a padded IMU packet (host arrays or tensors);
+    `valid` masks padding, and an invalid sample leaves the state, time
+    included, unchanged. One launch of `kernels.eskf_predict_scan` on the
+    card; the host reads nothing back."""
+    return s._replace(**dict(zip(_PREDICTED, kernels.eskf_predict_scan(
+        *s, gyros, acces, timestamps, valid, process_noise(opts, s.p.device), opts.imu_dt))))
 
 
 def _update_and_reset(s: EskfState, H, V, innov, opts: EskfOptions) -> EskfState:

@@ -62,13 +62,14 @@ import threading
 from pathlib import Path
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..utils import lie
 from . import voxel
 
 LAUNCHES = {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0, "ndt_fused_terms": 0,
-            "gn_step": 0, "so3_renormalize": 0}
+            "gn_step": 0, "so3_renormalize": 0, "eskf_predict_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -418,6 +419,52 @@ def so3_renormalize_plain(R):
     return lie.so3_renormalize(R, matmul=lie.matmul3)
 
 
+def eskf_predict_plain(p, v, R, bg, ba, g, cov, time, gyro, acce, stamp, Q, imu_dt: float):
+    """One IMU propagation step, any float dtype: the ESKF's nominal state
+    (p, v, R, bg, ba, g) and error covariance `cov` (18, 18) at `time`, one
+    sample (gyro, acce, stamp), the process noise Q. A sample that fails the
+    dt gate (dt > 5 imu_dt or dt < 0) keeps p, v, R and cov and moves time
+    to `stamp`. F is assembled from the NEW rotation, as in the reference.
+    Returns (p, v, R, cov, time); bg, ba and g do not change. It is
+    models.eskf.predict's math, kept here as the kernel's plain version."""
+    dt = stamp - time
+    ok = (dt <= 5.0 * imu_dt) & (dt >= 0)
+    dt = torch.where(ok, dt, 0.0)
+
+    acc_w = R @ (acce - ba)
+    new_p = p + v * dt + 0.5 * acc_w * dt * dt + 0.5 * g * dt * dt
+    new_v = v + acc_w * dt + g * dt
+    new_R = R @ lie.so3_exp((gyro - bg) * dt)
+
+    eye = torch.eye(3, dtype=cov.dtype, device=cov.device)
+    F = torch.eye(18, dtype=cov.dtype, device=cov.device)
+    F[0:3, 3:6] = eye * dt
+    F[3:6, 6:9] = -new_R @ lie.hat(acce - ba) * dt
+    F[3:6, 12:15] = -new_R * dt
+    F[3:6, 15:18] = eye * dt
+    F[6:9, 6:9] = lie.so3_exp(-(gyro - bg) * dt)
+    F[6:9, 9:12] = -eye * dt
+    new_cov = F @ cov @ F.T + Q
+    return (torch.where(ok, new_p, p), torch.where(ok, new_v, v), torch.where(ok, new_R, R),
+            torch.where(ok, new_cov, cov), stamp)
+
+
+def eskf_predict_scan_plain(p, v, R, bg, ba, g, cov, time, gyros, acces, stamps, valid, Q,
+                            imu_dt: float):
+    """`eskf_predict_scan` op by op: `eskf_predict_plain` over every sample of
+    the padded packet in order, each result kept where `valid` (a padded
+    sample leaves p, v, R, cov and time as they were), in p's dtype and on
+    its device. The host never reads `valid`. Returns (p, v, R, cov, time)."""
+    dev, dtype = p.device, p.dtype
+    gs, acs, ts = (torch.as_tensor(x, dtype=dtype, device=dev) for x in (gyros, acces, stamps))
+    keep = torch.as_tensor(valid, device=dev).to(torch.bool)
+    out = (p, v, R, cov, time)
+    for k in range(ts.shape[0]):
+        nxt = eskf_predict_plain(*out[:3], bg, ba, g, *out[3:], gs[k], acs[k], ts[k], Q, imu_dt)
+        out = tuple(torch.where(keep[k], n, o) for n, o in zip(nxt, out))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Build and load (first use only)
 # ---------------------------------------------------------------------------
@@ -425,7 +472,7 @@ def so3_renormalize_plain(R):
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 HEADER = "fused_terms.cuh"
 UNITS = ("p2plane_fused_terms.cu", "p2plane_pick_fused_terms.cu", "ndt_fused_terms.cu",
-         "gn_update.cu")
+         "gn_update.cu", "eskf_predict.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v", "-lineinfo")
 
@@ -507,7 +554,9 @@ def _bind(cdll: ctypes.CDLL) -> None:
     # dx, ok, R, t, eps, may_converge, lanes, R_out, t_out, converged, stream
     cdll.gn_step_launch.argtypes = [vp, vp, vp, vp, cf, ci, ci, vp, vp, vp, vp]
     cdll.so3_renormalize_launch.argtypes = [vp, ci, vp, vp]      # R, lanes, R_out, stream
-    for fn in (cdll.gn_step_launch, cdll.so3_renormalize_launch,
+    # p, v, R, bg, ba, g, cov, time, packet, K, Q, max_dt, p, v, R, cov, time out, stream
+    cdll.eskf_predict_scan_launch.argtypes = [vp] * 9 + [ci, vp, cf] + [vp] * 6
+    for fn in (cdll.gn_step_launch, cdll.so3_renormalize_launch, cdll.eskf_predict_scan_launch,
                cdll.p2plane_fused_terms_launch, cdll.p2plane_pick_fused_terms_launch,
                cdll.p2plane_from_target_launch, cdll.p2plane_pick_from_target_launch,
                cdll.p2plane_from_target_batch_launch,
@@ -938,6 +987,68 @@ def so3_renormalize(R):
         R.data_ptr(), R.numel() // 9, out.data_ptr(),
         torch._C._cuda_getCurrentRawStream(dev.index)))
     LAUNCHES["so3_renormalize"] += 1
+    return out
+
+
+ESKF_PACKET_WORDS = 8      # kPacketWords in eskf_predict.cu: gyro | acce | stamp | valid
+
+
+def imu_packet(gyros, acces, stamps, valid, device) -> torch.Tensor:
+    """The packet as the kernel reads it: (K, 8) float32 rows [gyro (3) |
+    acce (3) | stamp | valid (0 / 1)] on `device`. Host arrays are packed
+    into one host buffer and copied to the device once, without waiting for
+    the stream; tensors are packed where they are (the host reads none of
+    them)."""
+    parts = (gyros, acces, stamps, valid)
+    if not any(isinstance(x, torch.Tensor) for x in parts):
+        K = len(stamps)
+        buf = np.empty((K, ESKF_PACKET_WORDS), np.float32)
+        buf[:, 0:3] = gyros
+        buf[:, 3:6] = acces
+        buf[:, 6] = stamps
+        buf[:, 7] = valid
+        return torch.from_numpy(buf).to(device, non_blocking=True)
+    g, a, ts, v = (torch.as_tensor(x, device=device).to(torch.float32) for x in parts)
+    return torch.cat([g, a, ts[:, None], v[:, None]], dim=1)
+
+
+def eskf_predict_scan(p, v, R, bg, ba, g, cov, time, gyros, acces, stamps, valid, Q,
+                      imu_dt: float):
+    """The ESKF's propagation through one padded IMU packet in ONE launch
+    (csrc/eskf_predict.cu): the nominal state p, v (3,), R (3, 3), bg, ba,
+    g (3,), the covariance cov (18, 18) and time () as float32 tensors;
+    gyros / acces (K, 3), stamps (K,), valid (K,) as host arrays or tensors;
+    Q (18, 18) the process noise; imu_dt the filter's sample period (the dt
+    gate is 5 imu_dt). CPU tensors take `eskf_predict_scan_plain`. Returns
+    new tensors (p, v, R, cov, time): the inputs are never written
+    (pipelined steps and checkpoints keep them); bg, ba and g do not
+    change."""
+    if p.device.type == "cpu":
+        return eskf_predict_scan_plain(p, v, R, bg, ba, g, cov, time, gyros, acces, stamps,
+                                       valid, Q, imu_dt)
+    dev = _device_of(p)
+    return _eskf_predict_scan_launch(p, v, R, bg, ba, g, cov, time,
+                                     imu_packet(gyros, acces, stamps, valid, dev), Q, imu_dt)
+
+
+def _eskf_predict_scan_launch(p, v, R, bg, ba, g, cov, time, packet, Q, imu_dt: float):
+    """The launch of `eskf_predict_scan` on a packet already made by
+    `imu_packet` on the state's device."""
+    dev = p.device
+    p, v, R, bg, ba, g, cov, time, Q = (_f32_on(x, dev) for x in (p, v, R, bg, ba, g, cov, time, Q))
+    for name, x, shape in (("p", p, (3,)), ("v", v, (3,)), ("R", R, (3, 3)), ("bg", bg, (3,)),
+                           ("ba", ba, (3,)), ("g", g, (3,)), ("cov", cov, (18, 18)),
+                           ("time", time, ()), ("Q", Q, (18, 18))):
+        _check(name, x, shape, dev)
+    if packet.ndim != 2 or packet.shape[1] != ESKF_PACKET_WORDS:
+        raise ValueError(f"IMU packet: expected (K, {ESKF_PACKET_WORDS}) rows, got "
+                         f"{tuple(packet.shape)}")
+    out = tuple(torch.empty_like(x) for x in (p, v, R, cov, time))
+    _raise_on("eskf_predict_scan_launch", build().cdll.eskf_predict_scan_launch(
+        p.data_ptr(), v.data_ptr(), R.data_ptr(), bg.data_ptr(), ba.data_ptr(), g.data_ptr(),
+        cov.data_ptr(), time.data_ptr(), packet.data_ptr(), packet.shape[0], Q.data_ptr(),
+        5.0 * imu_dt, *(x.data_ptr() for x in out), torch._C._cuda_getCurrentRawStream(dev.index)))
+    LAUNCHES["eskf_predict_scan"] += 1
     return out
 
 

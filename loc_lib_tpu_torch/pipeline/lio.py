@@ -39,7 +39,7 @@ import torch
 from ..ops.pointcloud import PointCloud, PAD_COORD, card_device
 from ..ops import voxel as voxel_ops
 from ..models import icp, ndt, loam, eskf as eskf_mod
-from ..utils import lie
+from ..utils import lie, mathx
 from ..utils import health as health_mod
 
 
@@ -142,11 +142,12 @@ def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def init_state(opts: LioOptions, R_il=None, t_il=None, *, device) -> LioState:
-    """Fresh state on `device`, with the matcher target pre-built from an
-    empty budget-sized cloud or an empty table (the reference's fixed-shape
-    start)."""
+def init_state(opts: LioOptions, R_il=None, t_il=None, *, device=None) -> LioState:
+    """Fresh state on `device` (default: the card), with the matcher target
+    pre-built from an empty budget-sized cloud or an empty table (the
+    reference's fixed-shape start)."""
     _check_matcher(opts)
+    device = card_device(device)
     k, n = opts.num_kfs_in_local_map, opts.scan_capacity
     eye = torch.eye(3, dtype=torch.float32, device=device)
     z3 = torch.zeros((3,), dtype=torch.float32, device=device)
@@ -247,12 +248,7 @@ def _push_keyframe(opts: LioOptions, state: LioState, scan_xyz, scan_mask, R, t,
     """Insert (scan, pose) into the ring buffer (and, for loam, the edge
     features into theirs) and update the target."""
     slot = state.num_kfs % opts.num_kfs_in_local_map
-
-    def upd(buf, row):
-        out = buf.clone()
-        out[slot] = row
-        return out
-
+    upd = lambda buf, row: mathx.ring_put(buf, slot, row)
     kf_xyz = upd(state.kf_xyz, scan_xyz)
     kf_mask = upd(state.kf_mask, scan_mask)
     kf_R = upd(state.kf_R, R)
@@ -392,8 +388,9 @@ class ImuStaticInit:
     """Buffers IMU samples until a stationary window of init_time_seconds
     passes the variance gates, then returns the seeded EskfState once."""
 
-    def __init__(self, *, device):
-        self.device = device
+    def __init__(self, *, device=None):
+        """`device`: where the seeded state lives (default: the card)."""
+        self.device = card_device(device)
         self.buffer: list[tuple[float, np.ndarray, np.ndarray]] = []
 
     def add(self, gyro, acce, timestamp):
@@ -419,8 +416,8 @@ class Lio:
     """Stateful wrapper: owns a LioState on `device`, records per-frame and
     keyframe poses, and watches tracking health."""
 
-    def __init__(self, opts: LioOptions = LioOptions(), R_il=None, t_il=None, *,
-                 device=None, pipelined: bool = False):
+    def __init__(self, opts: LioOptions = LioOptions(), R_il=None, t_il=None,
+                 pipelined: bool = False, *, device=None):
         """`device`: where the state lives and the steps run (default: the
         card, see `pointcloud.card_device`; it raises without one).
         `pipelined=True`: lag-1 results. `add_measure` / `add_cloud`

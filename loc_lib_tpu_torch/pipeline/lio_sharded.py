@@ -60,7 +60,10 @@ class LioShardedState(NamedTuple):
     frame_idx: int
 
 
-def init_state(R_il=None, t_il=None, *, device) -> LioShardedState:
+def init_state(R_il=None, t_il=None, *, device=None) -> LioShardedState:
+    """Fresh replicated state on `device` (default: the card); the sharded
+    map lives outside it."""
+    device = card_device(device)
     eye = torch.eye(3, dtype=torch.float32, device=device)
     z3 = torch.zeros((3,), dtype=torch.float32, device=device)
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)

@@ -101,9 +101,11 @@ def _build_target(opts: LocOptions, local_map: PointCloud, origin) -> dict:
     return {"ndt_map": ndt.build_direct(local_map, opts.ndt, origin)}
 
 
-def init_state(opts: LocOptions, R_il=None, t_il=None, *, device) -> LocState:
-    """Fresh state on `device`, the target built over an empty crop."""
+def init_state(opts: LocOptions, R_il=None, t_il=None, *, device=None) -> LocState:
+    """Fresh state on `device` (default: the card), the target built over an
+    empty crop."""
     _check_matcher(opts)
+    device = card_device(device)
     eye = torch.eye(3, dtype=torch.float32, device=device)
     z3 = torch.zeros((3,), dtype=torch.float32, device=device)
     cap = opts.local_map_capacity
@@ -161,8 +163,7 @@ def predict_imu(state: LocState, gyro, acce, timestamp) -> LocState:
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
     opts = eskf_mod.EskfOptions()
     return state._replace(eskf=eskf_mod.predict(
-        state.eskf, f32(gyro), f32(acce), f32(timestamp), opts,
-        eskf_mod.process_noise(opts, dev)))
+        state.eskf, f32(gyro), f32(acce), f32(timestamp), opts))
 
 
 def step_measure(state: LocState, scan: PointCloud, imu_gyro, imu_acce, imu_stamp,

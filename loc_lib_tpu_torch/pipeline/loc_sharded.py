@@ -37,9 +37,10 @@ from .loc import LocOptions, LocState, StepResult
 LocShardedState = LocState
 
 
-def init_state(R_il=None, t_il=None, *, device) -> LocState:
-    """Fresh replicated state on `device`; the sharded target lives outside
-    it (LocSharded.target)."""
+def init_state(R_il=None, t_il=None, *, device=None) -> LocState:
+    """Fresh replicated state on `device` (default: the card); the sharded
+    target lives outside it (LocSharded.target)."""
+    device = card_device(device)
     eye = torch.eye(3, dtype=torch.float32, device=device)
     z3 = torch.zeros((3,), dtype=torch.float32, device=device)
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)

@@ -107,12 +107,13 @@ def to_numpy(x) -> np.ndarray:
 
 class Submap:
     """Host-side submap record (Submap, submap.hpp:25-73); its grid and
-    field live on `device`, or, once spilled, in host numpy."""
+    field live on `device` (default: the card), or, once spilled, in host
+    numpy."""
 
     def __init__(self, opts: Mapping2dOptions, theta_ws: float, t_ws: np.ndarray, index: int,
-                 device):
+                 device=None):
         self.opts = opts
-        self.device = device
+        self.device = device = card_device(device)
         self.index = index
         self.theta_ws = float(theta_ws)
         self.t_ws = np.asarray(t_ws, np.float32)

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..models import grid2d
-from ..utils import lie
+from ..utils import lie, mathx
 from .mapping2d import Mapping2D, Mapping2dOptions, Submap, _on, _scalar, to_numpy
 
 
@@ -96,11 +96,6 @@ def _keyframe_angle(opts: Mapping2dOptions) -> float:
     return float(np.deg2rad(np.float32(opts.keyframe_angle_deg)))
 
 
-def _ring_put(buf: torch.Tensor, slot: int, row: torch.Tensor) -> torch.Tensor:
-    """`buf` with row `slot` replaced, as a new tensor."""
-    return torch.cat([buf[:slot], row[None].to(buf.dtype), buf[slot + 1:]])
-
-
 def step_scan(state: Mapping2dDeviceState, scan_xy: torch.Tensor, valid: torch.Tensor,
               opts: Mapping2dOptions):
     """ProcessScan (mapping_2d.cpp:65-130): guess, match, pose update, and
@@ -136,10 +131,10 @@ def step_scan(state: Mapping2dDeviceState, scan_xy: torch.Tensor, valid: torch.T
         state = state._replace(
             counts=grid.counts, touched=grid.touched, field=field,
             num_frames=state.num_frames + 1,
-            recent_xy=_ring_put(state.recent_xy, slot, scan_xy),
-            recent_valid=_ring_put(state.recent_valid, slot, valid),
-            recent_th=_ring_put(state.recent_th, slot, th_w),
-            recent_t=_ring_put(state.recent_t, slot, t_w),
+            recent_xy=mathx.ring_put(state.recent_xy, slot, scan_xy),
+            recent_valid=mathx.ring_put(state.recent_valid, slot, valid),
+            recent_th=mathx.ring_put(state.recent_th, slot, th_w),
+            recent_t=mathx.ring_put(state.recent_t, slot, t_w),
             recent_count=state.recent_count + 1, last_kf_theta=th_w, last_kf_t=t_w)
 
     # expansion trigger geometry (the host decides)

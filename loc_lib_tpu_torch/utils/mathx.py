@@ -15,11 +15,24 @@ import torch
 G_M_S2 = 9.81  # gravity magnitude used throughout the reference
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=-2, eps: float = 1e-9):
-    """Mean over `dim` counting only mask==True rows. mask: (..., N)."""
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=-2, eps: float = 1e-9):
+    """Mean over `axis` counting only mask==True rows. mask: (..., N)."""
     m = mask[..., None].to(x.dtype)
-    n = torch.sum(m, dim=dim)
-    return torch.sum(x * m, dim=dim) / torch.clamp(n, min=eps), n[..., 0]
+    n = torch.sum(m, dim=axis)
+    return torch.sum(x * m, dim=axis) / torch.clamp(n, min=eps), n[..., 0]
+
+
+def ring_put(buf: torch.Tensor, slot: int, row: torch.Tensor) -> torch.Tensor:
+    """`buf` with `row` written at the front of entry `slot` of its leading
+    axis, as a new tensor: a row narrower than the slot leaves the slot's
+    other entries as they were (jax.lax.dynamic_update_index_in_dim), a
+    wider one raises."""
+    if row.ndim != buf.ndim - 1 or any(r > b for r, b in zip(row.shape, buf.shape[1:])):
+        raise ValueError(f"a row of shape {tuple(row.shape)} does not fit a slot of "
+                         f"{tuple(buf.shape[1:])}")
+    out = buf.clone()
+    out[(slot, *(slice(0, r) for r in row.shape))] = row
+    return out
 
 
 def masked_mean_and_cov(pts: torch.Tensor, mask: torch.Tensor):

@@ -313,6 +313,18 @@ def _slam_carried(mesh, case: dict) -> dict:
             "shard": _ndt_shard(eng.lio.sm), "live": eng.live_voxels_per_shard()}
 
 
+def _lio_imbalance(mesh, case: dict) -> dict:
+    """LioSharded (ndt_inc, no ESKF) on the exploring corridor, its slab
+    imbalance checked every 4 keyframes: positions, warnings, live voxels."""
+    eng = lio_sharded.LioSharded(mesh, lio_options(case["imbalance_opts"]), device=DEV)
+    eng.imbalance_check_every = 4
+    z, s, v = np.zeros((4, 3), np.float32), np.zeros(4), np.zeros(4, bool)
+    ts = [eng.add_measure(_pc(xyz, mask), z, z, s, v).t.numpy()
+          for xyz, mask in zip(case["corridor_xyz"], case["corridor_mask"])]
+    return {"t": np.stack(ts), "warnings": list(eng.imbalance_warnings),
+            "live": eng.live_voxels_per_shard(), "warn_ratio": eng.imbalance_warn_ratio}
+
+
 def map_shard_case(case: dict) -> dict:
     """Every scenario the case names, on a case["mesh"] = (dp, mp) mesh;
     the seconds each took come back under "seconds"."""
@@ -321,7 +333,7 @@ def map_shard_case(case: dict) -> dict:
     for name, fn in (("matchers", _matchers), ("lio_carried", _lio_carried),
                      ("loc_carried", _loc_carried), ("lio_free", _lio_free),
                      ("loc_free", _loc_free), ("slam_free", _slam_free),
-                     ("slam_carried", _slam_carried)):
+                     ("slam_carried", _slam_carried), ("lio_imbalance", _lio_imbalance)):
         if name in case["run"]:
             t0 = time.perf_counter()
             out[name] = fn(mesh, case)

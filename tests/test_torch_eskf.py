@@ -56,9 +56,86 @@ def test_predict_scan_matches_jax():
                               jnp.asarray(v), jeskf.EskfOptions())
     tout = eskf.predict_scan(ts, g, a, s, v, eskf.EskfOptions())
     _assert_state_close(tout, jout)
-    # an all-invalid packet leaves the state untouched
+    # an all-invalid packet leaves the state's bits as they were (the host
+    # never reads `valid`, so the state comes back as new tensors)
     same = eskf.predict_scan(ts, g, a, s, np.zeros_like(v), eskf.EskfOptions())
-    assert same is ts
+    for name in eskf.EskfState._fields:
+        assert torch.equal(getattr(same, name), getattr(ts, name)), name
+
+
+def _gate_case(case):
+    """A 64-sample packet with one kind of skipped or masked sample."""
+    g, a, s, v = _packet()
+    s[5] = s[4]                          # no gap at 5: `_packet`'s gap is the "gap" case
+    if case == "gap":                    # dt > 5 imu_dt: skipped, time advances
+        s[9] = s[8] + 0.2
+        s[10:23] += 0.2
+    elif case == "backwards":            # dt < 0: skipped, time advances (backwards)
+        s[7] = s[6] - 0.03
+    elif case == "all_invalid":
+        v[:] = False
+    elif case == "holes":                # invalid samples between valid ones
+        v[[3, 4, 11]] = False
+    return g, a, s, v
+
+
+@pytest.mark.parametrize("case", ["padding", "gap", "backwards", "all_invalid", "holes",
+                                  "valid_tensor"])
+def test_predict_scan_gate_cases_match_jax(case):
+    """predict_scan against JAX's on packets with padding, a dt > 5 imu_dt
+    gap, a dt < 0 step, no valid sample, invalid samples between valid ones,
+    and `valid` handed over as a tensor (the packet on the state's device):
+    every field within atol 1e-5, time exactly."""
+    js, ts = _state_pair()
+    g, a, s, v = _gate_case("padding" if case == "valid_tensor" else case)
+    jout = jeskf.predict_scan(js, jnp.asarray(g), jnp.asarray(a), jnp.asarray(s),
+                              jnp.asarray(v), jeskf.EskfOptions())
+    if case == "valid_tensor":
+        g, a, s, v = (torch.from_numpy(x) for x in (g, a, s, v))
+    tout = eskf.predict_scan(ts, g, a, s, v, eskf.EskfOptions())
+    _assert_state_close(tout, jout)
+    assert float(tout.time) == float(jout.time)
+    for name in ("bg", "ba", "g"):
+        assert getattr(tout, name) is getattr(ts, name), name
+
+
+def test_predict_scan_kernel_cpu_path_is_the_plain_version():
+    """On CPU tensors kernels.eskf_predict_scan takes its plain version:
+    the same bits as eskf_predict_scan_plain and as eskf.predict_scan, and
+    the plain version over a packet is eskf.predict over its valid samples;
+    the launch counter has the kernel's key and a CPU call leaves it."""
+    from loc_lib_tpu_torch.ops import kernels
+
+    _, ts = _state_pair()
+    g, a, s, v = _gate_case("gap")
+    v[[3, 40]] = False
+    opts = eskf.EskfOptions()
+    Q = eskf.process_noise(opts, "cpu")
+    before = dict(kernels.LAUNCHES)
+    assert "eskf_predict_scan" in before
+    got = kernels.eskf_predict_scan(*ts, g, a, s, v, Q, opts.imu_dt)
+    plain = kernels.eskf_predict_scan_plain(*ts, g, a, s, v, Q, opts.imu_dt)
+    scan = eskf.predict_scan(ts, g, a, s, v, opts)
+    loop = ts
+    for k in np.flatnonzero(v):
+        loop = eskf.predict(loop, torch.from_numpy(g[k]), torch.from_numpy(a[k]),
+                            torch.tensor(s[k]), opts)
+    assert kernels.LAUNCHES == before
+    predicted = ("p", "v", "R", "cov", "time")
+    assert len(got) == len(plain) == len(predicted)
+    for name, x, y in zip(predicted, got, plain):
+        assert torch.equal(x, y), name
+        for other in (scan, loop):
+            assert torch.equal(x, getattr(other, name)), name
+    for name in ("bg", "ba", "g"):
+        assert getattr(scan, name) is getattr(ts, name), name
+    # the packet the kernel reads: one row a sample, [gyro | acce | stamp | valid]
+    packet = kernels.imu_packet(g, a, s, v, torch.device("cpu"))
+    assert packet.shape == (64, kernels.ESKF_PACKET_WORDS) and packet.dtype == torch.float32
+    np.testing.assert_array_equal(packet.numpy(), np.concatenate(
+        [g, a, s[:, None], v[:, None].astype(np.float32)], axis=1))
+    same = kernels.imu_packet(*(torch.from_numpy(x) for x in (g, a, s, v)), torch.device("cpu"))
+    assert torch.equal(same, packet)
 
 
 @pytest.mark.parametrize("seed", range(2))
@@ -107,6 +184,7 @@ def test_process_noise_is_built_once_per_options_and_device():
     opts = eskf.EskfOptions()
     dev = torch.device("cpu")
     Q = eskf.process_noise(opts, dev)
+    assert eskf.process_noise(opts, device="cpu") is Q
     assert eskf.process_noise(eskf.EskfOptions(), dev) is Q
     fresh = torch.diag(torch.tensor([0.0] * 3 + [opts.acce_var] * 3 + [opts.gyro_var] * 3
                                     + [opts.bias_gyro_var] * 3 + [opts.bias_acce_var] * 3

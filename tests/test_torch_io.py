@@ -358,7 +358,8 @@ def _lio_state():
 def test_state_checkpoint_round_trip(tmp_path):
     """A LioState (nested NamedTuples, None leaves, host ints) round-trips
     through one npz keyed by dotted field paths, onto `like`'s device with
-    its dtypes; the step rides along."""
+    its dtypes and shapes (0-d leaves such as the ESKF's time stay 0-d); the
+    step rides along."""
     state, _ = _lio_state()
     rng = np.random.default_rng(10)
     state = state._replace(t=torch.from_numpy(rng.normal(0, 1, 3).astype(np.float32)),
@@ -377,7 +378,7 @@ def test_state_checkpoint_round_trip(tmp_path):
     assert flat.keys() == want.keys()
     for k in flat:
         np.testing.assert_array_equal(flat[k], want[k], k)
-        assert flat[k].dtype == want[k].dtype
+        assert flat[k].dtype == want[k].dtype and flat[k].shape == want[k].shape, k
     assert isinstance(got.eskf, eskf.EskfState) and got.eskf.cov.device.type == "cpu"
 
 

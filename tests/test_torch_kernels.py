@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from loc_lib_tpu.ops import pallas_kernels
-from loc_lib_tpu_torch.models import icp, ndt
+from loc_lib_tpu_torch.models import eskf, icp, ndt
 from loc_lib_tpu_torch.ops import kernels, pointcloud as pcm, voxel
 import oracles
 
@@ -284,8 +284,13 @@ def test_cpu_tensors_never_touch_launch_counters():
         icp.compute_h_and_b(tgt, icp.IcpOptions(method=method, dense_dims=DIMS), src, R, t)
     kernels.gn_step(torch.zeros(6), torch.ones((), dtype=torch.bool), R, t, 1e-3, True)
     kernels.so3_renormalize(R)
+    st = eskf.init_state(device="cpu")
+    kernels.eskf_predict_scan(*st, np.zeros((4, 3)), np.zeros((4, 3)), np.arange(4) * 0.01,
+                              np.ones(4, bool), eskf.process_noise(eskf.EskfOptions(), "cpu"),
+                              0.01)
     assert kernels.LAUNCHES == {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0,
-                                "ndt_fused_terms": 0, "gn_step": 0, "so3_renormalize": 0}
+                                "ndt_fused_terms": 0, "gn_step": 0, "so3_renormalize": 0,
+                                "eskf_predict_scan": 0}
 
 
 def test_non_cpu_non_cuda_tensors_raise():

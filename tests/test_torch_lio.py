@@ -412,3 +412,51 @@ def test_lio_icp_health_stays_ok_like_jax_on_the_40_frame_log():
     ate_t = metrics.ate(np.stack(eng.poses), big.gt_poses).rmse
     ate_j = metrics.ate(np.stack(jeng.poses), big.gt_poses).rmse
     assert ate_t < 0.10 and abs(ate_t - ate_j) < 0.005, (ate_t, ate_j)
+
+
+def _corridor_scans(frames):
+    """The reference's exploring corridor (tests/test_pipeline.py:215-236):
+    the pillar corridor world and 6,144-row scans every 0.45 m, each as the
+    JAX package's cloud and the same rows for the port."""
+    from tests.test_pipeline import _corridor_scan, _pillar_corridor
+
+    rng = np.random.default_rng(0)
+    world = _pillar_corridor(rng)
+    out = []
+    for k in range(frames):
+        t = np.array([0.45 * k, 0.0, 0.0], np.float32)
+        jpc = _corridor_scan(world, t, rng)
+        out.append((t, jpc, lio.PointCloud(xyz=torch.from_numpy(np.array(jpc.xyz)),
+                                           mask=torch.from_numpy(np.array(jpc.mask)))))
+    return out
+
+
+def test_lio_corridor_scans_narrower_than_the_ring_track_like_jax():
+    """Scans of 6,144 rows into keyframe rings 8,192 wide (the default
+    scan_capacity), the reference's exploring odometry (45 frames, ndt_inc,
+    no ESKF): the port writes each keyframe at the front of its slot and
+    keeps the rows past it, as JAX's dynamic_update_index_in_dim does. The
+    port's ring equals JAX's, its rotation stays on the manifold and its
+    per-frame position errors stay under 0.1 m, within 0.01 m of JAX's (on
+    the CPU: 0.0124 m against 0.0124 m)."""
+    scans = _corridor_scans(45)
+    opts = dict(with_eskf=False, kf_distance=0.4, matcher="ndt_inc")
+    jeng, eng = jlio.Lio(jlio.LioOptions(**opts)), lio.Lio(lio.LioOptions(**opts), device="cpu")
+    assert eng.opts.scan_capacity == 8192 > scans[0][2].capacity == 6144
+    z, s, v = np.zeros((4, 3), np.float32), np.zeros(4), np.zeros(4, bool)
+    errs, jerrs = [], []
+    for t, jpc, pc in scans:
+        errs.append(np.linalg.norm(eng.add_measure(pc, z, z, s, v).t.numpy() - t))
+        jerrs.append(np.linalg.norm(np.asarray(jeng.add_measure(jpc, z, z, s, v).t) - t))
+    R = eng.state.R.numpy()
+    assert np.abs(R.T @ R - np.eye(3)).max() < 1e-5
+    assert max(errs) < 0.1, max(errs)
+    assert abs(max(errs) - max(jerrs)) < 0.01, (max(errs), max(jerrs))
+    assert eng.state.num_kfs == int(jeng.state.num_kfs) > eng.opts.num_kfs_in_local_map
+    np.testing.assert_array_equal(eng.state.kf_mask.numpy(), np.asarray(jeng.state.kf_mask))
+    np.testing.assert_array_equal(eng.state.kf_xyz[:, 6144:].numpy(),
+                                  np.asarray(jeng.state.kf_xyz)[:, 6144:])
+    # a scan wider than the ring raises, as in JAX
+    with pytest.raises(ValueError, match="does not fit"):
+        lio._push_keyframe(eng.opts, eng.state, torch.zeros((8193, 3)),
+                           torch.zeros(8193, dtype=torch.bool), eng.state.R, eng.state.t)

@@ -352,6 +352,52 @@ def test_lio_loam_runs_and_keeps_twin_buffers():
     assert metrics.ate(np.stack(eng.poses), log.gt_poses).rmse < 0.3
 
 
+def _front(pc, n):
+    """The first n rows of a cloud (every per-point field), the stamp kept."""
+    return pc._replace(**{f: getattr(pc, f)[:n] for f in ("xyz", "mask", "intensity", "ring",
+                                                          "time") if getattr(pc, f) is not None})
+
+
+def test_lio_loam_edge_scans_narrower_than_the_edge_ring_match_jax():
+    """Edge scans of 2,048 rows into an edge ring 4,096 wide (the scan
+    capacity): on the JAX engine's state carried across before every frame,
+    the port's step writes each keyframe's edge rows at the front of its
+    slot and keeps the rest, so both rings equal JAX's after every frame,
+    and the step's pose, iterations and effective count are JAX's."""
+    log = logdir.make_demo_log(num_frames=FRAMES, capacity=CAP, yaw_rate=0.0)
+    jopts, topts = _loam_opts(jlio, jloam), _loam_opts(lio, loam)
+    jeng = jlio.Lio(jopts)
+    for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
+        jeng.init_imu(g, a, t)
+    kfs = 0
+    for mg in jreplay.sync_measures(log.scan_stamps, log.imu, imu_capacity=64):
+        k = mg.scan_index
+        jr = jsyn.annotate_rings(jpc.PointCloud(xyz=jnp.asarray(log.scan_xyz[k]),
+                                                mask=jnp.asarray(log.scan_mask[k])), 16)
+        tr = synthetic.annotate_rings(log.frame(k, "cpu"), 16, device="cpu")
+        jf = jloam.extract_features(jr, jopts.loam.feature)
+        tf = loam.extract_features(tr, topts.loam.feature)
+        jedge, tedge = _front(jf.edge, CAP // 2), _front(tf.edge, CAP // 2)
+        state = convert.lio_state_from_numpy(
+            jax.tree_util.tree_map(np.asarray, jeng.state)._asdict(), "cpu")
+        tstate, tout = lio.step_measure(state, tf.surf, mg.imu_gyro, mg.imu_acce,
+                                        mg.imu_stamp, mg.imu_valid, topts, edge_scan=tedge)
+        jout = jeng.add_measure(jf.surf, jnp.asarray(mg.imu_gyro), jnp.asarray(mg.imu_acce),
+                                jnp.asarray(mg.imu_stamp), jnp.asarray(mg.imu_valid),
+                                edge_scan=jedge)
+        assert tout.is_keyframe == bool(jout.is_keyframe)
+        assert tout.iterations == int(jout.iterations)
+        assert int(tout.num_effective) == int(jout.num_effective)
+        dt, rot = _pose_gap(jout.R, jout.t, tout.R.numpy(), tout.t.numpy())
+        assert dt < 1e-5 and rot < 1e-5, (k, dt, rot)
+        for name in ("kf_edge_xyz", "kf_edge_mask", "kf_mask"):
+            np.testing.assert_array_equal(getattr(tstate, name).numpy(),
+                                          np.asarray(getattr(jeng.state, name)), name)
+        kfs += tout.is_keyframe
+    assert kfs >= 2
+    assert jeng.state.kf_edge_mask[:, CAP // 2:].sum() == 0
+
+
 @pytest.mark.parametrize("flag", ["use_edge_points", "use_surf_points"])
 def test_loam_feature_kind_flags_match_jax(flag, monkeypatch):
     """LoamOption.use_edge_points / use_surf_points: a kind switched off adds

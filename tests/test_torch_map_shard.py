@@ -99,6 +99,9 @@ LIO_OPTS = dict(matcher="ndt_inc", scan_capacity=4096, with_eskf=True, kf_distan
                 ndt=dict(method="incremental", voxel_size=1.0, map_capacity=4096,
                          dense_dims=(128, 128, 32)))
 LIO_CARRIED = (2, 3, 4)               # measure groups stepped from a carried state
+# test_map_shard.py:307-338: the exploring corridor, 80 frames, no ESKF
+IMBALANCE_FRAMES = 80
+IMBALANCE_OPTS = dict(with_eskf=False, kf_distance=0.4, ndt={})
 LOC_LOG = dict(num_frames=8, capacity=2048, yaw_rate=0.0, speed=2.0, world_points=20000,
                extent=60.0, max_range=35.0)
 LOC_OPTS = dict(local_map_capacity=32768, box_size=120.0, recrop_margin=50.0,
@@ -368,15 +371,48 @@ def port(data, request):
             ndt_inc_carried=ref[(2, 2)]["ndt_inc_carried"],
             slam_carried=ref["slam"]["carried"],
             run=("matchers", "lio_carried", "loc_carried", "slam_carried")))
+        corridor = request.getfixturevalue("corridor")
         runs[(1, 4)] = pool.submit(launch, dict(
             base, mesh=(1, 4), ndt_inc_carried=ref[(1, 4)]["ndt_inc_carried"],
-            run=("matchers", "lio_free")))
+            corridor_xyz=corridor["xyz"], corridor_mask=corridor["mask"],
+            imbalance_opts=IMBALANCE_OPTS, run=("matchers", "lio_free", "lio_imbalance")))
         request.getfixturevalue("single")
         request.getfixturevalue("jax_single")
+        request.getfixturevalue("jax_imbalance")
         out = {key: f.result() for key, f in runs.items()}
     for r, free in zip(out[(2, 2)], out.pop("free")):
         r.update(loc_free=free["loc_free"], slam_free=free["slam_free"])
     return out
+
+
+@pytest.fixture(scope="module")
+def corridor():
+    """The reference's exploring-corridor scans (tests/test_pipeline.py's
+    generators, one rng for the world and the scans' noise) as numpy, and
+    the true positions."""
+    from tests.test_pipeline import _corridor_scan, _pillar_corridor
+
+    rng = np.random.default_rng(0)
+    world = _pillar_corridor(rng)
+    t = np.array([[0.45 * k, 0.0, 0.0] for k in range(IMBALANCE_FRAMES)], np.float32)
+    clouds = [_corridor_scan(world, tk, rng) for tk in t]
+    return {"t": t, "xyz": np.stack([np.asarray(c.xyz) for c in clouds]),
+            "mask": np.stack([np.asarray(c.mask) for c in clouds])}
+
+
+@pytest.fixture(scope="module")
+def jax_imbalance(corridor):
+    """JAX's LioSharded on the corridor at mp = 4, dp = 1."""
+    from jax.sharding import Mesh
+
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(4, 1), ("mp", "dp"))
+    eng = jlio_sharded.LioSharded(mesh, _jopts(IMBALANCE_OPTS, jlio, jndt))
+    eng.imbalance_check_every = 4
+    z, s, v = np.zeros((4, 3), np.float32), np.zeros(4), np.zeros(4, bool)
+    ts = [np.asarray(eng.add_measure(_jcloud(xyz, mask), z, z, s, v).t)
+          for xyz, mask in zip(corridor["xyz"], corridor["mask"])]
+    return {"t": np.stack(ts), "warnings": list(eng.imbalance_warnings),
+            "live": np.asarray(eng.live_voxels_per_shard())}
 
 
 def _single_lio(map_capacity):
@@ -661,6 +697,30 @@ def test_lio_sharded_free_run_tracks_single_device(port, single, shape):
         assert live.sum() > cap and (live < cap).all(), live
         single_live = int((eng.state.ndt_map.keys != voxel.INVALID_KEY).sum())
         assert abs(int(live.sum()) - single_live) <= 2, (live.sum(), single_live)
+
+
+def test_lio_sharded_surfaces_slab_imbalance_like_jax(port, jax_imbalance, corridor):
+    """test_map_shard.py:307-338 at mp = 4 (the port's (dp, mp) = (1, 4),
+    JAX's mesh (4, 1); dp does not change slab ownership): slab ownership
+    is fixed at the first keyframe, so the exploring corridor funnels the
+    map's growth into one shard, and LioSharded says so. On every rank:
+    position RMSE < 0.1 m (within 0.01 m of JAX's), a "slab imbalance"
+    warning (as many as JAX raises, within one), live max / mean above
+    imbalance_warn_ratio, and each shard's live voxels within 2 of JAX's
+    (the single-device bound of the free run above)."""
+    def rmse(t):
+        return float(np.sqrt(np.mean(np.sum((t - corridor["t"]) ** 2, axis=1))))
+
+    for r in port[(1, 4)]:
+        got = r["lio_imbalance"]
+        assert rmse(got["t"]) < 0.1
+        assert abs(rmse(got["t"]) - rmse(jax_imbalance["t"])) < 0.01
+        assert got["warnings"] and "slab imbalance" in got["warnings"][-1], got["live"]
+        assert abs(len(got["warnings"]) - len(jax_imbalance["warnings"])) <= 1
+        live = got["live"].astype(float)
+        assert live.max() / live.mean() > got["warn_ratio"]
+        assert np.abs(got["live"] - jax_imbalance["live"]).max() <= 2, (got["live"],
+                                                                         jax_imbalance["live"])
 
 
 def test_loc_sharded_free_run_tracks_single_device(port, single):

@@ -240,3 +240,35 @@ def test_device_step_from_a_state_carried_across_from_jax():
         assert np.abs(getattr(out, name).numpy() - r).max() <= bound, name
     np.testing.assert_array_equal(st.counts.numpy() > 127, np.asarray(js.counts) > 127)
     assert st.recent_count == int(js.recent_count) and st.frame_count == int(js.frame_count)
+
+
+def test_device_engine_takes_scans_narrower_than_its_ring_like_jax():
+    """360-beam scans into a device engine built for 720 beams (the line
+    run, 12 frames): each keyframe's scan goes to the front of its slot of
+    the seed ring and the rest of the slot is kept, as JAX's
+    dynamic_update_index_in_dim does. The poses stay within twice JAX's own
+    change under a 1-ulp nudge of every scan point (floored at two float32
+    ulps), the same submaps, and the ring equals JAX's."""
+    world = synthetic.make_world_2d(seed=2)
+    scans = []
+    for i in range(12):
+        t_gt = np.array([0.25 * i, 0.1 * i], np.float32)
+        scans.append(synthetic.render_scan_2d(world, 0.04 * i, t_gt, max_points=360, seed=i)
+                     + (t_gt,))
+    assert scans[0][0].shape == (360, 2)
+    jopts = jm.Mapping2dOptions(grid=JGOPTS, keyframe_dist=0.2, max_keyframes_in_submap=6)
+    ref_eng = jmd.Mapping2DDevice(jopts, num_beams=720)
+    ref = _drive(ref_eng, scans)
+    nudged = _drive(jmd.Mapping2DDevice(jopts, num_beams=720),
+                    [(np.nextafter(xy, np.float32(99)), v, t) for xy, v, t in scans])
+    eng = m2dd.Mapping2DDevice(LINE_OPTS, num_beams=720, device="cpu")
+    got = _drive(eng, scans)
+    gap = np.abs(got - ref).max(axis=0)
+    self_gap = np.abs(nudged - ref).max(axis=0)
+    floor = 2 * np.spacing(np.abs(ref).max(axis=0))
+    assert np.all(gap <= 2 * np.maximum(self_gap, floor)), (gap, self_gap)
+    assert len(eng.submaps) == len(ref_eng.submaps) == 2
+    for name in ("recent_xy", "recent_valid"):
+        np.testing.assert_array_equal(getattr(eng.dstate, name).numpy(),
+                                      np.asarray(getattr(ref_eng.dstate, name)), name)
+    assert eng.dstate.recent_xy.shape[1] == 720 and bool(eng.dstate.recent_valid[:, :360].any())

@@ -8,9 +8,11 @@ does), and no port module sums floats with a scatter-add (CUDA adds those
 with atomics, so one input could give different bits on different runs)."""
 import ast
 import importlib
+import math
 import pathlib
 import subprocess
 import sys
+import types
 
 import pytest
 
@@ -112,6 +114,131 @@ def test_the_entry_points_and_the_exceptions_are_current():
     for (rel, name), reason in NOT_PORTED.items():
         assert name in _defined(JAX_PKG / rel) and reason
         assert name not in _bound(PKG / COUNTERPART.get(rel, rel)), (rel, name)
+
+
+# trailing optional parameters the port may add to a JAX signature: where
+# tensors go (device), the batch-independent 3x3 product (matmul), and the
+# distributed layer's hooks (reduce, group, match, tile)
+SIGNATURE_EXTRAS = ("device", "matmul", "reduce", "group", "match", "tile")
+# public functions whose parameters deliberately differ from the JAX
+# package's, each with its reason
+SIGNATURE_EXCEPTIONS = {
+    ("apps/mapping.py", "run_mapping"): "no use_orbax: the port checkpoints to npz only (README "
+                                        "'Deliberate differences'), so mp_shards moves up one",
+    ("io/checkpoint.py", "Checkpointer.__init__"): "no use_orbax, as run_mapping",
+    ("parallel/multihost.py", "init"): "torch.distributed's init_method / world_size / rank / "
+                                       "device / backend in place of jax.distributed's "
+                                       "coordinator, process count and local devices",
+    ("parallel/multihost.py", "host_local_to_global"): "no PartitionSpec: a rank's tensor is "
+                                                       "its shard of a torch.distributed mesh",
+    ("graph/pose_graph.py", "block_matvec"): "axis_name -> group (a torch.distributed group); "
+                                             "seg, the edge segments computed once per solve",
+    ("graph/pose_graph.py", "solve_pcg"): "as block_matvec",
+    ("models/ndt.py", "scan_match"): "n_points, the source count over all ranks that the "
+                                     "sharded direct mode gates on, beside reduce",
+    ("ops/pallas_kernels.py", "p2plane_fused_terms"): "no interpret: Pallas's interpreter is "
+                                                      "the TPU's; CPU tensors take the plain "
+                                                      "version",
+    ("ops/pallas_kernels.py", "p2plane_pick_fused_terms"): "as p2plane_fused_terms",
+    ("ops/pallas_kernels.py", "ndt_fused_terms"): "as p2plane_fused_terms",
+    ("ops/voxel.py", "knn"): "stencil None is voxel.nearby27 on the queries' device (see "
+                             "NOT_PORTED's NEARBY27)",
+    ("ops/voxel.py", "nn1"): "as knn",
+    ("utils/timing.py", "trace"): "the trace is named after the package that records it",
+}
+REQUIRED = type("Required", (), {"__repr__": lambda self: "<required>"})()
+# what a default means, whichever package wrote it
+_DEFAULT_NAMES = {"pi": math.pi, "inf": math.inf, "float32": "float32"}
+_DEFAULT_SCOPE = {m: types.SimpleNamespace(**_DEFAULT_NAMES) for m in ("jnp", "np", "torch")}
+_DEFAULT_SCOPE["math"] = math
+
+
+def _default(node):
+    """A default's value where it is a constant expression of numbers, pi,
+    inf and float32 (in any package's spelling), else its source."""
+    if node is None:
+        return REQUIRED
+    try:
+        return eval(compile(ast.Expression(node), "<default>", "eval"),
+                    {"__builtins__": {}}, dict(_DEFAULT_SCOPE))
+    except Exception:
+        return ast.unparse(node)
+
+
+def _params(fn):
+    """[(name, kind, default)] of a FunctionDef; kind "pos" or "kw"."""
+    a = fn.args
+    pos = a.posonlyargs + a.args
+    defaults = [None] * (len(pos) - len(a.defaults)) + a.defaults
+    out = [(p.arg, "pos", _default(d)) for p, d in zip(pos, defaults)]
+    out += [("*" + a.vararg.arg, "var", REQUIRED)] if a.vararg else []
+    out += [(p.arg, "kw", _default(d)) for p, d in zip(a.kwonlyargs, a.kw_defaults)]
+    out += [("**" + a.kwarg.arg, "var", REQUIRED)] if a.kwarg else []
+    return out
+
+
+def _functions(path) -> dict:
+    """Public top-level functions and the public methods (and __init__) of
+    public classes: {qualified name: FunctionDef}."""
+    out = {}
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, ast.FunctionDef) and not n.name.startswith("_"):
+            out[n.name] = n
+        elif isinstance(n, ast.ClassDef) and not n.name.startswith("_"):
+            out.update({f"{n.name}.{m.name}": m for m in n.body
+                        if isinstance(m, ast.FunctionDef)
+                        and (m.name == "__init__" or not m.name.startswith("_"))})
+    return out
+
+
+def _signature_gap(jax_fn, port_fn):
+    """Why the port's parameters do not take the JAX function's calls, or
+    None: JAX's parameters must come first in the port, in the same order,
+    of the same kind, with the same defaults; the port may add trailing
+    SIGNATURE_EXTRAS that have a default."""
+    want, got = _params(jax_fn), _params(port_fn)
+    if got[:len(want)] != want:
+        return f"JAX {want} against the port's {got}"
+    extra = [p for p in got[len(want):] if p[0] not in SIGNATURE_EXTRAS or p[2] is REQUIRED]
+    return f"extra parameters {extra}" if extra else None
+
+
+@pytest.mark.parametrize("rel", _jax_modules())
+def test_public_signatures_take_the_jax_calls(rel):
+    """Every public function and method of a JAX module has, in its
+    counterpart, JAX's parameters in JAX's order with JAX's defaults, so
+    a call written for the JAX package runs on the port; but for
+    SIGNATURE_EXCEPTIONS, each with its reason."""
+    port = PKG / COUNTERPART.get(rel, rel)
+    theirs, ours = _functions(JAX_PKG / rel), _functions(port)
+    gaps = {name: _signature_gap(fn, ours[name]) for name, fn in theirs.items()
+            if name in ours and (rel, name) not in SIGNATURE_EXCEPTIONS}
+    gaps = {k: v for k, v in gaps.items() if v}
+    assert not gaps, f"{rel}: {gaps}"
+
+
+def test_signature_exceptions_are_current():
+    """Every SIGNATURE_EXCEPTIONS entry names a function of both packages
+    whose parameters still differ, with a reason; the check catches a
+    required device, a renamed keyword and a keyword-only argument."""
+    for (rel, name), reason in SIGNATURE_EXCEPTIONS.items():
+        theirs = _functions(JAX_PKG / rel)[name]
+        ours = _functions(PKG / COUNTERPART.get(rel, rel))[name]
+        assert reason and _signature_gap(theirs, ours), (rel, name)
+    fn = lambda src: ast.parse(src).body[0]
+    ref = fn("def f(opts, R_il=None, pipelined=False, dim=-2, r=jnp.pi / 180.0): pass")
+    for src, ok in (("def f(opts, R_il=None, pipelined=False, dim=-2, r=math.pi / 180.0, "
+                     "*, device=None): pass", True),
+                    ("def f(opts, R_il=None, pipelined=False, dim=-2, r=math.pi / 180.0, "
+                     "*, device): pass", False),
+                    ("def f(opts, R_il=None, *, pipelined=False, dim=-2, r=math.pi / 180.0)"
+                     ": pass", False),
+                    ("def f(opts, R_il=None, pipelined=False, axis=-2, r=math.pi / 180.0)"
+                     ": pass", False),
+                    ("def f(opts, R_il=None, pipelined=False, dim=-2, r=0.0): pass", False),
+                    ("def f(opts, R_il=None, pipelined=False, dim=-2, r=math.pi / 180.0, "
+                     "Q=None): pass", False)):
+        assert (_signature_gap(ref, fn(src)) is None) == ok, src
 
 
 SCATTER_ADDS = ("index_add", "index_add_", "scatter_add", "scatter_add_")
