@@ -7,12 +7,14 @@ Both trees' port packages are loaded in ONE process under two module names
 and alternated (host times spread too widely between processes): the
 wrappers' host time per call, the linearizations (gather + kernel) per
 call for p2plane_vox, p2plane_vox_oct, NDT (`ndt._ndt_terms`) and
-p2line_vox, launches and ms per headline match and per 3-iteration NDT
-match, launches and ms of the ESKF's propagation through one IMU packet
-and of one LIO icp `step_measure`, and per-scan times of LIO `icp`, LIO `ndt_inc`, LOAM and Loc with
-both methods, and the host synchronizations per LIO scan. One row has no
-parent side: 64 loop-registration matches as ONE `icp.scan_match_batch` call
-against 64 scalar `icp.scan_match` calls (the parent has no batched path).
+p2line_vox, launches and ms per headline match, per 3-iteration NDT match
+and per batched match (64 lanes, 20 iterations), launches and ms of the
+ESKF's propagation through one IMU packet, of its update by one pose
+(`observe_se3`) and of one LIO icp `step_measure`, and per-scan times of
+LIO `icp`, LIO `ndt_inc`, LOAM and Loc with both methods, and the host
+synchronizations per LIO scan. One row has no parent side: 64
+loop-registration matches as ONE `icp.scan_match_batch` call against 64
+scalar `icp.scan_match` calls of this tree.
 Every timing comes before the profiler is first opened. Rows
 whose code is the same in both trees are the control: they show what the
 comparison reads for no change. PARENT_DIR holds a checkout of the parent
@@ -156,7 +158,7 @@ def batched_against_scalar(device, card, reps=5):
               f"calls {sc:.2f} ms ({B / sc * 1e3:.0f} matches/s), one scan_match_batch call "
               f"{ba:.2f} ms ({B / ba * 1e3:.0f} matches/s), medians of {reps} in turns; batched "
               f"slower in {int(np.sum(np.asarray(ms['batched']) > np.asarray(ms['scalar'])))}/"
-              f"{reps} pairs (host clock; no parent side: the parent has no batched path)",
+              f"{reps} pairs (host clock; this tree only)",
               flush=True)
 
 
@@ -187,6 +189,8 @@ def ab(device, card, parent_dir, reps=10):
     mgs = list(log.measures(imu_capacity=64))
     mg = mgs[8]
     packet = (mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+    gt = torch.tensor(log.gt_poses[mg.scan_index], dtype=torch.float32, device=device)
+    bw = cs.batch_workload(device)
     for side, get in trees.items():
         icp, ndt, kernels = get("models.icp"), get("models.ndt"), get("ops.kernels")
         pc = get("ops.pointcloud")
@@ -223,6 +227,12 @@ def ab(device, card, parent_dir, reps=10):
             "match p2plane_vox_oct": lambda i=icp, tg=target, o=oo, s=s:
                 i.scan_match(tg, o, s, R, t),
         }
+        ob = cs._loop_icp_options("p2plane_vox", max_iteration=20, eps=0.0)
+        ob = icp.IcpOptions(**{f: getattr(ob, f) for f in ob.__dataclass_fields__})
+        btg = icp.set_target_batch(mk(bw["tgts"]), ob)
+        calls[side]["match batched p2plane_vox, 64 lanes, 20 iterations"] = \
+            lambda i=icp, tg=btg, o=ob, s=mk(bw["srcs"]): i.scan_match_batch(
+                tg, o, s, bw["R0"], bw["t0"])
         # the ESKF's propagation through one IMU packet, and a whole LIO icp
         # step from the state a run reaches at frame 8 (both pure functions)
         eskf, lio = get("models.eskf"), get("pipeline.lio")
@@ -238,6 +248,9 @@ def ab(device, card, parent_dir, reps=10):
         for m in mgs[:8]:
             eng.add_measure(log.frame(m.scan_index, device), m.imu_gyro, m.imu_acce,
                             m.imu_stamp, m.imu_valid)
+        calls[side]["step ESKF observe_se3, the state after frame 8"] = \
+            lambda e=eskf, st=eng.state.eskf: e.observe_se3(st, gt[:3, :3], gt[:3, 3],
+                                                            e.EskfOptions())
         calls[side]["step LIO icp step_measure, frame 8"] = \
             lambda l=lio, st=eng.state, sc=log.frame(mg.scan_index, device), o=lopts: \
             l.step_measure(st, sc, *packet, o)
@@ -260,7 +273,8 @@ def ab(device, card, parent_dir, reps=10):
                     torch.cuda.synchronize()
                     host[side].append((time.perf_counter() - t0) * 1e3)
                     if is_match:
-                        iters[name] = out.iterations
+                        it = out.iterations
+                        iters[name] = int(it.max()) if isinstance(it, torch.Tensor) else it
                 else:
                     host[side].append(cs._enqueue_us(fn, 200))
                     evt[side].append(cs._time_in_turns({"k": fn}, 25)["k"])

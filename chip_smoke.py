@@ -4,10 +4,14 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from csrc/ (failing if a body spills
-registers), holds each against its plain PyTorch version on the card (the
-pose-update kernels gn_step and so3_renormalize at 1 to 300 lanes, the ESKF's
-IMU propagation eskf_predict_scan on the demo log's packets and on packets
-with every gate case against the plain version in float64, and every
+registers), holds each against its plain PyTorch version on the card (gn_step,
+a Gauss-Newton iteration after its linearization with its 6x6 solve, and
+so3_renormalize at 1 to 300 lanes against the float64 plain version, with
+singular, NaN, pivoting, two-system, gate-count and stopped lanes, planted
+errors rejected; the ESKF's IMU propagation eskf_predict_scan on the demo
+log's packets and on packets with every gate case, and its update
+eskf_update for a pose and a wheel speed on the demo log's states and on
+random covariances, against the plain version in float64; and every
 fused-terms kernel in all its modes: plane / rows given, and from the target or the map
 with the gather inside the kernel, where K3 must also give the bits of the
 torch gather followed by the rows-given kernel), then drives the
@@ -67,13 +71,18 @@ a one-rank NCCL world (the single-device bits), and entry(); every report's
 ATE within the JAX package's plus 0.04 m, every artifact written, the
 native host runtime built. Launch counters,
 set to 0 before each path and read after
-it, show each path went through its kernels (one K3 launch per NDT or
-p2line_vox linearization, one eskf_predict_scan launch per
-eskf.predict_scan call). Then it compares a match with
+it, show each path went through its kernels: per GN iteration of every
+loop one gn_step launch and the fused-terms launches of its linearization
+(two for LOAM), no so3_renormalize launch after a loop that ran (phase 4c's
+match with max_iteration 0 is the one that launches it), one
+eskf_predict_scan launch per eskf.predict_scan call and one eskf_update
+launch per observation. Then it compares a match with
 the gather in torch ops against the shipped one (same bits; launches per
 Gauss-Newton iteration), and only then opens the profiler: device time per
-kernel call, and the time of the paths broken down per layer
-(torch.profiler tables go to an output directory beside this script).
+kernel call, and the time of the paths broken down per layer, with no
+solver-library kernel (LU, row swaps, triangular solves) in a headline match
+or a LIO step (torch.profiler tables go to an output directory beside this
+script).
 
 `python3 chip_smoke.py --cards` runs only phase 12b, one rank a card over
 NCCL, on a machine with 4 cards or more.
@@ -518,125 +527,317 @@ def _bound(n_bytes, flops):
     return max(tb, to), "bytes" if tb >= to else "operations"
 
 
-# bytes and float32 operations a lane of the pose-update kernels: gn_step
-# reads dx 24 + ok 1 + R 36 + t 12 and writes R 36 + t 12 + converged 1;
-# so3_renormalize reads and writes R. Operations counted from the source:
-# two 3x3 products (45 each), the Rodrigues terms, filters and norm ~60;
-# the projection's four products and two scalings ~200.
-POSE_UPDATE_BYTES = {"gn_step": 73 + 49, "so3_renormalize": 72}
-POSE_UPDATE_FLOPS = {"gn_step": 150, "so3_renormalize": 200}
-POSE_UPDATE_TOL = 1e-6     # |R - plain| per entry (entries <= 1); t and converged exact
+# bytes and float32 operations a lane of the pose-update kernels. gn_step
+# reads the linearization (H 36, b 6, count and chi2: 176 B), the pose (R, t:
+# 48 B) and, in place, the lane's active flag and iteration count (5 B),
+# and writes R, t and R_out (84 B), converged, n_eff, chi2, iterations and
+# active (14 B); and the flag byte once. Operations counted from the source:
+# the 6x6 elimination and back substitution 191, the pivot searches 30, the
+# retraction 175 (so3_exp 40, two 3x3 products 90, E and t 33, the norm
+# 12), the projection 216; the damping 80 more while warm. so3_renormalize
+# reads and writes R, 216 operations.
+GN_STEP_LANE_BYTES = 176 + 48 + 5 + 84 + 14
+GN_STEP_FLOPS = {False: 191 + 30 + 175 + 216, True: 191 + 30 + 175 + 216 + 80}
+SO3_RENORMALIZE_BYTES, SO3_RENORMALIZE_FLOPS = 72, 216
+GN_MIN_EFF = 100           # the cases' minimum count
+GN_EPS = 1e-3
+GN_KAPPAS = (1e1, 1e3, 1e5)    # H's condition numbers in the cases
+U32 = 2.0 ** -24
+# the kernel against the float64 plain version, per lane: |dt|, |dR| within
+# GN_SLACK kappa(H) u |dx| (H's condition number, the damped H while warm)
+# plus the float32 rounding of t and 1e-6 on R
+GN_SLACK = 256
+POSE_UPDATE_TOL = 1e-6     # so3_renormalize: |R - plain| per entry (entries <= 1)
 
 
-def _pose_update_case(lanes, device, seed):
-    """`lanes` pose updates (a tuple: () for one match): rotations up to
-    ~0.5 rad, steps of ~2 cm / 0.02 rad, and, with 5 lanes or more, lane 1
-    not ok, lane 2 with an infinite entry, lane 3 under eps, lane 4 a zero
-    step."""
+def _gn_case(lanes, device, seed, kappa=1e2, pivoting=False):
+    """Linearizations over `lanes` (a tuple: () for one match): H = Q diag(l)
+    Q^T with eigenvalues log-spaced over `kappa`, b = H dx for steps of ~2 cm
+    / 0.02 rad, counts 200-1000, chi2, rotations up to ~0.5 rad. With 8 lanes
+    or more: lane 1 under GN_MIN_EFF points, lane 2 a step under eps, lane 3
+    a zero step, lane 4 singular (row and column 5 zero, b_5 = 1), lane 5
+    H = 0, lane 6 NaN at H[5, 5], lane 7 a NaN row and column 5. `pivoting`:
+    unsymmetric H with a leading entry of 1e-6 that an LU without row
+    exchanges turns into garbage. Returns ((H, b, count, chi2), GnState)."""
+    from loc_lib_tpu_torch.ops import kernels
+
     rng = np.random.default_rng(seed)
     n = int(np.prod(lanes, dtype=np.int64))
+    if pivoting:
+        H = rng.normal(size=(n, 6, 6)) * 100.0
+        H[:, 0, 0] = 1e-6
+    else:
+        Q = np.linalg.qr(rng.normal(size=(n, 6, 6)))[0]
+        ev = np.logspace(0.0, np.log10(kappa), 6)[None] * rng.uniform(10.0, 1000.0, (n, 1))
+        H = np.einsum("bij,bj,bkj->bik", Q, ev, Q)
+        H = 0.5 * (H + H.transpose(0, 2, 1))
+    H = H.astype(np.float32)
+    dx = rng.normal(scale=0.02, size=(n, 6))
+    count = rng.integers(200, 1000, size=n).astype(np.int32)
+    if n >= 8:
+        count[1] = GN_MIN_EFF // 10
+        dx[2] *= 1e-4
+        dx[3] = 0.0
+    b = np.einsum("bij,bj->bi", H.astype(np.float64), dx).astype(np.float32)
+    if n >= 8 and not pivoting:
+        H[4, 5, :] = H[4, :, 5] = 0.0
+        b[4, 5] = 1.0
+        H[5] = 0.0
+        b[5, 5] = 1.0
+        H[6, 5, 5] = np.nan
+        H[7, 5, :] = H[7, :, 5] = np.nan
+    chi2 = rng.uniform(1.0, 50.0, size=n)
     R = np.stack([_so3_exp(rng.normal(size=3) * 0.3) for _ in range(n)])
     t = rng.normal(size=(n, 3)) * 10.0
-    dx = rng.normal(scale=0.02, size=(n, 6))
-    ok = np.ones(n, bool)
-    if n >= 5:
-        ok[1] = False
-        dx[2, 4] = np.inf
-        dx[3] *= 1e-4
-        dx[4] = 0.0
-    f = lambda a, shape: torch.tensor(a, dtype=torch.float32, device=device).reshape(shape)
-    return (f(dx, (*lanes, 6)), torch.tensor(ok, device=device).reshape(lanes),
-            f(R, (*lanes, 3, 3)), f(t, (*lanes, 3)))
+    f = lambda a, shape, dtype=torch.float32: torch.tensor(
+        a, dtype=dtype, device=device).reshape(shape)
+    lin = (f(H, (*lanes, 6, 6)), f(b, (*lanes, 6)), f(count, lanes, torch.int32),
+           f(chi2, lanes))
+    return lin, kernels.GnState(f(R, (*lanes, 3, 3)), f(t, (*lanes, 3)))
 
 
-def _pose_update_close(got, want) -> float:
-    """gn_step's (R, t, converged) or so3_renormalize's (R,) against the
-    plain version: R within POSE_UPDATE_TOL, t and converged equal. Returns
-    the largest |R - plain|; raises where they disagree."""
-    err = float(torch.max(torch.abs(got[0] - want[0])))
-    if not err <= POSE_UPDATE_TOL or not all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])):
-        raise AssertionError(f"pose update differs from its plain version: |dR| {err:g}")
-    return err
+def _gn_solve64(lin, lin2, warm):
+    """H (damped while warm, as the plain version) and its step in float64,
+    per lane: (kappa (L,), |dx|_inf (L,), |dx| (L,), finite (L,))."""
+    from loc_lib_tpu_torch.utils import mathx
+
+    H, b = lin[0].double(), lin[1].double()
+    if lin2 is not None:
+        H, b = H + lin2[0].double(), b + lin2[1].double()
+    H, b = H.reshape(-1, 6, 6), b.reshape(-1, 6)
+    if warm:
+        lam = 1e-2 * torch.amax(torch.diagonal(H, dim1=-2, dim2=-1), dim=-1) + 1e-6
+        H = H + lam[:, None, None] * torch.eye(6, dtype=H.dtype, device=H.device)
+    dx = mathx.solve_gn_6x6(H, b)
+    finite = torch.isfinite(dx).all(dim=-1)
+    safe = torch.where(torch.isfinite(H), H, 0.0)
+    kappa = torch.where(finite, torch.linalg.cond(safe), torch.inf)
+    dx = torch.where(finite[:, None], dx, 0.0)
+    return kappa, dx.abs().amax(dim=-1), torch.linalg.vector_norm(dx, dim=-1), finite
+
+
+def _gn_hold(label, got, lin, state, warm, lin2=None, gate_count=None):
+    """gn_step's (GnState, flag) on the card against the plain version on the
+    same inputs: per lane, R, t and R_out within GN_SLACK kappa(H) u |dx|
+    (+ 2 u |t|, + 1e-6 on R) of the float64 plain version; where the float64
+    step is not finite, or the lane takes none, R and t bit-equal to its
+    input; converged equal but where |dx| is within the bound of eps;
+    n_eff, chi2, iterations, active and the flag equal to the float32 plain
+    version's; a lane that had stopped bit-equal to its input in every
+    field. Returns (largest error / bound, largest |kernel - float32 plain|
+    over R, t and R_out)."""
+    from loc_lib_tpu_torch.ops import kernels
+
+    new, flag = got
+    f64 = lambda x: None if x is None else (x.double() if x.is_floating_point() else x)
+    want, _ = kernels.gn_step_plain(tuple(map(f64, lin)), kernels.GnState(*map(f64, state)),
+                                    GN_MIN_EFF, warm, GN_EPS,
+                                    None if lin2 is None else tuple(map(f64, lin2)), gate_count)
+    p32, flag32 = kernels.gn_step_plain(lin, state, GN_MIN_EFF, warm, GN_EPS, lin2, gate_count)
+    kappa, dx_inf, dx_norm, finite = _gn_solve64(lin, lin2, warm)
+    flat = lambda x, k: x.reshape(-1, *x.shape[x.dim() - k:]) if k else x.reshape(-1)
+    L = kappa.shape[0]
+    active = (torch.ones(L, dtype=torch.bool, device=kappa.device) if state.active is None
+              else flat(state.active, 0))
+    gate = flat(lin[2] if gate_count is None else gate_count, 0)
+    if lin2 is not None and gate_count is None:
+        gate = gate + flat(lin2[2], 0)
+    steps = active & (gate >= GN_MIN_EFF) & finite
+    step = GN_SLACK * kappa * U32 * dx_inf
+    ratio = 0.0
+    for name, k, extra in (("R", 2, 1e-6), ("t", 1, None), ("R_out", 2, 1e-6)):
+        g, w = flat(getattr(new, name), k), flat(getattr(want, name), k)
+        tol = step.reshape(-1, *([1] * k)) + (2 * U32 * w.abs() if extra is None else extra)
+        err = (g.double() - w).abs()
+        ok = torch.where(steps.reshape(-1, *([1] * k)), err <= tol, True)
+        if not bool(ok.all()):
+            bad = (~ok).reshape(L, -1).any(dim=1).nonzero().flatten().tolist()
+            raise AssertionError(f"gn_step {label}: {name} of lanes {bad[:8]} off the float64 "
+                                 f"plain version (kappa {kappa[bad[:4]].tolist()}, largest "
+                                 f"error {float(err.max()):g})")
+        ratio = max(ratio, float(torch.where(steps.reshape(-1, *([1] * k)), err / tol,
+                                             0.0).max()))
+    for name, k in (("R", 2), ("t", 1)):
+        g, s = flat(getattr(new, name), k), flat(getattr(state, name), k)
+        still = (active & ~steps).reshape(-1, *([1] * k))
+        if not bool(torch.where(still, g == s, True).all()):
+            raise AssertionError(f"gn_step {label}: a lane with no step moved its {name}")
+    near = (dx_norm - GN_EPS).abs() <= step * 6.0
+    cg, cw = flat(new.converged, 0), flat(want.converged, 0)
+    if not bool(torch.where(near, True, cg == cw).all()):
+        raise AssertionError(f"gn_step {label}: converged {cg.tolist()} != {cw.tolist()}")
+    for name in ("n_eff", "chi2", "iterations"):
+        if not torch.equal(getattr(new, name), getattr(p32, name)):
+            raise AssertionError(f"gn_step {label}: {name} differs from the plain version")
+    if not torch.equal(new.active, active.reshape(new.active.shape) & ~new.converged):
+        raise AssertionError(f"gn_step {label}: active is not 'was active and not converged'")
+    if bool(flag) != bool(new.active.any()):
+        raise AssertionError(f"gn_step {label}: the flag is not 'any lane active'")
+    if state.active is not None:
+        frozen = ~flat(state.active, 0)
+        for name, x, y in zip(kernels.GnState._fields, new, state):
+            x, y = flat(x, x.dim() - state.active.dim()), flat(y, y.dim() - state.active.dim())
+            if not torch.equal(x[frozen], y[frozen]):
+                raise AssertionError(f"gn_step {label}: a stopped lane's {name} changed")
+    err32 = max(float(torch.nan_to_num((getattr(new, n) - getattr(p32, n)).abs(), nan=0.0).max())
+                for n in ("R", "t", "R_out"))
+    return ratio, err32
+
+
+def _lu_no_pivot_step(H, b):
+    """The planted error of phase 3: H^-1 b by an LU WITHOUT row exchanges,
+    in float32, lane by lane of (L, 6, 6)."""
+    A, y = H.clone(), b.clone()
+    for k in range(6):
+        for i in range(k + 1, 6):
+            m = A[:, i, k] / A[:, k, k]
+            A[:, i, k:] = A[:, i, k:] - m[:, None] * A[:, k, k:]
+            y[:, i] = y[:, i] - m * y[:, k]
+    x = torch.zeros_like(y)
+    for k in range(5, -1, -1):
+        x[:, k] = (y[:, k] - (A[:, k, k + 1:] * x[:, k + 1:]).sum(dim=1)) / A[:, k, k]
+    return x
 
 
 def phase_kernels_pose_update(device, card):
-    """The pose-update kernels (gn_step, so3_renormalize) against their plain
-    versions at one match (the scalar paths' shape) and at 3, 64 and 300
-    lanes (the batched path's; 300 spans three blocks): R within 1e-6 per
-    entry, t and converged equal; lane k of a batched launch bit-equal to
-    the scalar launch on lane k; the projection orthonormal to 1e-6; a
-    planted error rejected. Then times at one match and at 64 lanes."""
+    """The pose-update kernels against their plain versions. gn_step at one
+    match (the scalar loops' shape) and at 3, 64 and 300 lanes (the batched
+    loop's; 300 lanes loop past the block), cold and warm, on H of condition
+    number 1e1 / 1e3 / 1e5, with lanes under the minimum count, converging,
+    singular, zero and NaN; unsymmetric H that needs pivoting; LOAM's two
+    systems; NDT direct's gate count; a carried state with stopped lanes;
+    the in-place GnLoop equal to two functional steps: each held by
+    `_gn_hold`. Lane b of B = 1, 2, 3, 8, 64 bit-equal to the scalar launch.
+    Planted errors (no pivoting, the damping dropped, a stopped lane moved)
+    rejected. so3_renormalize at 1 to 300 lanes within 1e-6 and orthonormal.
+    Then times at one match and at 64 lanes."""
     from loc_lib_tpu_torch.ops import kernels
 
-    EPS = 1e-3
-    fns = {"gn_step": (kernels.gn_step, kernels.gn_step_plain),
-           "so3_renormalize": (kernels.so3_renormalize, kernels.so3_renormalize_plain)}
-    errs = dict.fromkeys(fns, 0.0)
-    cases = []
+    ratio, err, cases = 0.0, 0.0, []
+
+    def hold(label, lin, state, warm, lin2=None, gate_count=None):
+        nonlocal ratio, err
+        before = kernels.LAUNCHES["gn_step"]
+        got = kernels.gn_step(lin, state, GN_MIN_EFF, warm, GN_EPS, lin2, gate_count)
+        if kernels.LAUNCHES["gn_step"] != before + 1:
+            raise AssertionError(f"gn_step {label}: not one launch")
+        r, e = _gn_hold(label, got, lin, state, warm, lin2, gate_count)
+        ratio, err = max(ratio, r), max(err, e)
+        return got
+
     for lanes in ((), (3,), (BATCH_LANES,), (300,)):
-        dx, ok, R, t = _pose_update_case(lanes, device, seed=len(lanes) + sum(lanes))
-        for may in (True, False):
-            got = kernels.gn_step(dx, ok, R, t, EPS, may)
-            want = kernels.gn_step_plain(dx, ok, R, t, EPS, may)
-            errs["gn_step"] = max(errs["gn_step"], _pose_update_close(got, want))
-            if lanes and lanes[0] >= 5 and got[2][:5].tolist() != [False, False, False, may, may]:
-                raise AssertionError(f"gn_step: converged {got[2][:5].tolist()} on the planted "
-                                     "lanes")
-        got = kernels.gn_step(dx, ok, R, t, EPS, True)
-        noisy = got[0] + 1e-3 * torch.randn(got[0].shape, device=device,
-                                            generator=torch.Generator(device).manual_seed(1))
-        proj = kernels.so3_renormalize(noisy)
-        errs["so3_renormalize"] = max(errs["so3_renormalize"], _pose_update_close(
-            (proj,), (kernels.so3_renormalize_plain(noisy),)))
-        # two Newton-Schulz steps take a 1e-3 defect to ~1e-9; float32 leaves ~1e-7
-        defect = float(torch.max(torch.abs(proj.transpose(-1, -2) @ proj
-                                           - torch.eye(3, device=device))))
-        if not defect < POSE_UPDATE_TOL:
-            raise AssertionError(f"so3_renormalize: R^T R - I = {defect:g}")
-        for k in range(lanes[0] if lanes else 0):
-            one = kernels.gn_step(dx[k], ok[k], R[k], t[k], EPS, True)
-            if not (all(torch.equal(a[k], b) for a, b in zip(got, one))
-                    and torch.equal(proj[k], kernels.so3_renormalize(noisy[k].contiguous()))):
-                raise AssertionError(f"pose update, {lanes[0]} lanes: lane {k} differs from the "
-                                     "scalar launch")
-        cases.append(f"{lanes[0] if lanes else 1} lane(s) ok")
-    want = kernels.gn_step_plain(dx, ok, R, t, EPS, True)
-    bad = (got[0].clone(), got[1], got[2])
-    bad[0][5, 1, 2] += 1e-5
-    for planted in (bad, (got[0], got[1] + 1e-4, got[2]), (got[0], got[1], ~got[2])):
+        for kappa in GN_KAPPAS:
+            lin, state = _gn_case(lanes, device, seed=len(lanes) + sum(lanes), kappa=kappa)
+            for warm in (False, True):
+                hold(f"{lanes} kappa {kappa:g} warm {warm}", lin, state, warm)
+        lin, state = _gn_case(lanes, device, seed=7, pivoting=True)
+        hold(f"{lanes} pivoting", lin, state, False)
+        lin, state = _gn_case(lanes, device, seed=8)
+        lin2, _ = _gn_case(lanes, device, seed=9, kappa=1e1)
+        hold(f"{lanes} two systems", lin, state, False, lin2=lin2)
+        gate = torch.full(lanes, 5000, dtype=torch.int32, device=device)
+        hold(f"{lanes} gate count", (lin[0], lin[1], torch.zeros_like(lin[2]), lin[3]), state,
+             False, gate_count=gate)
+        # a carried state: the lanes that converged in the first step stop
+        first, _ = hold(f"{lanes} first step", lin, state, False)
+        lin_b, _ = _gn_case(lanes, device, seed=10)
+        second = hold(f"{lanes} carried", lin_b, first, False)
+        loop = kernels.GnLoop(state.R, state.t, GN_MIN_EFF, GN_EPS)
+        loop.step(lin)
+        loop.step(lin_b)
+        if not all(torch.equal(x, y) for x, y in zip(loop.state, second[0])):
+            raise AssertionError(f"gn_step {lanes}: GnLoop in place differs from two steps")
+    cases.append("1 / 3 / 64 / 300 lanes, kappa 1e1-1e5 cold and warm, planted singular / zero "
+                 "/ NaN lanes, pivoting, two systems, gate count, carried state with stopped "
+                 "lanes, GnLoop in place")
+    lin, state = _gn_case((BATCH_LANES,), device, seed=11)
+    for B in (1, 2, 3, 8, BATCH_LANES):
+        for warm in (False, True):
+            sub = tuple(x[:B] for x in lin)
+            got, _ = kernels.gn_step(sub, kernels.GnState(state.R[:B], state.t[:B]), GN_MIN_EFF,
+                                     warm, GN_EPS)
+            for k in range(B):
+                one, _ = kernels.gn_step(tuple(x[k] for x in lin),
+                                         kernels.GnState(state.R[k], state.t[k]), GN_MIN_EFF,
+                                         warm, GN_EPS)
+                if not all(torch.equal(x[k], y) for x, y in zip(got, one)):
+                    raise AssertionError(f"gn_step: lane {k} of {B} differs from the scalar "
+                                         "launch")
+    cases.append("lane b of B = 1, 2, 3, 8, 64 bit-equal to its scalar launch")
+    # planted errors
+    lin, state = _gn_case((BATCH_LANES,), device, seed=12, pivoting=True)
+    dx = _lu_no_pivot_step(lin[0], lin[1])
+    eye = torch.eye(6, device=device).expand(BATCH_LANES, 6, 6).contiguous()
+    no_pivot = kernels.gn_step_plain((eye, dx, lin[2], lin[3]), state, GN_MIN_EFF, False, GN_EPS)
+    lin10, state10 = _gn_case((BATCH_LANES,), device, seed=13, kappa=1e1)
+    undamped = kernels.gn_step_plain(lin10, state10, GN_MIN_EFF, False, GN_EPS)
+    first, _ = kernels.gn_step(lin10, state10, GN_MIN_EFF, False, GN_EPS)
+    lin_b, _ = _gn_case((BATCH_LANES,), device, seed=14)
+    moved, flag = kernels.gn_step(lin_b, first, GN_MIN_EFF, False, GN_EPS)
+    stopped = int((~first.active).nonzero()[0])
+    R_bad = moved.R.clone()
+    R_bad[stopped] = moved.R[(stopped + 1) % BATCH_LANES]
+    for planted, args in (("no pivoting", (no_pivot, lin, state, False)),
+                          ("damping dropped", (undamped, lin10, state10, True)),
+                          ("a stopped lane moved", ((moved._replace(R=R_bad), flag), lin_b, first,
+                                                    False))):
         try:
-            _pose_update_close(planted, want)
+            _gn_hold(planted, *args)
         except AssertionError:
             continue
-        raise AssertionError("pose update: the check accepts a planted error")
-    cases.append("every lane of 3 / 64 / 300 bit-equal to its scalar launch; planted errors in "
-                 "R, t and converged rejected")
-    print("phase 3 pose-update kernels vs plain (|dR| <= 1e-6, t and converged equal): "
-          + "; ".join(cases) + f"; largest |dR| gn_step {errs['gn_step']:.3g}, so3_renormalize "
-          f"{errs['so3_renormalize']:.3g}", flush=True)
+        raise AssertionError(f"gn_step: the check accepts a planted error ({planted})")
+    cases.append("planted errors (no pivoting, damping dropped, a stopped lane moved) rejected")
+
+    renorm_err = 0.0
+    for lanes in ((), (3,), (BATCH_LANES,), (300,)):
+        _, state = _gn_case(lanes, device, seed=15)
+        noisy = state.R + 1e-3 * torch.randn(state.R.shape, device=device,
+                                             generator=torch.Generator(device).manual_seed(1))
+        proj = kernels.so3_renormalize(noisy)
+        e = float(torch.max(torch.abs(proj - kernels.so3_renormalize_plain(noisy))))
+        defect = float(torch.max(torch.abs(proj.transpose(-1, -2) @ proj
+                                           - torch.eye(3, device=device))))
+        if not (e <= POSE_UPDATE_TOL and defect < POSE_UPDATE_TOL):
+            raise AssertionError(f"so3_renormalize {lanes}: |dR| {e:g}, R^T R - I {defect:g}")
+        renorm_err = max(renorm_err, e)
+        for k in range(lanes[0] if lanes else 0):
+            if not torch.equal(proj[k], kernels.so3_renormalize(noisy[k].contiguous())):
+                raise AssertionError(f"so3_renormalize {lanes}: lane {k} differs from the scalar "
+                                     "launch")
+    torch.cuda.synchronize()
+    print(f"phase 3 gn_step vs plain (float64 plain: R, t within {GN_SLACK} kappa(H) u |dx| + "
+          "float32 rounding; lanes with no step bit-equal to their input; counters equal): "
+          + "; ".join(cases) + f"; largest error / bound {ratio:.3g}, largest |kernel - float32 "
+          f"plain| {err:.3g}; so3_renormalize within 1e-6 at 1-300 lanes, lanes bit-equal to "
+          f"the scalar launch, largest |dR| {renorm_err:.3g} [{card}]", flush=True)
 
     timing, profile_later = {}, {}
     for lanes in ((), (BATCH_LANES,)):
-        dx, ok, R, t = _pose_update_case(lanes, device, seed=5)
+        lin, state = _gn_case(lanes, device, seed=5)
         n = lanes[0] if lanes else 1
-        calls = {"gn_step": lambda f, a=(dx, ok, R, t): f(*a, EPS, True),
-                 "so3_renormalize": lambda f, a=R: f(a)}
-        for name, call in calls.items():
-            kern, plain = fns[name]
-            ms, pms = _time_alternating(lambda: call(kern), lambda: call(plain))
-            host = _enqueue_us(lambda: call(kern))
-            bound_ms, by = _bound(POSE_UPDATE_BYTES[name] * n, POSE_UPDATE_FLOPS[name] * n)
+        loop = kernels.GnLoop(state.R, state.t, GN_MIN_EFF, GN_EPS)
+        calls = {"gn_step": (lambda: loop.step(lin),
+                             lambda: kernels.gn_step_plain(lin, state, GN_MIN_EFF, False, GN_EPS),
+                             n * GN_STEP_LANE_BYTES + 1, n * GN_STEP_FLOPS[False]),
+                 "so3_renormalize": (lambda: kernels.so3_renormalize(state.R),
+                                     lambda: kernels.so3_renormalize_plain(state.R),
+                                     n * SO3_RENORMALIZE_BYTES, n * SO3_RENORMALIZE_FLOPS)}
+        for name, (kern, plain, n_bytes, flops) in calls.items():
+            ms, pms = _time_alternating(kern, plain)
+            host = _enqueue_us(kern)
+            bound_ms, by = _bound(n_bytes, flops)
             print(f"phase 3 {name}, {n} lane(s) [{card}]: {ms:.4f} ms vs plain {pms:.4f} ms "
-                  f"(median of {2 * TIMING_REPS} per-call CUDA-event samples in turns) | host "
-                  f"time to enqueue {host:.1f} us | bound {bound_ms:.9f} ms by {by} "
-                  f"({POSE_UPDATE_BYTES[name] * n} B, {POSE_UPDATE_FLOPS[name] * n} float32 "
-                  "ops)", flush=True)
+                  f"(median of {2 * TIMING_REPS} per-call CUDA-event samples in turns"
+                  + ("; GnLoop.step, in place" if name == "gn_step" else "")
+                  + f") | host time to enqueue {host:.1f} us | bound {bound_ms:.9f} ms by {by} "
+                  f"({n_bytes} B, {flops} float32 ops)", flush=True)
             label = name if not lanes else f"{name} B={n}"
-            profile_later[label] = (lambda c=call, k=kern: c(k), True)
-            profile_later[label + ", plain"] = (lambda c=call, k=plain: c(k), False)
+            profile_later[label] = (kern, True)
+            profile_later[label + ", plain"] = (plain, False)
             if not lanes:
                 timing[name] = {"ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": by,
-                                "err": errs[name]}
+                                "err": err if name == "gn_step" else renorm_err,
+                                "host_us": host}
     return timing, profile_later
 
 
@@ -847,6 +1048,218 @@ def phase_kernels_eskf_predict(device, card):
     s = tuple(x.contiguous() for x in s)
     return timing, {"eskf_predict_scan": (
         lambda: kernels._eskf_predict_scan_launch(*s, packed, Q, opts.imu_dt), True)}
+
+
+# ESKF update (csrc/eskf_predict.cu, eskf_update). Bytes a call must move:
+# the state in (p, v, R, bg, ba, g, cov: 348 floats), the pose observation
+# (R_obs, t_obs: 12; a wheel's pulses come by value) and the state out
+# (348). Operations from H's structure (`_eskf_update_ops`).
+ESKF_UPDATE_BYTES = {"se3": (348 + 12 + 348) * 4, "wheel": (348 + 348) * 4}
+ESKF_UPDATE_OUT = ("p", "v", "R", "bg", "ba", "g", "cov")
+# the kernel against the float64 plain version: per field, its scaled error
+# at most 8x the float32 plain version's plus ESKF_UPDATE_SLACK kappa(S) u
+ESKF_UPDATE_SLACK = 64
+
+
+def _eskf_update_ops(kind) -> int:
+    """float32 operations one update needs, H a selection of m = 6 (pose) or
+    3 (wheel) state columns: S = H P H^T + V (m adds), S^-1 (Gauss-Jordan,
+    2 m^3), K = P H^T S^-1 (18 m (2m - 1)), dx (18 (2m - 1)), (I - K H) P as
+    P - K (H P) (324 x 2m), the innovation (pose: R^T R_obs 45 + so3_log
+    ~45; wheel: 20), the injection and R's update (15 + so3_exp 40 + 45 +
+    projection 216), J cov J^T with J's one 3x3 block (2 x 270)."""
+    m = 6 if kind == "se3" else 3
+    innov = 90 if kind == "se3" else 20
+    return (m + 2 * m ** 3 + 18 * m * (2 * m - 1) + 18 * (2 * m - 1) + 324 * 2 * m + innov
+            + 15 + 40 + 45 + 216 + 2 * 270)
+
+
+def _eskf_update_errors(got, ref64) -> dict:
+    """Largest scaled |got - ref64| per field (cov entry (i, j) by
+    sqrt(cov_ii cov_jj), the others by their largest entry, at least 1e-30)."""
+    out = {}
+    for f, x, ref in zip(ESKF_UPDATE_OUT, got, ref64):
+        if f == "cov":
+            d = torch.sqrt(torch.diagonal(ref).abs())
+            scale = d[:, None] * d[None, :]
+        else:
+            scale = ref.abs().max()
+        diff = (x.double() - ref).abs()
+        out[f] = float(torch.max(diff / torch.clamp(scale, min=1e-30)))
+    return out
+
+
+def _eskf_update_kappa(state, kind, obs, noise) -> float:
+    """Condition number of S = H P H^T + V in float64."""
+    from loc_lib_tpu_torch.ops import kernels
+
+    p, v, R, cov = (x.double() for x in (state[0], state[1], state[2], state[6]))
+    H, V, _ = kernels.eskf_observation_plain(p, v, R, kind, tuple(
+        x.double() if isinstance(x, torch.Tensor) else x for x in obs), noise)
+    return float(torch.linalg.cond(H @ cov @ H.T + V))
+
+
+def _eskf_update_close(label, got, state, kind, obs, noise, flags):
+    """eskf_update's (p, v, R, bg, ba, g, cov) against the plain version on
+    the same inputs: per field the scaled error against the float64 plain
+    version at most 8x the float32 plain version's plus ESKF_UPDATE_SLACK
+    kappa(S) u. Returns the largest |kernel - float32 plain|."""
+    from loc_lib_tpu_torch.ops import kernels
+
+    f64 = lambda x: x.double() if isinstance(x, torch.Tensor) else x
+    p32 = kernels.eskf_update_plain(*state, kind, obs, noise, *flags)
+    p64 = kernels.eskf_update_plain(*map(f64, state), kind, tuple(map(f64, obs)), noise, *flags)
+    slack = ESKF_UPDATE_SLACK * _eskf_update_kappa(state, kind, obs, noise) * U32
+    ek, ep = _eskf_update_errors(got, p64), _eskf_update_errors(p32, p64)
+    bad = {f: (ek[f], ep[f]) for f in ek if not ek[f] <= 8.0 * ep[f] + slack}
+    if bad:
+        raise AssertionError(f"eskf_update, {label}: scaled error (kernel, float32 plain) "
+                             f"against the float64 plain version {bad}, slack {slack:.3g}")
+    return max(float(torch.max(torch.abs(x - y))) for x, y in zip(got, p32))
+
+
+def _eskf_update_no_projection(state, kind, obs, noise, flags):
+    """The planted error of phase 3: the update without the covariance's
+    tangent projection (cov = (I - K H) P), in float32 torch ops."""
+    from loc_lib_tpu_torch.ops import kernels
+
+    out = kernels.eskf_update_plain(*state, kind, obs, noise, *flags)
+    p, v, R, cov = state[0], state[1], state[2], state[6]
+    H, V, _ = kernels.eskf_observation_plain(p, v, R, kind, obs, noise)
+    K = cov @ H.T @ torch.linalg.inv(H @ cov @ H.T + V)
+    return out[:6] + ((torch.eye(18, device=p.device) - K @ H) @ cov,)
+
+
+def _random_eskf_state(rng, device):
+    """A state with a random SPD covariance (eigenvalues log-spread over
+    1e-6..1e-1), rotations up to ~1 rad, velocities of a few m/s."""
+    Q = np.linalg.qr(rng.normal(size=(18, 18)))[0]
+    cov = Q @ np.diag(10.0 ** rng.uniform(-6, -1, 18)) @ Q.T
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return (f(rng.normal(size=3) * 20.0), f(rng.normal(size=3) * 2.0),
+            f(_so3_exp(rng.normal(size=3) * 0.6)), f(rng.normal(size=3) * 1e-3),
+            f(rng.normal(size=3) * 1e-2), f([0.0, 0.0, -9.81] + rng.normal(size=3) * 1e-2),
+            f(0.5 * (cov + cov.T)))
+
+
+def _eskf_observations(rng, state, device, ang=0.02):
+    """A pose near the state's (innovation ~5 cm, `ang` rad) and wheel pulses
+    near its velocity: {kind: (obs, noise)}."""
+    from loc_lib_tpu_torch.models import eskf
+
+    opts = eskf.EskfOptions()
+    R = state[2].double().cpu().numpy()
+    R_obs = torch.tensor(R @ _so3_exp(rng.normal(size=3) * ang), dtype=torch.float32,
+                         device=device)
+    t_obs = state[0] + torch.tensor(rng.normal(size=3) * 0.05, dtype=torch.float32,
+                                    device=device)
+    wheel = opts.wheel_radius * 2.0 * np.pi / opts.circle_pulse / opts.odom_span
+    speed = float(torch.linalg.vector_norm(state[1])) + rng.normal() * 0.1
+    left, right = (float(speed / wheel + rng.normal() * 2.0) for _ in range(2))
+    return {"se3": ((R_obs, t_obs), (0.1, opts.lidar_ang_noise_deg * np.pi / 180.0)),
+            "wheel": ((left, right, wheel), (opts.odom_var,))}
+
+
+def phase_kernels_eskf_update(device, card):
+    """The ESKF's update kernel (eskf_update) against its plain version on the
+    card, for a pose (observe_se3) and a wheel speed (observe_wheel_speed):
+    on the demo log's states (the kernel's propagation through each packet,
+    then the update at the true pose, carried on) and on 24 random states
+    with SPD covariances, the bias flags on and off; the pulses also as a
+    device tensor: every field within its bound of the float64 plain version
+    (`_eskf_update_close`), one launch a call. Planted errors (V squared for
+    a pose, the covariance projection dropped) rejected. Then times."""
+    from loc_lib_tpu_torch.models import eskf
+    from loc_lib_tpu_torch.ops import kernels
+    from loc_lib_tpu_torch.pipeline import lio
+
+    err, n_held = 0.0, 0
+
+    def held(label, state, kind, obs, noise, flags=(True, True)):
+        nonlocal err, n_held
+        before = kernels.LAUNCHES["eskf_update"]
+        got = kernels.eskf_update(*state, kind, obs, noise, *flags)
+        if kernels.LAUNCHES["eskf_update"] != before + 1:
+            raise AssertionError(f"eskf_update, {label}: not one launch")
+        err = max(err, _eskf_update_close(label, got, state, kind, obs, noise, flags))
+        n_held += 1
+        return got
+
+    log = demo_log()
+    init = lio.ImuStaticInit(device=device)
+    s = None
+    for t, g, a in zip(log.imu.stamps, log.imu.gyro, log.imu.acce):
+        s = init.add(g, a, t)
+        if s is not None:
+            break
+    if s is None:
+        raise AssertionError("eskf_update: the static IMU init never succeeded")
+    opts = eskf.EskfOptions()
+    Q = eskf.process_noise(opts, device)
+    rng = np.random.default_rng(0)
+    mid = None
+    mgs = list(log.measures(imu_capacity=64))
+    for i, mg in enumerate(mgs):
+        out = kernels.eskf_predict_scan(*s, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid,
+                                        Q, opts.imu_dt)
+        s = s._replace(**dict(zip(ESKF_OUT, out)))
+        T = torch.tensor(log.gt_poses[mg.scan_index], dtype=torch.float32, device=device)
+        obs = _eskf_observations(rng, s[:7], device)
+        held(f"demo state {i} wheel", s[:7], "wheel", *obs["wheel"])
+        got = held(f"demo state {i} pose", s[:7], "se3", (T[:3, :3], T[:3, 3]), obs["se3"][1])
+        if i == len(mgs) // 2:
+            mid = s[:7]
+        s = s._replace(**dict(zip(ESKF_UPDATE_OUT, got)))
+    for k in range(24):
+        state = _random_eskf_state(rng, device)
+        flags = ((True, True), (False, False), (True, False), (False, True))[k % 4]
+        for kind, (obs, noise) in _eskf_observations(rng, state, device, ang=0.05).items():
+            held(f"random state {k} {kind} flags {flags}", state, kind, obs, noise, flags)
+    obs, noise = _eskf_observations(rng, mid, device)["wheel"]
+    held("pulses on the card", mid, "wheel",
+         (torch.tensor(obs[0], device=device), obs[1], obs[2]), noise)
+    # planted errors, on a random state whose angular innovation is 0.05 rad
+    state = _random_eskf_state(np.random.default_rng(99), device)
+    (obs, noise) = _eskf_observations(np.random.default_rng(98), state, device, ang=0.05)["se3"]
+    got = kernels.eskf_update(*state, "se3", obs, noise, True, True)
+    for planted, bad in (("V squared", kernels.eskf_update_plain(
+                              *state, "se3", obs, tuple(x * x for x in noise), True, True)),
+                         ("projection dropped", _eskf_update_no_projection(
+                             state, "se3", obs, noise, (True, True)))):
+        try:
+            _eskf_update_close(planted, bad, state, "se3", obs, noise, (True, True))
+        except AssertionError:
+            continue
+        raise AssertionError(f"eskf_update: the check accepts a planted error ({planted})")
+    _eskf_update_close("planted-error state", got, state, "se3", obs, noise, (True, True))
+    torch.cuda.synchronize()
+    print(f"phase 3 eskf_update vs plain (float64 plain: scaled error <= 8 x the float32 "
+          f"plain's + {ESKF_UPDATE_SLACK} kappa(S) u): {n_held} updates (the demo log's "
+          f"{len(mgs)} states, pose and wheel; 24 random SPD covariances, both kinds, the bias "
+          f"flags on and off; pulses on the card); planted errors (V squared, the covariance "
+          f"projection dropped) rejected; largest |kernel - float32 plain| {err:.3g} [{card}]",
+          flush=True)
+
+    timing, profile_later = {}, {}
+    obs_all = _eskf_observations(np.random.default_rng(1), mid, device)
+    for kind in ("se3", "wheel"):
+        obs, noise = obs_all[kind]
+        call = lambda k=kind, o=obs, n=noise: kernels.eskf_update(*mid, k, o, n, True, True)
+        plain = lambda k=kind, o=obs, n=noise: kernels.eskf_update_plain(*mid, k, o, n, True,
+                                                                          True)
+        ms, pms = _time_alternating(call, plain)
+        host = _enqueue_us(call)
+        bound_ms, by = _bound(ESKF_UPDATE_BYTES[kind], _eskf_update_ops(kind))
+        print(f"phase 3 eskf_update ({kind}) [{card}]: {ms:.4f} ms vs plain {pms:.4f} ms "
+              f"(median of {2 * TIMING_REPS} per-call CUDA-event samples in turns) | host time "
+              f"to enqueue {host:.1f} us | bound {bound_ms:.9f} ms by {by} "
+              f"({ESKF_UPDATE_BYTES[kind]} B, {_eskf_update_ops(kind)} float32 ops, H's "
+              "structure counted)", flush=True)
+        profile_later[f"eskf_update {kind}"] = (call, True)
+        if kind == "se3":
+            timing = {"ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": by,
+                      "err": err, "host_us": host}
+    return timing, profile_later
 
 
 def _cells_and_slots(index, keys):
@@ -1450,6 +1863,29 @@ def phase_headline(device, card, workload):
           f"{trans_e * 100:.3f} cm, K1 launches {k1}; set_target {set_target_ms:.2f} ms "
           f"(second build, host clock) [{card}]", flush=True)
     return target
+
+
+def phase_zero_iterations(device, card, workload, target):
+    """Phase 4c: the headline match with max_iteration 0, the one loop that
+    takes no step: it returns its start projected onto SO(3) (one
+    so3_renormalize launch), t0, and no convergence, as the reference."""
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.ops import kernels
+
+    _, src, _, _, R_init, t_init = workload
+    res = icp.scan_match(target, icp.IcpOptions(method="p2plane_vox_oct", max_iteration=0),
+                         src, R_init, t_init)
+    want = kernels.so3_renormalize_plain(torch.as_tensor(R_init, dtype=torch.float32,
+                                                         device=device))
+    err = float(torch.max(torch.abs(res.R - want)))
+    if not (err <= POSE_UPDATE_TOL and res.iterations == 0 and not bool(res.converged)
+            and int(res.num_effective) == 0
+            and torch.equal(res.t, torch.as_tensor(t_init, dtype=torch.float32,
+                                                   device=device))):
+        raise AssertionError(f"phase 4c: a match with max_iteration 0 returned |dR| {err:g}, "
+                             f"{res.iterations} iterations, converged {bool(res.converged)}")
+    print(f"phase 4c headline match with max_iteration 0: the start projected (|dR| against "
+          f"the plain projection {err:.3g}), t0, not converged [{card}]", flush=True)
 
 
 def phase_headline_timing(device, card, workload, target):
@@ -2251,17 +2687,16 @@ def phase_batched_match(device, card, bw, targets):
 
         def run(opts, B):
             """One counted scan_match_batch call; `its` iterations must be
-            its of `kname` and of the pose update, and one projection."""
+            its of `kname` and of gn_step, and nothing else."""
             args = args_of(opts, B)
             kernels.reset_launch_counts()
             res = icp.scan_match_batch(*args)
             launched = dict(kernels.LAUNCHES)
             its = int(res.iterations.max())
-            if launched != {**dict.fromkeys(launched, 0), kname: its, "gn_step": its,
-                            "so3_renormalize": 1}:
+            if launched != {**dict.fromkeys(launched, 0), kname: its, "gn_step": its}:
                 raise AssertionError(f"phase 8 {method} B={B}: launches {launched} for {its} "
-                                     f"iterations; expected {its} of {kname} and of gn_step, one "
-                                     "of so3_renormalize")
+                                     f"iterations; expected {its} of {kname} and of gn_step, "
+                                     "nothing else (the projection is inside gn_step)")
             for k, v in launched.items():
                 batched_launches[k] += v
             return args, res, launched
@@ -3078,6 +3513,21 @@ def phase_mapping2d_profile(device, card, eng):
 # Phase 6: where the time goes
 # ---------------------------------------------------------------------------
 
+SOLVER_KERNELS = re.compile(r"getr[fsi]|laswp|trsm|trsv|magma", re.IGNORECASE)
+
+
+def _no_solver_kernels(label, prof) -> int:
+    """Fails if a device kernel of a dense solver library (LU factorization,
+    row swaps, triangular solves, inverse) ran in the profile `prof`: every
+    6x6 solve is inside gn_step, the 6x6 inverse inside eskf_update.
+    Returns the profile's device events."""
+    dev = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    found = sorted({n for n in dev if SOLVER_KERNELS.search(n)})
+    if found:
+        raise AssertionError(f"phase 6 {label}: solver kernels on the path: {found[:6]}")
+    return len(dev)
+
+
 def phase_profile(device, card, workload, target, out_dir):
     """Per-layer breakdown of the headline match, set_target and one LIO
     step of the icp, ndt_inc and ndt paths. Writes torch.profiler tables to
@@ -3092,9 +3542,11 @@ def phase_profile(device, card, workload, target, out_dir):
         lambda: icp.scan_match(target, opts, src, R_init, t_init), 5)
     (out_dir / "profile_match.txt").write_text(
         prof.key_averages().table(sort_by="cpu_time_total", row_limit=40))
+    events = _no_solver_kernels("headline match", prof)
     print(f"phase 6 profile headline match: {n:.0f} device launches per match "
-          f"({n / res.iterations:.0f} per iteration), device {dev_ms:.3f} ms vs host "
-          f"{host_ms:.3f} ms per match (profiler on) [{card}]", flush=True)
+          f"({n / res.iterations:.1f} per iteration), device {dev_ms:.3f} ms vs host "
+          f"{host_ms:.3f} ms per match (profiler on); no solver-library kernel among its "
+          f"{events} device events [{card}]", flush=True)
     n, dev_ms, host_ms, prof = _profiled(lambda: icp.set_target(workload[0], opts), 1)
     (out_dir / "profile_set_target.txt").write_text(
         prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
@@ -3212,6 +3664,7 @@ def _profile_lio(device, card, out_dir, matcher):
     name = "profile_lio_step.txt" if matcher == "icp" else f"profile_lio_{matcher}_step.txt"
     (out_dir / name).write_text(
         prof.key_averages().table(sort_by="cpu_time_total", row_limit=40))
+    _no_solver_kernels(f"LIO {matcher} step", prof)
     ranges = "; ".join(f"{k} {min(v):.2f}-{max(v):.2f} ms" for k, v in stage.items() if v)
     print(f"phase 6 profile LIO {matcher} frames 8-{frames - 2} (host clock): {ranges}; "
           "_push_keyframe "
@@ -3258,6 +3711,75 @@ class _Spy:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+class _GnLoops:
+    """Wraps every Gauss-Newton loop of the port while a path runs (the
+    scalar ICP loops, the batched one, NDT, LOAM and the ring match) and
+    records, per loop, its GN iterations (MatchResult.iterations, read after
+    the path: a batched loop runs as many as its slowest lane) and the
+    fused-terms launches those iterations need: one a linearization, two
+    for LOAM's surface and edge terms, one a lane for the batched methods
+    with no batched kernel, none for the knn methods and the ring match."""
+
+    FUSED = ("p2plane_vox", "p2plane_vox_oct", "p2line_vox")
+
+    def __init__(self):
+        from loc_lib_tpu_torch.models import icp, loam, ndt
+        from loc_lib_tpu_torch.ops import ring_search
+
+        self.records = []        # (iterations: int or (B,) tensor, launches per iteration)
+        fused = lambda opts: 1 if opts.method in self.FUSED else 0
+
+        def batch(targets, opts, srcs, R0, t0):
+            if opts.method == "p2plane_vox" and opts.freeze_election_after > 0:
+                return None      # B scalar matches, each recorded by its own loop
+            return "batch" if opts.method in icp._BATCH_TERM_FNS else (
+                "lanes" if opts.method in self.FUSED else 0)
+
+        self.loops = [
+            (icp, "_gauss_newton", lambda terms, target, opts, *a, **k: fused(opts)),
+            (icp, "_scan_match_vox_frozen", lambda *a, **k: 1),
+            (icp, "scan_match_batch", batch),
+            (ndt, "scan_match", lambda m, opts, *a, **k: int(opts.use_fused
+                                                            and m.packed is not None)),
+            (loam, "scan_match", lambda target, opts, *a, **k: (
+                (opts.use_surf_points and opts.surf_icp.method in self.FUSED)
+                + (opts.use_edge_points and opts.edge_icp.method in self.FUSED))),
+            (ring_search, "scan_match_rings", lambda *a, **k: 0),
+        ]
+        self.orig = [getattr(mod, name) for mod, name, _ in self.loops]
+
+    def _wrap(self, orig, per_iteration):
+        def loop(*args, **kw):
+            res = orig(*args, **kw)
+            per = per_iteration(*args, **kw)
+            if per is not None:
+                self.records.append((res.iterations, per))
+            return res
+        return loop
+
+    def __enter__(self):
+        for (mod, name, per), orig in zip(self.loops, self.orig):
+            setattr(mod, name, self._wrap(orig, per))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name, _), orig in zip(self.loops, self.orig):
+            setattr(mod, name, orig)
+
+    def totals(self):
+        """(GN iterations, fused-terms launches they need) over the loops."""
+        iters = fused = 0
+        for it, per in self.records:
+            if isinstance(it, torch.Tensor):
+                n = int(it.max())
+                fused += n if per == "batch" else (int(it.sum()) if per == "lanes" else 0)
+            else:
+                n = int(it)
+                fused += n * per
+            iters += n
+        return iters, fused
 
 
 class _NcclWorld:
@@ -3962,7 +4484,7 @@ def phase_apps(device, card, counted, one_launch_per_linearization, out_root):
     # 14a: mapping --demo, the default front end (knn p2plane: gn_step only)
     d = os.path.join(out_root, "mapping")
     with _Engines(lio, "Lio") as rec:
-        (rep, secs), c = counted(("gn_step", "so3_renormalize"),
+        (rep, secs), c = counted(("gn_step",),
                                  lambda: timed(lambda: mapping.main(["--demo", "--out", d])))
     add(c)
     _artifacts(d, map_files, "mapping")
@@ -4181,15 +4703,27 @@ def main() -> int:
     to_profile.update(calls)
     timing["eskf_predict_scan"], calls = phase_kernels_eskf_predict(device, card)
     to_profile.update(calls)
+    timing["eskf_update"], calls = phase_kernels_eskf_update(device, card)
+    to_profile.update(calls)
     from loc_lib_tpu_torch.models import eskf
     eskf_launches = []      # eskf_predict_scan's launches on each counted path
+    update_launches = []    # eskf_update's
+    gn_totals = []          # (GN loops, GN iterations) of each counted path
 
-    def counted(names, fn):
+    def counted(names, fn, projections=0):
         """Run one path with every counter set to 0 just before it; each
-        kernel in `names` must have launched in it, and eskf_predict_scan
-        exactly once per eskf.predict_scan call. Returns (result, counts)."""
+        kernel in `names` must have launched in it; eskf_predict_scan exactly
+        once per eskf.predict_scan call and eskf_update once per observe_se3
+        / observe_wheel_speed call; per GN iteration of the path's loops
+        exactly one gn_step launch and the fused-terms launches its
+        linearization needs (one, two for LOAM); `projections`
+        so3_renormalize launches (0: every loop that ran projects its output
+        inside gn_step). Returns (result, counts)."""
         kernels.reset_launch_counts()
-        with _Spy(eskf, "predict_scan", keep=lambda r: None) as spy:
+        with _Spy(eskf, "predict_scan", keep=lambda r: None) as spy, \
+                _Spy(eskf, "observe_se3", keep=lambda r: None) as se3, \
+                _Spy(eskf, "observe_wheel_speed", keep=lambda r: None) as wheel, \
+                _GnLoops() as loops:
             result = fn()
         counts = dict(kernels.LAUNCHES)
         for name in names:
@@ -4198,7 +4732,21 @@ def main() -> int:
         if counts["eskf_predict_scan"] != len(spy.calls):
             raise AssertionError(f"{counts['eskf_predict_scan']} eskf_predict_scan launches for "
                                  f"{len(spy.calls)} eskf.predict_scan calls")
+        if counts["eskf_update"] != len(se3.calls) + len(wheel.calls):
+            raise AssertionError(f"{counts['eskf_update']} eskf_update launches for "
+                                 f"{len(se3.calls) + len(wheel.calls)} observations")
+        iters, fused = loops.totals()
+        got_fused = sum(counts[k] for k in ("p2plane_fused_terms", "p2plane_pick_fused_terms",
+                                            "ndt_fused_terms"))
+        if (counts["gn_step"] != iters or got_fused != fused
+                or counts["so3_renormalize"] != projections):
+            raise AssertionError(f"launches {counts} for {iters} GN iterations of "
+                                 f"{len(loops.records)} loops: expected {iters} of gn_step, "
+                                 f"{fused} fused-terms launches, {projections} of "
+                                 "so3_renormalize")
         eskf_launches.append(counts["eskf_predict_scan"])
+        update_launches.append(counts["eskf_update"])
+        gn_totals.append((len(loops.records), iters))
         return result, counts
 
     def one_launch_per_linearization(label, counts, names, iterations):
@@ -4212,9 +4760,14 @@ def main() -> int:
 
     # the first slice's main path: the headline match and LIO (icp)
     (target, lio_last), launches = counted(
-        ("p2plane_fused_terms", "p2plane_pick_fused_terms", "gn_step", "so3_renormalize",
-         "eskf_predict_scan"),
+        ("p2plane_fused_terms", "p2plane_pick_fused_terms", "gn_step", "eskf_predict_scan",
+         "eskf_update"),
         lambda: (phase_headline(device, card, workload), phase_lio(device, card)))
+    # a loop that runs no iteration returns its start projected: the one
+    # path that launches so3_renormalize
+    _, c = counted(("so3_renormalize",), lambda: phase_zero_iterations(device, card, workload,
+                                                                      target), projections=1)
+    launches["so3_renormalize"] = c["so3_renormalize"]
     k2_err = phase_lio_k2_check(lio_last)
     # this slice's main path: LIO ndt_inc, the incremental-NDT cell
     ndt_last, c = counted(("ndt_fused_terms", "eskf_predict_scan"), lambda: phase_lio(
@@ -4269,8 +4822,7 @@ def main() -> int:
     batch_matches, c = phase_batched_match(device, card, bw, batch_targets)
     print(f"phase 8 launches (the six scan_match_batch calls alone, every counter at 0 before "
           f"each and read after it): {c}", flush=True)
-    for name in ("p2plane_pick_fused_terms", "p2plane_fused_terms", "gn_step",
-                 "so3_renormalize"):
+    for name in ("p2plane_pick_fused_terms", "p2plane_fused_terms", "gn_step"):
         if c[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the batched path")
         launches[name] += c[name]
@@ -4283,7 +4835,7 @@ def main() -> int:
     slam_eng, c = phase_slam3d(device, card)
     print(f"phase 10a launches (the first 92-frame run, every counter at 0 before it): {c} "
           f"[{card}]", flush=True)
-    for name in ("p2plane_pick_fused_terms", "gn_step", "so3_renormalize"):
+    for name in ("p2plane_pick_fused_terms", "gn_step"):
         if c[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the 3D SLAM path")
         launches[name] += c[name]
@@ -4307,18 +4859,18 @@ def main() -> int:
 
     with _NcclWorld(device) as mesh:
         (iters, lio_sharded_poses), c = counted(
-            ("ndt_fused_terms", "gn_step", "so3_renormalize", "eskf_predict_scan"),
+            ("ndt_fused_terms", "gn_step", "eskf_predict_scan", "eskf_update"),
             lambda: phase_lio_sharded(device, card, mesh, ndt_last[5]))
         one_launch_per_linearization("phase 12a lio_sharded_mapping", c,
                                      ("ndt_fused_terms", "gn_step"), iters)
         add(c)
         _, c = counted(("ndt_fused_terms", "p2plane_pick_fused_terms", "gn_step",
-                        "so3_renormalize", "eskf_predict_scan"),
+                        "eskf_predict_scan", "eskf_update"),
                        lambda: phase_slam3d_sharded(device, card, mesh))
         print(f"phase 12a slam3d_sharded launches: {c}", flush=True)
         add(c)
-        iters, c = counted(("p2plane_fused_terms", "gn_step", "so3_renormalize",
-                            "eskf_predict_scan"),
+        iters, c = counted(("p2plane_fused_terms", "gn_step", "eskf_predict_scan",
+                            "eskf_update"),
                            lambda: phase_loc_sharded(device, card, mesh,
                                                      np.stack(loc_vox[0].poses)))
         one_launch_per_linearization("phase 12a LocSharded", c, ("p2plane_fused_terms", "gn_step"),
@@ -4327,13 +4879,13 @@ def main() -> int:
     c = phase_sharded_ranks(device, card, workload, lio_sharded_poses)
     print(f"phase 12b launches (the ranks' paths, summed over the ranks of both meshes, every "
           f"counter at 0 before them): {c}", flush=True)
-    for name in ("p2plane_fused_terms", "ndt_fused_terms", "gn_step", "so3_renormalize"):
+    for name in ("p2plane_fused_terms", "ndt_fused_terms", "gn_step"):
         if c.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched by the ranks of phase 12b")
     add(c)
     print(f"phase 12 took {time.perf_counter() - t_dist:.1f} s of command time [{card}]",
           flush=True)
-    _, c = counted(("gn_step", "so3_renormalize"), lambda: phase_leaves(device, card, workload))
+    _, c = counted(("gn_step",), lambda: phase_leaves(device, card, workload))
     add(c)
     # the apps through their CLIs (14a-14e, 14g), then --mp-shards 1 in a
     # one-rank NCCL world (14f)
@@ -4353,7 +4905,8 @@ def main() -> int:
                         ("p2plane_pick_fused_terms", "K2 from target"),
                         ("ndt_fused_terms", "K3 from map: from map"),
                         ("gn_step", "gn_step"), ("so3_renormalize", "so3_renormalize"),
-                        ("eskf_predict_scan", "eskf_predict_scan")):
+                        ("eskf_predict_scan", "eskf_predict_scan"),
+                        ("eskf_update", "eskf_update se3")):
         timing[name]["device_ms"] = dev_ms[label]
     phase_profile(device, card, workload, target,
                   Path(__file__).resolve().parent / "chiprun_out")
@@ -4367,16 +4920,29 @@ def main() -> int:
                                         "loc_lib_tpu/ops/pallas_kernels.py:185"),
            "ndt_fused_terms": ("loc_lib_tpu_torch/csrc/ndt_fused_terms.cu",
                                "loc_lib_tpu/ops/pallas_kernels.py:314"),
-           # no TPU kernel: the loop body's pose update and the final
+           # no TPU kernel: the loop body after its linearization (damping,
+           # solve, filters, retraction, stop test) with the output's
            # projection, which XLA fuses into the reference's program
-           "gn_step": ("loc_lib_tpu_torch/csrc/gn_update.cu", "loc_lib_tpu/models/icp.py:705"),
+           "gn_step": ("loc_lib_tpu_torch/csrc/gn_update.cu",
+                       "loc_lib_tpu/models/icp.py:677 scan_match's while_loop body and "
+                       "its projection :721"),
            "so3_renormalize": ("loc_lib_tpu_torch/csrc/gn_update.cu",
                                "loc_lib_tpu/models/icp.py:721"),
            # no TPU kernel: the IMU packet's lax.scan, which XLA fuses
            "eskf_predict_scan": ("loc_lib_tpu_torch/csrc/eskf_predict.cu",
                                  "loc_lib_tpu/models/eskf.py:139 predict_scan (lax.scan of "
-                                 "predict :98)")}
+                                 "predict :98)"),
+           # no TPU kernel: an observation's jitted update program
+           "eskf_update": ("loc_lib_tpu_torch/csrc/eskf_predict.cu",
+                           "loc_lib_tpu/models/eskf.py:153 _update_and_reset with the "
+                           "observation build of observe_se3 :183 / observe_wheel_speed :198")}
     launches["eskf_predict_scan"] = sum(eskf_launches)
+    launches["eskf_update"] = sum(update_launches)
+    print(f"GN loops on the counted paths: {sum(n for n, _ in gn_totals)} loops, "
+          f"{sum(i for _, i in gn_totals)} GN iterations, one gn_step launch and one "
+          "linearization's fused-terms launches (two for LOAM) each, no so3_renormalize after a "
+          f"loop that ran; {sum(update_launches)} eskf_update launches, one per observation "
+          f"[{card}]", flush=True)
     errs = {k: v["err"] for k, v in timing.items()}
     errs["p2plane_fused_terms"] = max(errs["p2plane_fused_terms"], k1_err,
                                       given_errs["p2plane_fused_terms"],
@@ -4387,14 +4953,18 @@ def main() -> int:
     errs["ndt_fused_terms"] = max(errs["ndt_fused_terms"], k3_err)
     print("library_ms is null for every kernel: no single PyTorch call computes one of "
           "them (K1-K3 each build their rows from a gather, an election and a gate, then reduce "
-          "them; gn_step and so3_renormalize, the pose update of a GN iteration and the final "
-          "projection, are chains of elementwise operations and 3x3 products, timed at one "
-          "match; eskf_predict_scan is a sequential scan of 18 x 18 products over an IMU "
-          "packet); ms, plain_ms, device_ms and bound_ms of K1 and K2 are those of the "
+          "them; gn_step, a GN iteration after its linearization, is a damped 6x6 solve followed "
+          "by elementwise operations and 3x3 products, timed at one match in place (GnLoop.step), "
+          "and so3_renormalize, the projection of a loop that ran no iteration, a chain of 3x3 "
+          "products; eskf_predict_scan is a sequential scan of 18 x 18 products over an IMU "
+          "packet and eskf_update an 18-state Kalman update with a 6x6 inverse, timed on a pose "
+          "observation); ms, plain_ms, device_ms and bound_ms of K1 and K2 are those of the "
           "from-target mode and, since this revision, those of K3 are those of the from-map "
           "mode (S = 7, weighted, trunc, on an update_incremental map of the headline target): "
-          "the modes the paths run, at the headline inputs; launches of K1, K2, gn_step and "
-          "so3_renormalize are those of the headline match and LIO plus those of phase 8's "
+          "the modes the paths run, at the headline inputs; launches of so3_renormalize are those "
+          "of phase 4c's match with max_iteration 0 (the only loop that takes no step); "
+          "launches of K1, K2 and gn_step "
+          "are those of the headline match and LIO plus those of phase 8's "
           "scan_match_batch calls and of phase 10's 3D SLAM runs (K1: 10b's two), and every "
           "kernel's adds phase 12's sharded paths (12a's three runs, 12b's ranks summed) and "
           "phase 13's ring match and phase 14's app runs (14a-14g); launches of K3 are "
@@ -4402,7 +4972,8 @@ def main() -> int:
           "max_abs_err of K1 and K2 covers their batched forms; launches of eskf_predict_scan "
           "are those of every counted path (phases 5-5e, 7-7d, 10a, 12a, 14), one per "
           "eskf.predict_scan call, and its ms / plain_ms include the packet's host-to-device "
-          "copy at one demo-log packet",
+          "copy at one demo-log packet; launches of eskf_update are those of every counted path, "
+          "one per observe_se3 / observe_wheel_speed call",
           flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
@@ -4412,7 +4983,7 @@ def main() -> int:
          "bound_by": timing[name]["bound_by"], "library_ms": None}
         for name in ("p2plane_fused_terms", "p2plane_pick_fused_terms",
                      "ndt_fused_terms", "gn_step", "so3_renormalize",
-                     "eskf_predict_scan")]}), flush=True)
+                     "eskf_predict_scan", "eskf_update")]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ padded IMU packet; JAX's `lax.scan` of `predict` with a per-sample
 keep/skip select, which XLA fuses into one program, is ONE launch of the
 hand-written kernel `ops.kernels.eskf_predict_scan` on the card, and its
 plain version (the same scan as torch ops, the select a `torch.where`) on
-the CPU.
+the CPU. Each update (`observe_se3`, `observe_wheel_speed`: the observation
+build and the Kalman update, one jitted program each in the reference) is
+ONE launch of `ops.kernels.eskf_update`, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -102,7 +104,7 @@ def _diag_on(device, values: tuple) -> torch.Tensor:
     """diag(values) made on the device by fills (no host-to-device copy,
     which would wait for the stream on the card), once per (device, values):
     the element fills are a host round trip each on the card, and the
-    filter asks for the same two matrices on every scan. The cache is
+    filter asks for the same Q on every scan. The cache is
     bounded, so a caller that varies its noise from call to call rebuilds
     and pins no more than 16 matrices."""
     d = torch.zeros(len(values), dtype=torch.float32, device=device)
@@ -133,61 +135,32 @@ def predict_scan(s: EskfState, gyros, acces, timestamps, valid,
         *s, gyros, acces, timestamps, valid, process_noise(opts, s.p.device), opts.imu_dt))))
 
 
-def _update_and_reset(s: EskfState, H, V, innov, opts: EskfOptions) -> EskfState:
-    """Kalman gain + inject + reset + tangent covariance projection."""
-    dev = s.p.device
-    eye18 = torch.eye(18, dtype=torch.float32, device=dev)
-    PHt = s.cov @ H.T
-    K = PHt @ torch.linalg.inv_ex(H @ PHt + V, check_errors=False).inverse
-    dx = K @ innov
-    cov = (eye18 - K @ H) @ s.cov
-
-    dtheta = dx[6:9]
-    new = EskfState(
-        p=s.p + dx[0:3],
-        v=s.v + dx[3:6],
-        R=lie.so3_renormalize(s.R @ lie.so3_exp(dtheta)),
-        bg=s.bg + dx[9:12] * (1.0 if opts.update_bias_gyro else 0.0),
-        ba=s.ba + dx[12:15] * (1.0 if opts.update_bias_acce else 0.0),
-        g=s.g + dx[15:18],
-        cov=cov,
-        time=s.time,
-    )
-    J = eye18.clone()
-    J[6:9, 6:9] = torch.eye(3, dtype=torch.float32, device=dev) - 0.5 * lie.hat(dtheta)
-    return new._replace(cov=J @ new.cov @ J.T)
+_UPDATED = ("p", "v", "R", "bg", "ba", "g", "cov")     # what an update changes; time does not
 
 
 def observe_se3(s: EskfState, R_obs, t_obs, opts: EskfOptions,
                 trans_noise: float = 0.1,
                 ang_noise_rad: float = 1.0 * math.pi / 180.0) -> EskfState:
-    """Pose observation + update/reset. Like the reference, V holds the noise
+    """Pose observation + update/reset: one launch of `kernels.eskf_update`
+    on the card (the observation build, the Kalman update, the injection and
+    the covariance projection). Like the reference, V holds the noise
     values, not their squares."""
-    dev = s.p.device
-    H = torch.zeros((6, 18), dtype=torch.float32, device=dev)
-    H[0:3, 0:3] = torch.eye(3, dtype=torch.float32, device=dev)
-    H[3:6, 6:9] = torch.eye(3, dtype=torch.float32, device=dev)
-    V = _diag_on(dev, (trans_noise,) * 3 + (ang_noise_rad,) * 3)
-    innov = torch.cat([t_obs - s.p, lie.so3_log(s.R.T @ R_obs)])
-    return _update_and_reset(s, H, V, innov, opts)
+    return s._replace(**dict(zip(_UPDATED, kernels.eskf_update(
+        *s[:7], "se3", (R_obs, t_obs), (trans_noise, ang_noise_rad), opts.update_bias_gyro,
+        opts.update_bias_acce))))
 
 
 def observe_wheel_speed(s: EskfState, left_pulse, right_pulse,
                         opts: EskfOptions) -> EskfState:
     """Wheel-odometry velocity observation: per-wheel speed from the pulses
     over one odom_span, averaged, taken as the body-x velocity, rotated to
-    the world and observed on the v block. Unlike observe_se3, the noise is
-    the SQUARED odom_var, as the reference builds it."""
-    dev = s.p.device
+    the world and observed on the v block; one launch of
+    `kernels.eskf_update` on the card. Unlike observe_se3, the noise is the
+    SQUARED odom_var, as the reference builds it."""
     wheel = opts.wheel_radius * 2.0 * math.pi / opts.circle_pulse / opts.odom_span
-    speed = 0.5 * (wheel * _f32(left_pulse, dev) + wheel * _f32(right_pulse, dev))
-    v_body = _f32([1.0, 0.0, 0.0], dev) * speed
-    v_world = s.R @ v_body
-    H = torch.zeros((3, 18), dtype=torch.float32, device=dev)
-    H[0:3, 3:6] = torch.eye(3, dtype=torch.float32, device=dev)
-    o2 = opts.odom_var * opts.odom_var
-    V = torch.eye(3, dtype=torch.float32, device=dev) * o2
-    return _update_and_reset(s, H, V, v_world - s.v, opts)
+    return s._replace(**dict(zip(_UPDATED, kernels.eskf_update(
+        *s[:7], "wheel", (left_pulse, right_pulse, wheel), (opts.odom_var,),
+        opts.update_bias_gyro, opts.update_bias_acce))))
 
 
 def nominal_se3(s: EskfState):

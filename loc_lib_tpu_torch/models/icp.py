@@ -549,39 +549,26 @@ def _gauss_newton(terms, target: IcpTarget, opts: IcpOptions, src: PointCloud, R
     `terms(target, opts, src, R, t, gate=...)`. `reduce`, when given, maps
     each iteration's local (H, b, count, chi2) to the global one (the
     distributed matchers' all-reduce, parallel/match.py); every rank then
-    takes the same step."""
+    takes the same step. An iteration is the linearization, ONE launch of
+    `kernels.gn_step` (damping, solve, filters, retraction, stop test and the
+    output's projection onto SO(3)) and the host's one read of its flag."""
     dev = src.device
     gate, wide_gate, warmup = _gates(opts, dev)
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-
-    R = torch.as_tensor(R0, dtype=torch.float32, device=dev)
-    t = torch.as_tensor(t0, dtype=torch.float32, device=dev)
-    converged = torch.zeros((), dtype=torch.bool, device=dev)
-    n_eff = torch.zeros((), dtype=torch.int32, device=dev)
-    chi2 = torch.zeros((), dtype=torch.float32, device=dev)
+    loop = kernels.GnLoop(torch.as_tensor(R0, dtype=torch.float32, device=dev),
+                          torch.as_tensor(t0, dtype=torch.float32, device=dev),
+                          opts.min_effective_pts, opts.eps)
     it = 0
     while it < opts.max_iteration:
         warm = it < warmup
-        H, b, n_eff, chi2 = terms(target, opts, src, R, t,
-                                  gate=wide_gate if warm else gate)
+        lin = terms(target, opts, src, loop.R, loop.t, gate=wide_gate if warm else gate)
         if reduce is not None:
-            H, b, n_eff, chi2 = reduce(H, b, n_eff, chi2)
-        ok = n_eff >= opts.min_effective_pts
-        if warm:
-            # Marquardt-damped step relative to the largest diagonal while
-            # the wide warm-up gate may leave H near-singular
-            lam = 1e-2 * torch.max(torch.diagonal(H)) + 1e-6
-            dx = mathx.solve_gn_6x6(H + lam * eye6, b)
-        else:
-            dx = mathx.solve_gn_6x6(H, b)
-        # filters, retraction and stop test: one launch (kernels.gn_step)
-        R, t, converged = kernels.gn_step(dx, ok, R, t, opts.eps, not warm)
+            lin = reduce(*lin)
         it += 1
-        if bool(converged):     # the one host sync per iteration
+        if not bool(loop.step(lin, warm)):     # the one host sync per iteration
             break
-    # pin the output on SO(3)
-    return MatchResult(R=kernels.so3_renormalize(R), t=t, converged=converged,
-                       num_effective=n_eff, iterations=it, chi2=chi2)
+    R, t, converged, n_eff, chi2, _ = loop.result()
+    return MatchResult(R=R, t=t, converged=converged, num_effective=n_eff, iterations=it,
+                       chi2=chi2)
 
 
 def _scan_match_vox_frozen(target: IcpTarget, opts: IcpOptions, src: PointCloud, R0,
@@ -599,36 +586,34 @@ def _scan_match_vox_frozen(target: IcpTarget, opts: IcpOptions, src: PointCloud,
     would run the election every time, which is what freezing avoids)."""
     dev = src.device
     n = src.capacity
-    R = torch.as_tensor(R0, dtype=torch.float32, device=dev)
-    t = torch.as_tensor(t0, dtype=torch.float32, device=dev)
+    loop = kernels.GnLoop(torch.as_tensor(R0, dtype=torch.float32, device=dev),
+                          torch.as_tensor(t0, dtype=torch.float32, device=dev),
+                          opts.min_effective_pts, opts.eps)
     plane = torch.zeros((n, 4), dtype=torch.float32, device=dev)
     w = torch.zeros((n,), dtype=torch.float32, device=dev)
     R_e = torch.eye(3, dtype=torch.float32, device=dev)
     t_e = torch.full((3,), 1e9, dtype=torch.float32, device=dev)   # far: iteration 0 elects
-    converged = torch.zeros((), dtype=torch.bool, device=dev)
-    n_eff = torch.zeros((), dtype=torch.int32, device=dev)
-    chi2 = torch.zeros((), dtype=torch.float32, device=dev)
     it = 0
     while it < opts.max_iteration:
         elect = it < opts.freeze_election_after
         if not elect:
-            dt = t - t_e
-            rot = lie.so3_log(R_e.T @ R)
+            dt = loop.t - t_e
+            rot = lie.so3_log(R_e.T @ loop.R)
             moved = torch.sqrt(torch.sum(dt * dt)) \
                 + opts.elect_rot_scale * torch.sqrt(torch.sum(rot * rot))
             elect = bool(moved > opts.elect_dx_threshold)
         if elect:
-            plane, w = _p2plane_vox_elect(target, opts, src, R, t)
-            R_e, t_e = R, t
-        H, b, n_eff, chi2 = kernels.p2plane_fused_terms(src.xyz, plane, w, R, t,
-                                                        opts.max_plane_distance)
-        ok = n_eff >= opts.min_effective_pts
-        R, t, converged = kernels.gn_step(mathx.solve_gn_6x6(H, b), ok, R, t, opts.eps, True)
+            plane, w = _p2plane_vox_elect(target, opts, src, loop.R, loop.t)
+            # the loop updates its pose in place: keep the election's own copy
+            R_e, t_e = loop.R.clone(), loop.t.clone()
+        lin = kernels.p2plane_fused_terms(src.xyz, plane, w, loop.R, loop.t,
+                                          opts.max_plane_distance)
         it += 1
-        if bool(converged):
+        if not bool(loop.step(lin)):
             break
-    return MatchResult(R=kernels.so3_renormalize(R), t=t, converged=converged,
-                       num_effective=n_eff, iterations=it, chi2=chi2)
+    R, t, converged, n_eff, chi2, _ = loop.result()
+    return MatchResult(R=R, t=t, converged=converged, num_effective=n_eff, iterations=it,
+                       chi2=chi2)
 
 
 # ---------------------------------------------------------------------------
@@ -719,9 +704,10 @@ def scan_match_batch(targets: IcpTarget, opts: IcpOptions, srcs: PointCloud, R0,
     bit-identical to `scan_match` on lane b.
 
     For p2plane_vox and p2plane_vox_oct an iteration is one launch of the
-    batched K2 / K1 for all lanes, then one 6x6 solve, damping, retraction,
-    finite filter and stop test over (B, ...) tensors, and one host read
-    (is any lane still active). A lane is active while it has iterations
+    batched K2 / K1 for all lanes, then ONE launch of `kernels.gn_step` for
+    all lanes (damping, the 6x6 solves, filters, retraction, stop test, the
+    projection of R and the freeze of the lanes that have stopped), and one
+    host read (is any lane still active). A lane is active while it has iterations
     left and has not converged; an inactive lane's state stops changing.
     All active lanes share the iteration number, so one gate serves a call.
     The other methods run the same loop with their scalar linearization
@@ -743,40 +729,21 @@ def scan_match_batch(targets: IcpTarget, opts: IcpOptions, srcs: PointCloud, R0,
             r.iterations, dtype=torch.int32, device=dev)) for r in lanes])
     terms = _BATCH_TERM_FNS.get(opts.method) or _lane_by_lane(_TERM_FNS[opts.method])
     gate, wide_gate, warmup = _gates(opts, dev)
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-
-    R = torch.as_tensor(R0, dtype=torch.float32, device=dev)
-    t = torch.as_tensor(t0, dtype=torch.float32, device=dev)
-    converged = torch.zeros((B,), dtype=torch.bool, device=dev)
-    n_eff = torch.zeros((B,), dtype=torch.int32, device=dev)
-    chi2 = torch.zeros((B,), dtype=torch.float32, device=dev)
-    iterations = torch.zeros((B,), dtype=torch.int32, device=dev)
-    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    loop = kernels.GnLoop(torch.as_tensor(R0, dtype=torch.float32, device=dev),
+                          torch.as_tensor(t0, dtype=torch.float32, device=dev),
+                          opts.min_effective_pts, opts.eps)
+    every = torch.ones((B,), dtype=torch.bool, device=dev)     # before the first step
     it = 0
     while it < opts.max_iteration:
         warm = it < warmup
-        H, b, n_new, chi2_new = terms(targets, opts, srcs, R, t, wide_gate if warm else gate,
-                                      active)
-        ok = n_new >= opts.min_effective_pts
-        if warm:
-            lam = 1e-2 * torch.amax(torch.diagonal(H, dim1=-2, dim2=-1), dim=-1) + 1e-6
-            dx = mathx.solve_gn_6x6(H + lam[:, None, None] * eye6, b)
-        else:
-            dx = mathx.solve_gn_6x6(H, b)
-        R_new, t_new, conv_new = kernels.gn_step(dx, ok, R, t, opts.eps, not warm)
-        # a lane that has stopped keeps its state
-        R = torch.where(active[:, None, None], R_new, R)
-        t = torch.where(active[:, None], t_new, t)
-        converged = torch.where(active, conv_new, converged)
-        n_eff = torch.where(active, n_new, n_eff)
-        chi2 = torch.where(active, chi2_new, chi2)
-        iterations = iterations + active.to(torch.int32)
+        lin = terms(targets, opts, srcs, loop.R, loop.t, wide_gate if warm else gate,
+                    every if loop.active is None else loop.active)
         it += 1
-        active = active & ~converged
-        if not bool(active.any()):     # the one host read per iteration
+        if not bool(loop.step(lin, warm)):     # the one host read per iteration
             break
-    return MatchResult(R=kernels.so3_renormalize(R), t=t, converged=converged,
-                       num_effective=n_eff, iterations=iterations, chi2=chi2)
+    R, t, converged, n_eff, chi2, iterations = loop.result()
+    return MatchResult(R=R, t=t, converged=converged, num_effective=n_eff,
+                       iterations=iterations, chi2=chi2)
 
 
 def scan_match_batch_chunked(targets: IcpTarget, opts: IcpOptions, srcs: PointCloud, R0, t0,

@@ -27,7 +27,6 @@ import torch
 
 from ..ops.pointcloud import PointCloud
 from ..ops import kernels, voxel
-from ..utils import mathx
 from . import icp
 
 
@@ -170,12 +169,10 @@ def scan_match(target: LoamTarget, opts: LoamOption, edge_src: PointCloud,
     b_edge per iteration; a step is taken when the summed effective count
     reaches both matchers' min_effective_pts; stop at |dx| < eps."""
     dev = surf_src.device
-    R = torch.as_tensor(R0, dtype=torch.float32, device=dev)
-    t = torch.as_tensor(t0, dtype=torch.float32, device=dev)
-    converged = torch.zeros((), dtype=torch.bool, device=dev)
-    n_eff = torch.zeros((), dtype=torch.int32, device=dev)
-    chi2 = torch.zeros((), dtype=torch.float32, device=dev)
-    min_eff = opts.surf_icp.min_effective_pts + opts.edge_icp.min_effective_pts
+    loop = kernels.GnLoop(torch.as_tensor(R0, dtype=torch.float32, device=dev),
+                          torch.as_tensor(t0, dtype=torch.float32, device=dev),
+                          opts.surf_icp.min_effective_pts + opts.edge_icp.min_effective_pts,
+                          opts.eps)
     parts = []
     if opts.use_surf_points:
         parts.append((target.surf, opts.surf_icp, surf_src))
@@ -183,18 +180,17 @@ def scan_match(target: LoamTarget, opts: LoamOption, edge_src: PointCloud,
         parts.append((target.edge, opts.edge_icp, edge_src))
     it = 0
     while it < opts.max_iteration:
-        H = torch.zeros((6, 6), dtype=torch.float32, device=dev)
-        b = torch.zeros((6,), dtype=torch.float32, device=dev)
-        n_eff = torch.zeros((), dtype=torch.int32, device=dev)
-        chi2 = torch.zeros((), dtype=torch.float32, device=dev)
-        for tgt, o, src in parts:
-            Hk, bk, nk, ck = icp.compute_h_and_b(tgt, o, src, R, t)
-            H, b, n_eff, chi2 = H + Hk, b + bk, n_eff + nk, chi2 + ck
-        ok = n_eff >= min_eff
-        # filters, retraction and stop test: one launch (kernels.gn_step)
-        R, t, converged = kernels.gn_step(mathx.solve_gn_6x6(H, b), ok, R, t, opts.eps, True)
+        lins = [icp.compute_h_and_b(tgt, o, src, loop.R, loop.t) for tgt, o, src in parts]
+        if not lins:        # nothing to match: the reference's zero system
+            lins = [(torch.zeros((6, 6), dtype=torch.float32, device=dev),
+                     torch.zeros((6,), dtype=torch.float32, device=dev),
+                     torch.zeros((), dtype=torch.int32, device=dev),
+                     torch.zeros((), dtype=torch.float32, device=dev))]
         it += 1
-        if bool(converged):     # the one host sync per iteration
+        # the two systems summed (0 + Hs + He), the solve, filters,
+        # retraction and stop test: one launch
+        if not bool(loop.step(lins[0], lin2=lins[1] if len(lins) > 1 else None)):
             break
-    return icp.MatchResult(R=kernels.so3_renormalize(R), t=t, converged=converged,
-                           num_effective=n_eff, iterations=it, chi2=chi2)
+    R, t, converged, n_eff, chi2, _ = loop.result()
+    return icp.MatchResult(R=R, t=t, converged=converged, num_effective=n_eff, iterations=it,
+                           chi2=chi2)

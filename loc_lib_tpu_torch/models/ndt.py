@@ -393,27 +393,24 @@ def scan_match(m: NdtMap, opts: NdtOptions, src: PointCloud, R0, t0, reduce=None
     gates on (default: src.count())."""
     weighted = opts.method == "incremental"
     dev = src.device
-    R = torch.as_tensor(R0, dtype=torch.float32, device=dev)
-    t = torch.as_tensor(t0, dtype=torch.float32, device=dev)
-    converged = torch.zeros((), dtype=torch.bool, device=dev)
-    n_res = torch.zeros((), dtype=torch.int32, device=dev)
-    chi2 = torch.zeros((), dtype=torch.float32, device=dev)
+    loop = kernels.GnLoop(torch.as_tensor(R0, dtype=torch.float32, device=dev),
+                          torch.as_tensor(t0, dtype=torch.float32, device=dev),
+                          opts.min_effective_pts, opts.eps)
+    # weighted: gate on the per-residual count; direct: every source point
+    # (the reference's quirk), while the result reports the residual count
+    gate_count = None if weighted else (src.count() if n_points is None else n_points)
     it = 0
     while it < opts.max_iteration:
-        H, b, n_res, chi2 = _ndt_terms(m, opts, src, R, t, weighted)
+        lin = _ndt_terms(m, opts, src, loop.R, loop.t, weighted)
         if reduce is not None:
-            H, b, n_res, chi2 = reduce(H, b, n_res, chi2)
-        # weighted: per-residual count; direct: every source point (quirk)
-        n_eff = n_res if weighted else (src.count() if n_points is None else n_points)
-        ok = n_eff >= opts.min_effective_pts
-        # filters, retraction and stop test: one launch (kernels.gn_step)
-        R, t, converged = kernels.gn_step(mathx.solve_gn_6x6(H, b), ok, R, t, opts.eps, True)
+            lin = reduce(*lin)
         it += 1
-        if bool(converged):     # the one host sync per iteration
+        # damping-free solve, filters, retraction, stop test: one launch
+        if not bool(loop.step(lin, gate_count=gate_count)):    # the one host sync
             break
-    # pin the output on SO(3)
-    return MatchResult(R=kernels.so3_renormalize(R), t=t, converged=converged,
-                       num_effective=n_res, iterations=it, chi2=chi2)
+    R, t, converged, n_res, chi2, _ = loop.result()
+    return MatchResult(R=R, t=t, converged=converged, num_effective=n_res, iterations=it,
+                       chi2=chi2)
 
 
 def get_fitness_score(m: NdtMap, opts: NdtOptions, src: PointCloud, R, t,

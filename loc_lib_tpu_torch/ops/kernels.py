@@ -37,13 +37,21 @@ over B independent matches (every argument with a leading B axis) in ONE
 launch, the form the reference runs under `jax.vmap`. Lane b of the results
 has the bits of the scalar call on lane b's inputs.
 
-*The pose update* (`gn_step`, `so3_renormalize`, csrc/gn_update.cu): the
-filters, retraction and stop test that follow the 6x6 solve of a
-Gauss-Newton iteration, and the projection of the final rotation onto SO(3),
-one elementwise launch each, one thread a match, for the scalar and the
-batched loop alike. In the reference these operations are part of the
+*A Gauss-Newton iteration after its linearization* (`gn_step`, and
+`GnLoop` around it, csrc/gn_update.cu): the linearization (or LOAM's two)
+in, then the warm-up damping, the 6x6 solve (LU with partial pivoting in
+registers), the filters, retraction, stop test, the projection of R onto
+SO(3) and, for a batched loop, the freeze of the lanes that have stopped, in
+ONE launch, one thread a match, for the scalar and the batched loop alike;
+and a byte the host reads once per iteration. In the reference this is the
 while_loop's fused program (loc_lib_tpu/models/icp.py, the body of
-scan_match); as torch ops they were ~45 and ~18 launches.
+scan_match); as torch ops it was ~20 launches an iteration. `so3_renormalize`
+stays for a loop that takes no step.
+
+*The ESKF* (csrc/eskf_predict.cu): `eskf_predict_scan`, the propagation
+through one IMU packet, and `eskf_update`, an observation's Kalman update
+(a pose or a wheel speed), one launch of one block each; in the reference a
+`lax.scan` and a jitted update program.
 
 `LAUNCHES` counts kernel launches per kernel (never plain-version calls),
 so a run can show that its main path went through the kernels. Each call is
@@ -65,11 +73,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..utils import lie
+from ..utils import lie, mathx
 from . import voxel
 
 LAUNCHES = {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0, "ndt_fused_terms": 0,
-            "gn_step": 0, "so3_renormalize": 0, "eskf_predict_scan": 0}
+            "gn_step": 0, "so3_renormalize": 0, "eskf_predict_scan": 0, "eskf_update": 0}
 
 
 def reset_launch_counts() -> None:
@@ -398,20 +406,59 @@ def p2line_from_target_terms_plain(q, mask, R, t, gate, line_packed, index: Targ
     return _split(A.T @ A)
 
 
-def gn_step_plain(dx, ok, R, t, eps: float, may_converge: bool):
-    """The pose update of one GN iteration, over any leading axes: dx
-    (..., 6) the solve's step, ok (...,) bool (enough effective points), R
-    (..., 3, 3), t (..., 3). A step that is not ok, and any non-finite entry,
-    counts as 0; R <- R exp(dx[:3]), t <- t + dx[3:]; converged = ok and
-    |dx| < eps, never while `may_converge` is False (the gate warm-up).
-    The 3x3 products are lie.matmul3, so a lane's bits do not depend on the
-    batch it is in. Returns (R, t, converged)."""
+class GnState(NamedTuple):
+    """A Gauss-Newton loop's carried state over its lanes: leading axes ()
+    for one match, (B,) for a batched loop. Before the loop's first
+    iteration all but R and t are None (every lane active, counters at 0)."""
+
+    R: torch.Tensor                       # (..., 3, 3) the rotation the loop carries
+    t: torch.Tensor                       # (..., 3)
+    R_out: Optional[torch.Tensor] = None  # (..., 3, 3) R projected onto SO(3)
+    converged: Optional[torch.Tensor] = None    # (...,) bool
+    n_eff: Optional[torch.Tensor] = None        # (...,) int32
+    chi2: Optional[torch.Tensor] = None         # (...,) float32
+    iterations: Optional[torch.Tensor] = None   # (...,) int32
+    active: Optional[torch.Tensor] = None       # (...,) bool
+
+
+def gn_step_plain(lin, state: GnState, min_effective: int, warm: bool, eps: float,
+                  lin2=None, gate_count=None):
+    """One Gauss-Newton iteration after its linearization, over any leading
+    lane axes: `lin` = (H (..., 6, 6), b (..., 6), count (...,) int32,
+    chi2 (...,)) as the fused-terms kernels return it, plus `lin2`, a second
+    one summed into it (LOAM's surface + edge terms: the reference's
+    0 + Hs + He, whose first add is exact). A lane takes a step when
+    `gate_count` (default: the count) reaches `min_effective`. While `warm`
+    (the gate warm-up) H is Marquardt-damped, H + (1e-2 max diag H + 1e-6) I,
+    and no lane converges. The step dx = H^-1 b (mathx.solve_gn_6x6), zeroed
+    where not ok and entry by entry where not finite; R <- R exp(dx[:3]),
+    t <- t + dx[3:]; converged = ok and |dx| < eps; R_out is R after two
+    Newton-Schulz steps (what the loop returns). A lane that is not active
+    keeps its whole state. The 3x3 products are lie.matmul3, so a lane's
+    bits do not depend on the batch it is in.
+    Returns (GnState, flag): flag () bool, is any lane still active."""
+    H, b, count, chi2 = lin
+    if lin2 is not None:
+        H, b, count, chi2 = H + lin2[0], b + lin2[1], count + lin2[2], chi2 + lin2[3]
+    ok = (count if gate_count is None else gate_count) >= min_effective
+    if warm:
+        lam = 1e-2 * torch.amax(torch.diagonal(H, dim1=-2, dim2=-1), dim=-1) + 1e-6
+        H = H + lam[..., None, None] * torch.eye(6, dtype=H.dtype, device=H.device)
+    dx = mathx.solve_gn_6x6(H, b)
     dx = torch.where(ok[..., None], dx, 0.0)
     dx = torch.where(torch.isfinite(dx), dx, 0.0)
-    R_new, t_new = lie.se3_retract(R, t, dx, matmul=lie.matmul3)
-    if not may_converge:
-        return R_new, t_new, torch.zeros_like(ok)
-    return R_new, t_new, ok & (torch.sqrt(torch.sum(dx * dx, dim=-1)) < eps)
+    R_new, t_new = lie.se3_retract(state.R, state.t, dx, matmul=lie.matmul3)
+    converged = (torch.zeros_like(ok) if warm
+                 else ok & (torch.sqrt(torch.sum(dx * dx, dim=-1)) < eps))
+    iterations = (torch.ones_like(count, dtype=torch.int32) if state.iterations is None
+                  else state.iterations + 1)
+    new = GnState(R_new, t_new, so3_renormalize_plain(R_new), converged,
+                  count.to(torch.int32), chi2, iterations, ~converged)
+    if state.active is not None:
+        a = state.active
+        new = GnState(*(torch.where(a.reshape(a.shape + (1,) * (n.dim() - a.dim())), n, o)
+                        for n, o in zip(new, state)))
+    return new, torch.any(new.active)
 
 
 def so3_renormalize_plain(R):
@@ -463,6 +510,64 @@ def eskf_predict_scan_plain(p, v, R, bg, ba, g, cov, time, gyros, acces, stamps,
         nxt = eskf_predict_plain(*out[:3], bg, ba, g, *out[3:], gs[k], acs[k], ts[k], Q, imu_dt)
         out = tuple(torch.where(keep[k], n, o) for n, o in zip(nxt, out))
     return out
+
+
+ESKF_KINDS = ("se3", "wheel")     # the observations eskf_update takes
+
+
+def eskf_observation_plain(p, v, R, kind: str, obs, noise):
+    """The observation build of the ESKF's update, in p's dtype and on its
+    device: (H (m, 18), V (m, m), innov (m,)). `kind` "se3": obs = (R_obs,
+    t_obs), noise = (trans_noise, ang_noise); H selects p and theta, V holds
+    the noise values and not their squares (the reference's quirk), innov =
+    [t_obs - p, so3_log(R^T R_obs)]. `kind` "wheel": obs = (left_pulse,
+    right_pulse, metres per pulse per second), noise = (odom_var,); the mean
+    wheel speed is the body-x velocity, innov = R (speed, 0, 0) - v, H selects
+    v, V = odom_var^2 I."""
+    dev, dtype = p.device, p.dtype
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    if kind == "se3":
+        R_obs, t_obs = obs
+        H = torch.zeros((6, 18), dtype=dtype, device=dev)
+        H[0:3, 0:3] = eye3
+        H[3:6, 6:9] = eye3
+        V = torch.diag(torch.tensor((noise[0],) * 3 + (noise[1],) * 3, dtype=dtype, device=dev))
+        return H, V, torch.cat([t_obs - p, lie.so3_log(R.T @ R_obs)])
+    if kind != "wheel":
+        raise ValueError(f"kind: expected one of {ESKF_KINDS}, got {kind!r}")
+    left, right, wheel = obs
+    pulse = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+    speed = 0.5 * (wheel * pulse(left) + wheel * pulse(right))
+    v_body = torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=dev) * speed
+    H = torch.zeros((3, 18), dtype=dtype, device=dev)
+    H[0:3, 3:6] = eye3
+    return H, eye3 * (noise[0] * noise[0]), R @ v_body - v
+
+
+def eskf_update_plain(p, v, R, bg, ba, g, cov, kind: str, obs, noise,
+                      update_bias_gyro: bool, update_bias_acce: bool):
+    """The ESKF's update by one observation (see `eskf_observation_plain`
+    for `kind`, `obs` and `noise`), any float dtype: the Kalman gain K =
+    P H^T (H P H^T + V)^-1, dx = K innov, cov = (I - K H) P; the injection
+    (bg and ba only where their flags say), R = so3_renormalize(R
+    so3_exp(dtheta)); the tangent projection cov = J cov J^T with J = I but
+    J[6:9, 6:9] = I - 0.5 hat(dtheta). No symmetrization, as the reference.
+    Returns (p, v, R, bg, ba, g, cov). It is models.eskf's update math, kept
+    here as the kernel's plain version."""
+    H, V, innov = eskf_observation_plain(p, v, R, kind, obs, noise)
+    dev, dtype = p.device, p.dtype
+    eye18 = torch.eye(18, dtype=dtype, device=dev)
+    PHt = cov @ H.T
+    K = PHt @ torch.linalg.inv_ex(H @ PHt + V, check_errors=False).inverse
+    dx = K @ innov
+    new_cov = (eye18 - K @ H) @ cov
+    dtheta = dx[6:9]
+    J = eye18.clone()
+    J[6:9, 6:9] = torch.eye(3, dtype=dtype, device=dev) - 0.5 * lie.hat(dtheta)
+    return (p + dx[0:3], v + dx[3:6], lie.so3_renormalize(R @ lie.so3_exp(dtheta)),
+            bg + dx[9:12] * (1.0 if update_bias_gyro else 0.0),
+            ba + dx[12:15] * (1.0 if update_bias_acce else 0.0),
+            g + dx[15:18], J @ new_cov @ J.T)
 
 
 # ---------------------------------------------------------------------------
@@ -551,12 +656,22 @@ def _bind(cdll: ctypes.CDLL) -> None:
     # R, t, th, weighted, S, trunc / R, t, th
     cdll.ndt_from_map_launch.argtypes = [vp, vp, vp, *index, vp, vp, cf, ci, ci, ci, *tail]
     cdll.p2line_from_target_launch.argtypes = [vp, vp, vp, *index, vp, vp, cf, *tail]
-    # dx, ok, R, t, eps, may_converge, lanes, R_out, t_out, converged, stream
-    cdll.gn_step_launch.argtypes = [vp, vp, vp, vp, cf, ci, ci, vp, vp, vp, vp]
+    cdll.gn_step_launch.argtypes = [ctypes.POINTER(_GnStepArgsC), vp]     # args, stream
     cdll.so3_renormalize_launch.argtypes = [vp, ci, vp, vp]      # R, lanes, R_out, stream
     # p, v, R, bg, ba, g, cov, time, packet, K, Q, max_dt, p, v, R, cov, time out, stream
     cdll.eskf_predict_scan_launch.argtypes = [vp] * 9 + [ci, vp, cf] + [vp] * 6
+    # p, v, R, bg, ba, g, cov, kind, R_obs, t_obs, pulses, noise0, noise1, wheel, left,
+    # right, update_bg, update_ba, p, v, R, bg, ba, g, cov out, stream
+    cdll.eskf_update_launch.argtypes = [vp] * 7 + [ci] + [vp] * 3 + [cf] * 5 + [ci] * 2 \
+        + [vp] * 8
+    cdll.loc_event_create.argtypes = [ctypes.POINTER(vp)]
+    cdll.loc_event_wait.argtypes = [vp]
+    # dst, src, bytes, event, stream
+    cdll.loc_copy_to_device.argtypes = [vp, vp, ctypes.c_longlong, vp, vp]
+    for fn in (cdll.loc_event_create, cdll.loc_event_wait, cdll.loc_copy_to_device):
+        fn.restype = ci
     for fn in (cdll.gn_step_launch, cdll.so3_renormalize_launch, cdll.eskf_predict_scan_launch,
+               cdll.eskf_update_launch,
                cdll.p2plane_fused_terms_launch, cdll.p2plane_pick_fused_terms_launch,
                cdll.p2plane_from_target_launch, cdll.p2plane_pick_from_target_launch,
                cdll.p2plane_from_target_batch_launch,
@@ -946,32 +1061,200 @@ def _raise_on(fn_name, err):
                            f"{build().cdll.loc_fused_error_string(err).decode()}")
 
 
-def gn_step(dx, ok, R, t, eps: float, may_converge: bool):
-    """The pose update of one GN iteration in ONE launch, for one match (dx
-    (6,), ok (), R (3, 3), t (3,)) or B of them (a leading B axis on each):
-    see `gn_step_plain`, which CPU tensors take. Float32 tensors (a strided
-    one is copied) and a bool `ok`, as the solve and the fused-terms kernels
-    hand them over.
-    Returns (R, t, converged), new tensors of the inputs' shapes. Its results
-    are three allocations, not views of one: three `empty_like` cost the host
-    less than one allocation and two slice-and-view pairs."""
-    if dx.device.type == "cpu":
-        return gn_step_plain(dx, ok, R, t, eps, may_converge)
-    dev = _device_of(dx)
-    lanes = dx.shape[:-1]
-    # a batched solve hands its steps over strided: the copy is per call
-    dx, R, t = _f32_on(dx, dev), _f32_on(R, dev), _f32_on(t, dev)
-    _check("dx", dx, (*lanes, 6), dev)
-    _check("ok", ok, lanes, dev, dtype=torch.bool)
-    _check("R", R, (*lanes, 3, 3), dev)
-    _check("t", t, (*lanes, 3), dev)
-    R_new, t_new, converged = torch.empty_like(R), torch.empty_like(t), torch.empty_like(ok)
+class _GnLinC(ctypes.Structure):
+    """GnLin in gn_update.cu: one linearization read through lane strides."""
+    _fields_ = [("H", ctypes.c_void_p), ("b", ctypes.c_void_p), ("count", ctypes.c_void_p),
+                ("chi2", ctypes.c_void_p), ("sH", ctypes.c_longlong), ("sb", ctypes.c_longlong),
+                ("sc", ctypes.c_longlong), ("sx", ctypes.c_longlong)]
+
+
+class _GnStateC(ctypes.Structure):
+    """GnState in gn_update.cu: pointers to a loop's carried state."""
+    _fields_ = [(name, ctypes.c_void_p) for name in GnState._fields]
+
+
+class _GnStepArgsC(ctypes.Structure):
+    """GnStepArgs in gn_update.cu: the whole launch, passed by pointer."""
+    _fields_ = [("lin", _GnLinC * 2), ("gate_count", ctypes.c_void_p),
+                ("s_gate", ctypes.c_longlong), ("inp", _GnStateC), ("out", _GnStateC),
+                ("flag", ctypes.c_void_p), ("lanes", ctypes.c_int),
+                ("min_effective", ctypes.c_int), ("warm", ctypes.c_int), ("eps", ctypes.c_float)]
+
+
+def _lin_on(c: _GnLinC, lin, lanes, device):
+    """Point `c` at the linearization (H, b, count, chi2) over `lanes`; returns
+    the tensors it points at (the caller keeps them alive until the launch is
+    enqueued). The fused-terms kernels' outputs, views of one (L, 44)
+    allocation, go as they are; a tensor in another layout or type is made
+    contiguous float32 / int32 first."""
+    H, b, count, chi2 = lin
+    batched = len(lanes) == 1
+    if H.shape != (*lanes, 6, 6) or b.shape != (*lanes, 6) or count.shape != lanes \
+            or chi2.shape != lanes:
+        raise ValueError(f"gn_step: expected H {(*lanes, 6, 6)}, b {(*lanes, 6)}, count and chi2 "
+                         f"{lanes}, got {tuple(H.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(count.shape)}, {tuple(chi2.shape)}")
+    for x in (H, b, count, chi2):
+        if x.device != device:
+            raise ValueError(f"gn_step: expected tensors on {device}, got {x.device}")
+    if H.dtype != torch.float32 or H.stride()[-2:] != (6, 1):
+        H = H.to(torch.float32).contiguous()
+    if b.dtype != torch.float32 or b.stride(-1) != 1:
+        b = b.to(torch.float32).contiguous()
+    if count.dtype != torch.int32:
+        count = count.to(torch.int32)
+    if chi2.dtype != torch.float32:
+        chi2 = chi2.to(torch.float32)
+    c.H, c.b, c.count, c.chi2 = H.data_ptr(), b.data_ptr(), count.data_ptr(), chi2.data_ptr()
+    if batched:
+        c.sH, c.sb, c.sc, c.sx = H.stride(0), b.stride(0), count.stride(0), chi2.stride(0)
+    return H, b, count, chi2
+
+
+def _gn_state_buffers(lanes, device) -> tuple:
+    """A GN loop's carried state over `lanes`, and the flag byte: (GnState,
+    flag). One allocation a field: on the host a view costs as much as an
+    allocation."""
+    empty = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=device)
+    state = GnState(R=empty((*lanes, 3, 3)), t=empty((*lanes, 3)), R_out=empty((*lanes, 3, 3)),
+                    converged=empty(lanes, torch.bool), n_eff=empty(lanes, torch.int32),
+                    chi2=empty(lanes), iterations=empty(lanes, torch.int32),
+                    active=empty(lanes, torch.bool))
+    return state, empty((), torch.bool)
+
+
+def _point_state(c: _GnStateC, state: GnState):
+    for name, x in zip(GnState._fields, state):
+        setattr(c, name, None if x is None else x.data_ptr())
+
+
+def _gn_launch(args: _GnStepArgsC, lin, lin2, gate_count, warm, lanes, device):
+    """Fill the per-iteration fields of `args` and launch gn_step once."""
+    _alive = [_lin_on(args.lin[0], lin, lanes, device)]
+    if lin2 is None:
+        args.lin[1].H = None
+    else:
+        _alive.append(_lin_on(args.lin[1], lin2, lanes, device))
+    if gate_count is None:
+        args.gate_count = None
+    else:
+        if gate_count.shape != lanes or gate_count.device != device:
+            raise ValueError(f"gate_count: expected shape {lanes} on {device}, got "
+                             f"{tuple(gate_count.shape)} on {gate_count.device}")
+        gate_count = gate_count.to(torch.int32)
+        args.gate_count = gate_count.data_ptr()
+        args.s_gate = gate_count.stride(0) if lanes else 0
+    args.warm = 1 if warm else 0
     _raise_on("gn_step_launch", build().cdll.gn_step_launch(
-        dx.data_ptr(), ok.data_ptr(), R.data_ptr(), t.data_ptr(), eps, 1 if may_converge else 0,
-        ok.numel(), R_new.data_ptr(), t_new.data_ptr(), converged.data_ptr(),
-        torch._C._cuda_getCurrentRawStream(dev.index)))
+        ctypes.byref(args), torch._C._cuda_getCurrentRawStream(device.index)))
     LAUNCHES["gn_step"] += 1
-    return R_new, t_new, converged
+
+
+def _gn_args(state: GnState, out: GnState, flag, min_effective: int, eps: float):
+    R = state.R
+    lanes = R.shape[:-2]
+    if len(lanes) > 1 or (lanes and not 0 < lanes[0] <= MAX_LANES):
+        raise ValueError(f"gn_step: expected no lane axis or one of 1..{MAX_LANES} lanes, got "
+                         f"{tuple(lanes)}")
+    dev = _device_of(R)
+    # a loop's start may come strided or in another type: copied once
+    state = state._replace(R=_f32_on(R, dev), t=_f32_on(state.t, dev))
+    _check("R", state.R, (*lanes, 3, 3), dev)
+    _check("t", state.t, (*lanes, 3), dev)
+    if state.active is not None:
+        for name, x, dtype in (("R_out", state.R_out, torch.float32),
+                               ("converged", state.converged, torch.bool),
+                               ("n_eff", state.n_eff, torch.int32),
+                               ("chi2", state.chi2, torch.float32),
+                               ("iterations", state.iterations, torch.int32),
+                               ("active", state.active, torch.bool)):
+            _check(name, x, (*lanes, 3, 3) if name == "R_out" else lanes, dev, dtype=dtype)
+    elif any(x is not None for x in state[2:]):
+        raise ValueError("gn_step: a carried state needs every field, `active` included")
+    args = _GnStepArgsC()
+    _point_state(args.inp, state)
+    _point_state(args.out, out)
+    args.flag = flag.data_ptr()
+    args.lanes = lanes[0] if lanes else 1
+    args.min_effective, args.eps = int(min_effective), float(eps)
+    return args, lanes, dev, state
+
+
+def gn_step(lin, state: GnState, min_effective: int, warm: bool, eps: float, lin2=None,
+            gate_count=None):
+    """One Gauss-Newton iteration after its linearization in ONE launch
+    (csrc/gn_update.cu), for one match or B (a leading B axis on every
+    tensor): see `gn_step_plain`, which CPU tensors take. Returns (GnState,
+    flag) as new tensors; the inputs are never written. A loop that steps
+    many times should use `GnLoop`, which checks and allocates once."""
+    if state.R.device.type == "cpu":
+        return gn_step_plain(lin, state, min_effective, warm, eps, lin2, gate_count)
+    out, flag = _gn_state_buffers(state.R.shape[:-2], state.R.device)
+    args, lanes, dev, _alive = _gn_args(state, out, flag, min_effective, eps)
+    _gn_launch(args, lin, lin2, gate_count, warm, lanes, dev)
+    return out, flag
+
+
+class GnLoop:
+    """One Gauss-Newton loop over its lanes (R0 (3, 3), t0 (3,) for one match;
+    (B, 3, 3), (B, 3) for a batched loop): the pose to linearize at (`R`,
+    `t`), the lanes still running (`active`, None before the first step:
+    all), and `step`, the iteration after the linearization.
+
+    On the card the state is allocated and checked once, at the first step,
+    and every step updates it in place: ONE launch of `gn_step`, no
+    allocation. So a tensor read from `R` or `t` inside the loop is
+    overwritten by the next step (clone what must outlive it); `result`, read
+    after the last step, is never written again. CPU tensors take
+    `gn_step_plain`, functionally."""
+
+    def __init__(self, R0, t0, min_effective: int, eps: float):
+        self.state = GnState(R0, t0)
+        self.min_effective, self.eps = int(min_effective), float(eps)
+        self._args = None
+
+    @property
+    def R(self):
+        return self.state.R
+
+    @property
+    def t(self):
+        return self.state.t
+
+    @property
+    def active(self):
+        return self.state.active
+
+    def step(self, lin, warm: bool = False, lin2=None, gate_count=None) -> torch.Tensor:
+        """One iteration: see `gn_step_plain`. Returns the flag, () bool: is
+        any lane still running (for one match: not converged). The host's
+        one read per iteration is of this flag."""
+        if self.state.R.device.type == "cpu":
+            self.state, flag = gn_step_plain(lin, self.state, self.min_effective, warm, self.eps,
+                                             lin2, gate_count)
+            return flag
+        if self._args is None:
+            out, self._flag = _gn_state_buffers(self.state.R.shape[:-2], self.state.R.device)
+            self._args, self._lanes, self._dev, _alive = _gn_args(
+                self.state, out, self._flag, self.min_effective, self.eps)
+            _gn_launch(self._args, lin, lin2, gate_count, warm, self._lanes, self._dev)
+            self.state = out
+            self._args.inp = self._args.out          # in place from here on
+            return self._flag
+        _gn_launch(self._args, lin, lin2, gate_count, warm, self._lanes, self._dev)
+        return self._flag
+
+    def result(self) -> tuple:
+        """(R, t, converged, n_eff, chi2, iterations) after the last step: R
+        projected onto SO(3). A loop that took no step returns its start,
+        projected (one `so3_renormalize` launch on the card), and zeros."""
+        s = self.state
+        if s.R_out is None:
+            lanes, dev = s.R.shape[:-2], s.R.device
+            z = lambda dtype: torch.zeros(lanes, dtype=dtype, device=dev)
+            return (so3_renormalize(s.R), s.t, z(torch.bool), z(torch.int32), z(torch.float32),
+                    z(torch.int32))
+        return s.R_out, s.t, s.converged, s.n_eff, s.chi2, s.iterations
 
 
 def so3_renormalize(R):
@@ -993,21 +1276,88 @@ def so3_renormalize(R):
 ESKF_PACKET_WORDS = 8      # kPacketWords in eskf_predict.cu: gyro | acce | stamp | valid
 
 
+PINNED_SLOTS = 4           # host buffers the packet copies cycle through
+
+
+class _PinnedRing:
+    """Page-locked host buffers for the IMU packets of one card, used in
+    turn: a packet is packed into the next buffer and copied to the card in
+    one call (csrc/eskf_predict.cu, `loc_copy_to_device`), without waiting
+    for the stream; the call records the buffer's event behind its copy. A
+    buffer is written again only after that event has completed, so no copy
+    is overwritten while it runs; with PINNED_SLOTS buffers it has long
+    completed."""
+
+    def __init__(self, device):
+        lib = build().cdll
+        self.host = [None] * PINNED_SLOTS          # (rows, 8) float32, page-locked
+        self.events = [ctypes.c_void_p() for _ in range(PINNED_SLOTS)]
+        with torch.cuda.device(device):
+            for e in self.events:
+                _raise_on("loc_event_create", lib.loc_event_create(ctypes.byref(e)))
+        self.next = 0
+        self.lock = threading.Lock()
+
+    def copy(self, gyros, acces, stamps, valid, dst, stream) -> None:
+        """Pack the packet's K rows and copy them to `dst` (a device address
+        with room for K rows) on `stream`."""
+        K = len(stamps)
+        lib = build().cdll
+        with self.lock:
+            k = self.next
+            self.next = (k + 1) % PINNED_SLOTS
+            _raise_on("loc_event_wait", lib.loc_event_wait(self.events[k]))
+            if self.host[k] is None or self.host[k].shape[0] < K:
+                self.host[k] = torch.empty((max(K, 64), ESKF_PACKET_WORDS), dtype=torch.float32,
+                                           pin_memory=True)
+            buf = self.host[k].numpy()
+            buf[:K, 0:3] = gyros
+            buf[:K, 3:6] = acces
+            buf[:K, 6] = stamps
+            buf[:K, 7] = valid
+            _raise_on("loc_copy_to_device", lib.loc_copy_to_device(
+                dst, self.host[k].data_ptr(), K * ESKF_PACKET_WORDS * 4, self.events[k], stream))
+
+
+_pinned: dict = {}     # device index -> _PinnedRing
+
+
+def _pinned_ring(device) -> _PinnedRing:
+    ring = _pinned.get(device.index)
+    if ring is None:
+        ring = _PinnedRing(device)
+        with _lock:
+            ring = _pinned.setdefault(device.index, ring)
+    return ring
+
+
+def _host_packet(parts) -> bool:
+    """True where the packet comes as host arrays (no tensor among them)."""
+    return not any(isinstance(x, torch.Tensor) for x in parts)
+
+
 def imu_packet(gyros, acces, stamps, valid, device) -> torch.Tensor:
     """The packet as the kernel reads it: (K, 8) float32 rows [gyro (3) |
     acce (3) | stamp | valid (0 / 1)] on `device`. Host arrays are packed
-    into one host buffer and copied to the device once, without waiting for
-    the stream; tensors are packed where they are (the host reads none of
-    them)."""
+    into one buffer and copied once: to a card through a page-locked buffer
+    of `_PinnedRing`, without waiting for the stream. Tensors are packed
+    where they are (the host reads none of them)."""
     parts = (gyros, acces, stamps, valid)
-    if not any(isinstance(x, torch.Tensor) for x in parts):
-        K = len(stamps)
-        buf = np.empty((K, ESKF_PACKET_WORDS), np.float32)
+    device = torch.device(device)
+    if _host_packet(parts) and device.type == "cuda":
+        dev = device if device.index is not None else torch.device(
+            "cuda", torch.cuda.current_device())
+        out = torch.empty((len(stamps), ESKF_PACKET_WORDS), dtype=torch.float32, device=dev)
+        _pinned_ring(dev).copy(*parts, out.data_ptr(),
+                               torch._C._cuda_getCurrentRawStream(dev.index))
+        return out
+    if _host_packet(parts):
+        buf = np.empty((len(stamps), ESKF_PACKET_WORDS), np.float32)
         buf[:, 0:3] = gyros
         buf[:, 3:6] = acces
         buf[:, 6] = stamps
         buf[:, 7] = valid
-        return torch.from_numpy(buf).to(device, non_blocking=True)
+        return torch.from_numpy(buf).to(device)
     g, a, ts, v = (torch.as_tensor(x, device=device).to(torch.float32) for x in parts)
     return torch.cat([g, a, ts[:, None], v[:, None]], dim=1)
 
@@ -1049,6 +1399,62 @@ def _eskf_predict_scan_launch(p, v, R, bg, ba, g, cov, time, packet, Q, imu_dt: 
         cov.data_ptr(), time.data_ptr(), packet.data_ptr(), packet.shape[0], Q.data_ptr(),
         5.0 * imu_dt, *(x.data_ptr() for x in out), torch._C._cuda_getCurrentRawStream(dev.index)))
     LAUNCHES["eskf_predict_scan"] += 1
+    return out
+
+
+_ESKF_FIELDS = ("p", "v", "R", "bg", "ba", "g", "cov")     # what eskf_update takes and returns
+_ESKF_SHAPES = ((3,), (3,), (3, 3), (3,), (3,), (3,), (18, 18))
+
+
+def _pulse(x, device):
+    """A wheel pulse count: (value, None), or (None, a device tensor) where
+    it is on the card already (the host reads nothing back)."""
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        return None, x.to(device=device, dtype=torch.float32).reshape(())
+    return float(x), None
+
+
+def eskf_update(p, v, R, bg, ba, g, cov, kind: str, obs, noise, update_bias_gyro: bool,
+                update_bias_acce: bool):
+    """The ESKF's update by one observation in ONE launch
+    (csrc/eskf_predict.cu): the state p, v (3,), R (3, 3), bg, ba, g (3,),
+    cov (18, 18) as float32 tensors; `kind`, `obs` and `noise` as for
+    `eskf_observation_plain` ("se3": (R_obs, t_obs) and (trans_noise,
+    ang_noise); "wheel": (left_pulse, right_pulse, metres per pulse per
+    second) and (odom_var,)). CPU tensors take `eskf_update_plain`. Returns
+    new tensors (p, v, R, bg, ba, g, cov); the inputs are never written."""
+    if kind not in ESKF_KINDS:
+        raise ValueError(f"kind: expected one of {ESKF_KINDS}, got {kind!r}")
+    if p.device.type == "cpu":
+        return eskf_update_plain(p, v, R, bg, ba, g, cov, kind, obs, noise, update_bias_gyro,
+                                 update_bias_acce)
+    dev = _device_of(p)
+    state = tuple(_f32_on(x, dev) for x in (p, v, R, bg, ba, g, cov))
+    for name, x, shape in zip(_ESKF_FIELDS, state, _ESKF_SHAPES):
+        _check(name, x, shape, dev)
+    if kind == "se3":
+        R_obs, t_obs = (_f32_on(x if isinstance(x, torch.Tensor) else torch.as_tensor(x), dev)
+                        for x in obs)
+        _check("R_obs", R_obs, (3, 3), dev)
+        _check("t_obs", t_obs, (3,), dev)
+        _alive = (R_obs, t_obs)
+        ptrs = (R_obs.data_ptr(), t_obs.data_ptr(), None)
+        values = (float(noise[0]), float(noise[1]), 0.0, 0.0, 0.0)
+    else:
+        (left, lt), (right, rt) = _pulse(obs[0], dev), _pulse(obs[1], dev)
+        _alive = None
+        if lt is not None or rt is not None:
+            _alive = torch.stack([torch.full((), x, dtype=torch.float32, device=dev)
+                                  if t is None else t for x, t in ((left, lt), (right, rt))])
+            left = right = 0.0
+        ptrs = (None, None, None if _alive is None else _alive.data_ptr())
+        values = (float(noise[0]) * float(noise[0]), 0.0, float(obs[2]), left, right)
+    out = tuple(torch.empty(shape, dtype=torch.float32, device=dev) for shape in _ESKF_SHAPES)
+    _raise_on("eskf_update_launch", build().cdll.eskf_update_launch(
+        *(x.data_ptr() for x in state), ESKF_KINDS.index(kind), *ptrs, *values,
+        1 if update_bias_gyro else 0, 1 if update_bias_acce else 0,
+        *(x.data_ptr() for x in out), torch._C._cuda_getCurrentRawStream(dev.index)))
+    LAUNCHES["eskf_update"] += 1
     return out
 
 

@@ -5,10 +5,10 @@ A scan organized as a (rings, cols) range image turns the +-2-ring x
 +-5-column window search into a stencil: shifted subtracts and a running
 minimum over an (R, C, 3) tensor, no gather and no sort. `scan_match_rings`
 runs frame-to-frame point-to-point Gauss-Newton odometry over those
-correspondences, with the port's GN loop idiom: the pose update of an
-iteration is one `kernels.gn_step`, the output rotation one
-`kernels.so3_renormalize`, and the host reads the stop flag once per
-iteration.
+correspondences, with the port's GN loop idiom: after the linearization
+an iteration is one `kernels.gn_step` (the 6x6 solve, the pose update and
+the output rotation's projection), and the host reads the stop flag once
+per iteration.
 
 Differences from the JAX package, semantics kept:
   * the scatters of `organize_rings` are `scatter_reduce` amin / amax,
@@ -30,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils import lie, mathx
+from ..utils import lie
 from . import kernels
 from .pointcloud import PAD_COORD
 
@@ -142,11 +142,10 @@ def scan_match_rings(prev: RingImage, cur: RingImage, opts: RingOptions, R0=None
     t = (torch.zeros(3, dtype=torch.float32, device=dev) if t0 is None
          else torch.as_tensor(t0, dtype=torch.float32, device=dev))
     minus_eye = -torch.eye(3, dtype=torch.float32, device=dev)
-    converged = torch.zeros((), dtype=torch.bool, device=dev)
-    n_eff = torch.zeros((), dtype=torch.int32, device=dev)
-    chi2 = torch.zeros((), dtype=torch.float32, device=dev)
+    loop = kernels.GnLoop(R, t, opts.min_effective_pts, opts.eps)
     it = 0
     while it < opts.max_iteration:
+        R, t = loop.R, loop.t
         qs = q @ R.T + t
         nn, d2, found = ring_window_nn(prev, RingImage(xyz=qs.reshape(cur.xyz.shape),
                                                        valid=cur.valid),
@@ -162,10 +161,9 @@ def scan_match_rings(prev: RingImage, cur: RingImage, opts: RingOptions, R0=None
         b = -(Jw.T @ (e * w[:, None]).reshape(-1))
         n_eff = eff.to(torch.int32).sum()
         chi2 = torch.sum(_sq3(e) * w)
-        R, t, converged = kernels.gn_step(mathx.solve_gn_6x6(H, b),
-                                          n_eff >= opts.min_effective_pts, R, t, opts.eps, True)
         it += 1
-        if bool(converged):     # the one host read per iteration
+        if not bool(loop.step((H, b, n_eff, chi2))):     # the one host read per iteration
             break
-    return RingMatchResult(R=kernels.so3_renormalize(R), t=t, converged=converged,
-                           num_effective=n_eff, iterations=it, chi2=chi2)
+    R, t, converged, n_eff, chi2, _ = loop.result()
+    return RingMatchResult(R=R, t=t, converged=converged, num_effective=n_eff, iterations=it,
+                           chi2=chi2)

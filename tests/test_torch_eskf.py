@@ -155,6 +155,44 @@ def test_observe_se3_matches_jax(seed):
     _assert_state_close(tout, jout)
 
 
+@pytest.mark.parametrize("kind", ["se3", "wheel"])
+@pytest.mark.parametrize("update_bg,update_ba", [(True, True), (False, False), (True, False),
+                                                 (False, True)])
+def test_eskf_update_plain_matches_jax(kind, update_bg, update_ba):
+    """kernels.eskf_update on CPU tensors (its plain version: the
+    observation build and the Kalman update as torch ops) against JAX's
+    observe_se3 / observe_wheel_speed with the bias flags on and off, on a
+    propagated state with a full covariance: the state within atol 1e-5;
+    with a flag off that bias keeps its bits."""
+    from loc_lib_tpu_torch.ops import kernels
+
+    js, _ = _state_pair()
+    g, a, s, v = _packet()
+    js = jeskf.predict_scan(js, jnp.asarray(g), jnp.asarray(a), jnp.asarray(s),
+                            jnp.asarray(v), jeskf.EskfOptions())
+    ts = convert.eskf_state_from_numpy(jax.tree_util.tree_map(np.asarray, js)._asdict(), "cpu")
+    jopts = jeskf.EskfOptions(update_bias_gyro=update_bg, update_bias_acce=update_ba)
+    opts = eskf.EskfOptions(update_bias_gyro=update_bg, update_bias_acce=update_ba)
+    rng = np.random.default_rng(3)
+    if kind == "se3":
+        R_obs = (np.asarray(js.R) @ np.asarray(jlie.so3_exp(jnp.asarray(
+            rng.normal(size=3) * 0.02, jnp.float32)))).astype(np.float32)
+        t_obs = (np.asarray(js.p) + rng.normal(size=3) * 0.05).astype(np.float32)
+        jout = jeskf.observe_se3(js, jnp.asarray(R_obs), jnp.asarray(t_obs), jopts)
+        obs, noise = (torch.from_numpy(R_obs), torch.from_numpy(t_obs)), (0.1, np.pi / 180.0)
+    else:
+        left, right = np.float32(30.0), np.float32(34.0)
+        jout = jeskf.observe_wheel_speed(js, left, right, jopts)
+        wheel = opts.wheel_radius * 2.0 * np.pi / opts.circle_pulse / opts.odom_span
+        obs, noise = (left, torch.tensor(right), wheel), (opts.odom_var,)
+    got = kernels.eskf_update(*ts[:7], kind, obs, noise, update_bg, update_ba)
+    _assert_state_close(ts._replace(**dict(zip(eskf._UPDATED, got))), jout)
+    for flag, name, k in ((update_bg, "bg", 3), (update_ba, "ba", 4)):
+        if not flag:
+            assert torch.equal(got[k], getattr(ts, name)), name
+    assert not torch.equal(got[6], ts.cov)
+
+
 @pytest.mark.parametrize("gated", [False, True])
 def test_static_imu_init_matches_jax(gated):
     rng = np.random.default_rng(0)
@@ -180,7 +218,7 @@ def test_process_noise_is_built_once_per_options_and_device():
     """Q depends only on (opts, device): predict_scan asks for it on every
     scan and must get the one tensor built at the first call (on the card the
     element fills that build it are a host round trip each), with the bits a
-    fresh build has; observe_se3's V likewise; other options, another Q."""
+    fresh build has; other options, another Q."""
     opts = eskf.EskfOptions()
     dev = torch.device("cpu")
     Q = eskf.process_noise(opts, dev)

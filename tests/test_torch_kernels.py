@@ -282,15 +282,21 @@ def test_cpu_tensors_never_touch_launch_counters():
     tgt, opts, src, R, t = _vox_case("p2plane_vox_oct", 512)
     for method in ("p2plane_vox", "p2plane_vox_oct"):
         icp.compute_h_and_b(tgt, icp.IcpOptions(method=method, dense_dims=DIMS), src, R, t)
-    kernels.gn_step(torch.zeros(6), torch.ones((), dtype=torch.bool), R, t, 1e-3, True)
+    lin = (torch.eye(6), torch.zeros(6), torch.tensor(200, dtype=torch.int32), torch.zeros(()))
+    kernels.gn_step(lin, kernels.GnState(R, t), 100, False, 1e-3)
+    loop = kernels.GnLoop(R, t, 100, 1e-3)
+    loop.step(lin, warm=True, lin2=lin)
+    loop.result()
     kernels.so3_renormalize(R)
     st = eskf.init_state(device="cpu")
     kernels.eskf_predict_scan(*st, np.zeros((4, 3)), np.zeros((4, 3)), np.arange(4) * 0.01,
                               np.ones(4, bool), eskf.process_noise(eskf.EskfOptions(), "cpu"),
                               0.01)
+    eskf.observe_se3(st, torch.eye(3), torch.zeros(3), eskf.EskfOptions())
+    eskf.observe_wheel_speed(st, 3.0, torch.tensor(4.0), eskf.EskfOptions())
     assert kernels.LAUNCHES == {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0,
                                 "ndt_fused_terms": 0, "gn_step": 0, "so3_renormalize": 0,
-                                "eskf_predict_scan": 0}
+                                "eskf_predict_scan": 0, "eskf_update": 0}
 
 
 def test_non_cpu_non_cuda_tensors_raise():
@@ -791,61 +797,187 @@ def test_batched_wrappers_check_their_shapes_before_any_launch():
     assert kernels.MAX_LANES == 65535
 
 
+MIN_EFF = 100
+
+
 def _gn_step_case(B, seed=21):
-    """B pose updates: small steps, lane 1 not ok, lane 2 with a non-finite
-    entry, lane 3 under eps, lane 4 a zero step."""
+    """B linearizations (H = A^T A from 24 random rows, b = H dx for a step dx
+    of ~2 cm / 0.02 rad), counts 200-1000, and poses: lane 1 under
+    MIN_EFF points, lane 2 a step under eps, lane 3 a zero step."""
     rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, 24, 6)) * rng.uniform(0.2, 3.0, size=(B, 1, 6))
+    H = np.einsum("bki,bkj->bij", A, A).astype(np.float32)
+    dx = rng.normal(scale=0.02, size=(B, 6))
+    count = rng.integers(200, 1000, size=B).astype(np.int32)
+    if B > 3:
+        count[1] = MIN_EFF // 2
+        dx[2] *= 1e-4
+        dx[3] = 0.0
+    b = np.einsum("bij,bj->bi", H.astype(np.float64), dx).astype(np.float32)
+    chi2 = rng.uniform(1.0, 50.0, size=B).astype(np.float32)
     R = np.stack([oracles.so3_exp(rng.normal(size=3) * 0.3) for _ in range(B)]).astype(np.float32)
     t = rng.normal(size=(B, 3)).astype(np.float32)
-    dx = rng.normal(scale=0.02, size=(B, 6)).astype(np.float32)
-    ok = np.ones(B, bool)
-    if B > 4:
-        ok[1] = False
-        dx[2, 4] = np.inf
-        dx[3] *= 1e-4
-        dx[4] = 0.0
-    return R, t, dx, ok
+    return H, b, count, chi2, R, t
+
+
+def _jax_gn_body(H, b, gate, R, t, warm, eps):
+    """The reference's loop body (loc_lib_tpu/models/icp.py, scan_match's
+    while_loop) lane by lane: damping while warm, the solve, the two `where`
+    filters, the retraction, the stop test; and the output's projection."""
+    from loc_lib_tpu.utils import lie as jlie, mathx as jmathx
+
+    out = []
+    for Hk, bk, gk, Rk, tk in zip(H, b, gate, R, t):
+        Hk, bk = jnp.asarray(Hk), jnp.asarray(bk)
+        ok = jnp.asarray(gk) >= MIN_EFF
+        dx = jmathx.solve_gn_6x6(Hk, bk)
+        if warm:
+            lam = 1e-2 * jnp.max(jnp.diagonal(Hk)) + 1e-6
+            dx = jmathx.solve_gn_6x6(Hk + lam * jnp.eye(6, dtype=Hk.dtype), bk)
+        dx = jnp.where(ok, dx, jnp.zeros(6, dtype=bk.dtype))
+        dx = jnp.where(jnp.isfinite(dx), dx, 0.0)
+        Rn, tn = jlie.se3_retract(jnp.asarray(Rk), jnp.asarray(tk), dx)
+        conv = ok & (jnp.linalg.norm(dx) < eps) & (not warm)
+        out.append((np.asarray(Rn), np.asarray(tn), bool(conv),
+                    np.asarray(jlie.so3_renormalize(Rn)), np.asarray(dx)))
+    return [np.stack(x) for x in zip(*out)]
 
 
 @pytest.mark.parametrize("may_converge", [True, False])
 def test_gn_step_plain_matches_the_reference_loop_body(may_converge):
     """kernels.gn_step on the CPU (its plain version) against the JAX GN
     body it replaces (loc_lib_tpu/models/icp.py, scan_match's while_loop:
-    the two `where` filters, lie.se3_retract, the step norm and the stop
-    test): R within 1e-6, t exact to 1e-7, converged equal."""
-    from loc_lib_tpu.utils import lie as jlie
+    the damping of a warm-up iteration, the solve, the two `where` filters,
+    lie.se3_retract, the step norm and the stop test; the output's
+    projection), on 8 lanes from a numpy seed, after the gate warm-up
+    (may converge) and in it (damped, never converges): R, t and the
+    projected R_out within 1e-6 relative, converged, n_eff and chi2 equal,
+    and bit for bit against the loop body as torch ops (the CPU's bits do
+    not move; JAX's LAPACK may differ in a last bit)."""
+    _hold_gn_case("cold" if may_converge else "warm")
 
-    eps = 1e-3
-    R, t, dx, ok = _gn_step_case(16)
-    R_new, t_new, conv = kernels.gn_step(*_t(dx, ok, R, t), eps, may_converge)
-    jdx = jnp.where(jnp.asarray(ok)[:, None], jnp.asarray(dx), 0.0)
-    jdx = jnp.where(jnp.isfinite(jdx), jdx, 0.0)
-    jR, jt = jlie.se3_retract(jnp.asarray(R), jnp.asarray(t), jdx)
-    jconv = jnp.asarray(ok) & (jnp.linalg.norm(jdx, axis=-1) < eps) & may_converge
-    np.testing.assert_allclose(R_new.numpy(), np.asarray(jR), atol=1e-6)
-    np.testing.assert_allclose(t_new.numpy(), np.asarray(jt), atol=1e-7)
-    assert conv.tolist() == np.asarray(jconv).tolist()
-    assert conv.tolist()[:5] == [False, False, False, may_converge, may_converge]
-    # the step that is not ok leaves its pose where it was
-    assert torch.equal(t_new[1], torch.from_numpy(t[1]))
-    np.testing.assert_allclose(R_new[1].numpy(), R[1], atol=1e-7)
-    assert torch.isfinite(R_new).all() and torch.isfinite(t_new).all()
+
+@pytest.mark.parametrize("case", ["not_ok", "singular", "nan", "loam_sum", "ndt_gate",
+                                  "frozen_lane"])
+def test_gn_step_plain_special_lanes_match_the_reference(case):
+    """As above for the lanes the loop body filters or carries: too few
+    points (no step, bit for bit); singular and NaN systems (the pose where
+    it was, finite); LOAM's two systems summed; NDT direct's gate on the
+    source count, reporting the residual count; a lane that has stopped
+    keeps its whole state while the others step."""
+    _hold_gn_case(case)
+
+
+def _hold_gn_case(case):
+    eps, B = 1e-3, 8
+    H, b, count, chi2, R, t = _gn_step_case(B)
+    warm = case == "warm"
+    gate = count.copy()
+    lin2 = None
+    if case == "not_ok":
+        count[:] = gate[:] = MIN_EFF - 1
+    if case == "singular":
+        H[4:, 5, :] = H[4:, :, 5] = 0.0          # a direction no point constrains
+        H[6:] = 0.0                              # nothing at all
+        b[4:, 5] = 1.0
+    if case == "nan":
+        # where every LU reaches the NaN at its last pivot (a NaN at H[0, 0]
+        # gives JAX's LAPACK finite entries: its pivot search skips NaN)
+        H[4:6, 5, 5] = np.nan
+        H[6:, 5, :] = H[6:, :, 5] = np.nan
+    if case == "loam_sum":
+        rng = np.random.default_rng(5)
+        A2 = rng.normal(size=(B, 12, 6))
+        H2 = np.einsum("bki,bkj->bij", A2, A2).astype(np.float32)
+        b2 = rng.normal(scale=0.05, size=(B, 6)).astype(np.float32)
+        c2 = rng.integers(0, 80, size=B).astype(np.int32)
+        x2 = rng.uniform(0, 5, size=B).astype(np.float32)
+        lin2 = _t(H2, b2, c2, x2)
+        H_ref, b_ref = (np.zeros_like(H) + H) + H2, (np.zeros_like(b) + b) + b2
+        gate = count + c2
+    else:
+        H_ref, b_ref = H, b
+    gate_count = None
+    if case == "ndt_gate":
+        count[:] = 10                           # residuals below MIN_EFF, points above
+        gate = np.full(B, 5000, np.int32)
+        gate[1] = 10
+        gate_count = torch.from_numpy(gate)
+    lin = _t(H, b, count, chi2)
+    state = kernels.GnState(*_t(R, t))
+    new, flag = kernels.gn_step(lin, state, MIN_EFF, warm, eps, lin2=lin2, gate_count=gate_count)
+    jR, jt, jconv, jRout, jdx = _jax_gn_body(H_ref, b_ref, gate, R, t, warm, eps)
+    if case == "frozen_lane":
+        # a second step: lanes 2 and 3 converged in the first and are frozen
+        assert new.converged.tolist()[2:4] == [True, True]
+        H2, b2, c2, x2, _, _ = _gn_step_case(B, seed=22)
+        again, flag = kernels.gn_step(_t(H2, b2, c2, x2), new, MIN_EFF, False, eps)
+        for name, was, now in zip(kernels.GnState._fields, new, again):
+            for k in (2, 3):
+                assert torch.equal(now[k], was[k]) or name == "active", (name, k)
+        jR, jt, jconv, jRout, jdx = _jax_gn_body(H2, b2, c2, new.R.numpy(), new.t.numpy(),
+                                                  False, eps)
+        moving = [k for k in range(B) if k not in (2, 3)]
+        np.testing.assert_allclose(again.R.numpy()[moving], jR[moving], rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(again.t.numpy()[moving], jt[moving], rtol=1e-6, atol=1e-6)
+        assert again.iterations.tolist() == [2, 2, 1, 1, 2, 2, 2, 2]
+        assert again.active.tolist() == [k in moving and not again.converged[k]
+                                         for k in range(B)]
+        assert bool(flag) == bool(again.active.any())
+        return
+    np.testing.assert_allclose(new.R.numpy(), jR, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(new.t.numpy(), jt, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(new.R_out.numpy(), jRout, rtol=1e-6, atol=1e-6)
+    assert new.converged.tolist() == jconv.tolist()
+    assert new.n_eff.tolist() == (count + (lin2[2].numpy() if lin2 else 0)).tolist()
+    np.testing.assert_array_equal(new.chi2.numpy(), chi2 + (lin2[3].numpy() if lin2 else 0))
+    assert new.iterations.tolist() == [1] * B and new.active.tolist() == (~jconv).tolist()
+    assert bool(flag) == (not jconv.all())
+    assert torch.isfinite(new.R).all() and torch.isfinite(new.t).all()
+    if case in ("cold", "warm", "not_ok"):
+        # bit for bit: the loop body as torch ops, the solve the same LAPACK call
+        from loc_lib_tpu_torch.utils import lie, mathx
+        Ht, bt, ct, _, Rt, tt = _t(H, b, count, chi2, R, t)
+        if warm:
+            lam = 1e-2 * torch.amax(torch.diagonal(Ht, dim1=-2, dim2=-1), dim=-1) + 1e-6
+            Ht = Ht + lam[:, None, None] * torch.eye(6)
+        ok = ct >= MIN_EFF
+        dx = torch.where(ok[:, None], mathx.solve_gn_6x6(Ht, bt), 0.0)
+        dx = torch.where(torch.isfinite(dx), dx, 0.0)
+        R_want, t_want = lie.se3_retract(Rt, tt, dx, matmul=lie.matmul3)
+        assert torch.equal(new.R, R_want) and torch.equal(new.t, t_want)
+        assert torch.equal(new.R_out, lie.so3_renormalize(R_want, matmul=lie.matmul3))
+    if case in ("not_ok", "singular", "nan"):
+        # no step: the pose's bits stay (so3_exp(0) = I exactly)
+        still = slice(None) if case == "not_ok" else slice(4, None)
+        assert torch.equal(new.t[still], torch.from_numpy(t[still]))
+        assert torch.equal(new.R[still], torch.from_numpy(R[still]))
+        assert (jdx[still] == 0).all()
+    if case == "cold":
+        assert new.converged.tolist()[1:4] == [False, True, True]
+    if case == "warm":
+        assert not new.converged.any()
 
 
 def test_pose_update_plain_lanes_do_not_depend_on_the_batch():
-    """Lane k of gn_step and so3_renormalize on a (B, ...) batch has the bits
-    of the call on lane k alone (B = 1, 3, 64), and so3_renormalize agrees
-    with the JAX package's within 1e-6."""
+    """Lane k of gn_step (cold and warm) and so3_renormalize on a (B, ...)
+    batch has the bits of the call on lane k alone (B = 1, 3, 64), and
+    so3_renormalize agrees with the JAX package's within 1e-6."""
     from loc_lib_tpu.utils import lie as jlie
 
-    R, t, dx, ok = _t(*_gn_step_case(64))
+    H, b, count, chi2, R, t = _t(*_gn_step_case(64))
     for nb in (1, 3, 64):
-        Rb, tb, cb = kernels.gn_step(dx[:nb], ok[:nb], R[:nb], t[:nb], 1e-3, True)
-        Rn = kernels.so3_renormalize(Rb)
-        for k in range(nb):
-            Rk, tk, ck = kernels.gn_step(dx[k], ok[k], R[k], t[k], 1e-3, True)
-            assert torch.equal(Rb[k], Rk) and torch.equal(tb[k], tk) and bool(cb[k]) == bool(ck)
-            assert torch.equal(Rn[k], kernels.so3_renormalize(Rk))
+        for warm in (False, True):
+            st, _ = kernels.gn_step((H[:nb], b[:nb], count[:nb], chi2[:nb]),
+                                    kernels.GnState(R[:nb], t[:nb]), MIN_EFF, warm, 1e-3)
+            Rn = kernels.so3_renormalize(st.R)
+            for k in range(nb):
+                one, _ = kernels.gn_step((H[k], b[k], count[k], chi2[k]),
+                                         kernels.GnState(R[k], t[k]), MIN_EFF, warm, 1e-3)
+                for name, x, y in zip(kernels.GnState._fields, st, one):
+                    assert torch.equal(x[k], y), (nb, warm, k, name)
+                assert torch.equal(Rn[k], kernels.so3_renormalize(one.R))
+                assert torch.equal(one.R_out, kernels.so3_renormalize(one.R))
     noisy = R + 1e-3 * torch.randn(R.shape, generator=torch.Generator().manual_seed(0))
     np.testing.assert_allclose(kernels.so3_renormalize(noisy).numpy(),
                                np.asarray(jlie.so3_renormalize(jnp.asarray(noisy.numpy()))),
@@ -855,8 +987,16 @@ def test_pose_update_plain_lanes_do_not_depend_on_the_batch():
 def test_pose_update_wrappers_refuse_other_devices_and_shapes():
     """gn_step / so3_renormalize take the plain version only for CPU
     tensors: a meta tensor raises before any build or launch."""
-    R, t, dx, ok = (x.to("meta") for x in _t(*_gn_step_case(3)))
+    H, b, count, chi2, R, t = (x.to("meta") for x in _t(*_gn_step_case(3)))
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        kernels.gn_step(dx, ok, R, t, 1e-3, True)
+        kernels.gn_step((H, b, count, chi2), kernels.GnState(R, t), MIN_EFF, False, 1e-3)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        kernels.GnLoop(R, t, MIN_EFF, 1e-3).step((H, b, count, chi2))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         kernels.so3_renormalize(R)
+    st = eskf.init_state(device="cpu")
+    meta = [x.to("meta") for x in st[:7]]
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        kernels.eskf_update(*meta, "se3", (meta[2], meta[0]), (0.1, 0.02), True, True)
+    with pytest.raises(ValueError, match="kind"):
+        kernels.eskf_update(*st[:7], "gnss", (st.R, st.p), (0.1, 0.02), True, True)
