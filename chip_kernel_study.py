@@ -10,11 +10,15 @@ call for p2plane_vox, p2plane_vox_oct, NDT (`ndt._ndt_terms`) and
 p2line_vox, launches and ms per headline match, per 3-iteration NDT match
 and per batched match (64 lanes, 20 iterations), launches and ms of the
 ESKF's propagation through one IMU packet, of its update by one pose
-(`observe_se3`) and of one LIO icp `step_measure`, and per-scan times of
+(`observe_se3`) and one wheel speed (`observe_wheel_speed`), of one LIO icp
+and one Loc `step_measure`; the packet's three ways to the propagation
+kernel (the parent's, read in place, copied first); and per-scan times of
 LIO `icp`, LIO `ndt_inc`, LOAM and Loc with both methods, and the host
-synchronizations per LIO scan. One row has no parent side: 64
-loop-registration matches as ONE `icp.scan_match_batch` call against 64
-scalar `icp.scan_match` calls of this tree.
+synchronizations per LIO scan. First it asserts that both trees' ESKF
+kernels give equal outputs on the same finite inputs. Rows with no parent
+side: 64 loop-registration matches as ONE `icp.scan_match_batch` call
+against 64 scalar `icp.scan_match` calls of this tree, and the ESKF probe
+(`eskf_predict_scan`'s device time against its updating rows, SASS counts).
 Every timing comes before the profiler is first opened. Rows
 whose code is the same in both trees are the control: they show what the
 comparison reads for no change. PARENT_DIR holds a checkout of the parent
@@ -163,13 +167,173 @@ def batched_against_scalar(device, card, reps=5):
 
 
 def _pairs(name, unit, p, c, card):
-    """One line: medians, the median pair difference, pairs the change lost,
-    the parent's own interquartile range."""
+    """One line: medians, the median pair difference, pairs the change won
+    and lost, the parent's own interquartile range."""
     p, c = np.asarray(p), np.asarray(c)
     q1, q3 = np.percentile(p, [25, 75])
     print(f"ab {name} [{card}]: parent {np.median(p):.4f} / change {np.median(c):.4f} {unit} "
           f"(medians of {len(p)}), median pair difference {np.median(c - p):+.4f}, change "
-          f"slower in {int(np.sum(c > p))}/{len(p)} pairs, parent IQR {q3 - q1:.4f}", flush=True)
+          f"faster in {int(np.sum(c < p))}/{len(p)} pairs, slower in {int(np.sum(c > p))}, "
+          f"parent IQR {q3 - q1:.4f}", flush=True)
+
+
+def _static_init(lio, log, device):
+    init = lio.ImuStaticInit(device=device)
+    for t, g, a in zip(log.imu.stamps, log.imu.gyro, log.imu.acce):
+        state = init.add(g, a, t)
+        if state is not None:
+            return state
+    raise AssertionError("the static IMU init never succeeded")
+
+
+def eskf_equal(device, card, trees) -> None:
+    """The parent's ESKF kernels and this tree's give equal outputs on the
+    same finite inputs (torch.equal: a zero's sign aside): eskf_predict_scan
+    on the demo log's 40 packets (this tree's state carried), on chip_smoke's
+    gate packets, on a 300-row packet and on 24 random states; eskf_update for a pose and a wheel
+    speed on the demo log's states and on the random states, every bias-flag
+    pair."""
+    ks = {side: get("ops.kernels") for side, get in trees.items()}
+    eskf, lio = trees["change"]("models.eskf"), trees["change"]("pipeline.lio")
+    counts = {"eskf_predict_scan": 0, "eskf_update": 0}
+
+    def same(label, name, *args):
+        out = {side: getattr(k, name)(*args) for side, k in ks.items()}
+        for f, (a, b) in enumerate(zip(out["parent"], out["change"])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}, {label}: output {f} differs from the parent's "
+                                     f"by up to {float(torch.max(torch.abs(a - b))):.3g}")
+        counts[name] += 1
+        return out["change"]
+
+    log = cs.demo_log()
+    opts = eskf.EskfOptions()
+    Q = eskf.process_noise(opts, device)
+    rng = np.random.default_rng(5)
+    s_init = _static_init(lio, log, device)
+    s, mid = s_init, None
+    mgs = list(log.measures(imu_capacity=64))
+    for i, mg in enumerate(mgs):
+        packet = (mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+        if i == len(mgs) // 2:
+            mid = (s, packet)
+        s = s._replace(**dict(zip(cs.ESKF_OUT, same(f"demo packet {i}", "eskf_predict_scan", *s,
+                                                    *packet, Q, opts.imu_dt))))
+        obs = cs._eskf_observations(rng, s[:7], device)
+        T = torch.tensor(log.gt_poses[mg.scan_index], dtype=torch.float32, device=device)
+        same(f"demo state {i} wheel", "eskf_update", *s[:7], "wheel", *obs["wheel"], True, True)
+        got = same(f"demo state {i} pose", "eskf_update", *s[:7], "se3", (T[:3, :3], T[:3, 3]),
+                   obs["se3"][1], True, True)
+        s = s._replace(**dict(zip(cs.ESKF_UPDATE_OUT, got)))
+    s0, packet = mid
+    for label, gate in cs._eskf_gate_packets(log, float(s0.time)).items():
+        same(label, "eskf_predict_scan", *s0, *gate, Q, opts.imu_dt)
+    k0 = int(np.searchsorted(log.imu.stamps, float(s_init.time), side="right"))
+    same("300 rows", "eskf_predict_scan", *s_init, log.imu.gyro[k0:k0 + 300],
+         log.imu.acce[k0:k0 + 300], log.imu.stamps[k0:k0 + 300], np.ones(300, bool), Q,
+         opts.imu_dt)
+    flag_pairs = ((True, True), (False, False), (True, False), (False, True))
+    for k in range(24):
+        state = cs._random_eskf_state(rng, device)
+        same(f"random state {k}", "eskf_predict_scan", *state, s0.time, *packet, Q, opts.imu_dt)
+        for kind, (obs, noise) in cs._eskf_observations(rng, state, device, ang=0.05).items():
+            same(f"random state {k} {kind}", "eskf_update", *state, kind, obs, noise,
+                 *flag_pairs[k % 4])
+    print(f"ab ESKF outputs, parent == change (torch.equal) [{card}]: "
+          f"{counts['eskf_predict_scan']} eskf_predict_scan calls (40 demo-log packets, "
+          f"{len(cs._eskf_gate_packets(log, float(s0.time)))} gate packets, a 300-row packet, "
+          f"24 random states), "
+          f"{counts['eskf_update']} eskf_update calls (pose and wheel, every bias-flag pair)",
+          flush=True)
+
+
+def eskf_probe(device, card) -> None:
+    """This tree only: eskf_predict_scan's device time against the number of
+    updating rows of a 64-row packet on the card (torch.profiler, 20 calls
+    each), and ptxas' view of the two kernels: registers, and the SASS of
+    each body (`cuobjdump -sass`), whole and for the predict kernel's
+    per-sample loop (the shortest loop with over 100 SHFL: the covariance
+    warp's structured path)."""
+    import re
+    import subprocess
+    from collections import Counter
+
+    from loc_lib_tpu_torch.models import eskf
+    from loc_lib_tpu_torch.ops import kernels
+
+    log = cs.demo_log(10)
+    opts = eskf.EskfOptions()
+    Q = eskf.process_noise(opts, device)
+    st = eskf.init_state(gravity=[0.0, 0.0, -9.81], time=float(log.imu.stamps[0]) - 0.01,
+                         device=device)
+    rows = []
+    for n_upd in (0, 1, 10, 32, 64):
+        valid = np.arange(64) < n_upd
+        pk = kernels.imu_packet(log.imu.gyro[:64], log.imu.acce[:64], log.imu.stamps[:64], valid,
+                                device)
+        _, ms, _, _ = cs._profiled(
+            lambda pk=pk: kernels._eskf_predict_scan_launch(*st, pk, Q, opts.imu_dt), 20)
+        rows.append((n_upd, ms * 1e3))
+    slope = (rows[-1][1] - rows[0][1]) / 64
+    print(f"probe eskf_predict_scan device us by updating rows of 64 [{card}]: "
+          + ", ".join(f"{n}: {us:.2f}" for n, us in rows)
+          + f"; {slope:.3f} us an updating row over an intercept of {rows[0][1]:.2f} us",
+          flush=True)
+    sass = subprocess.run([kernels._nvcc().replace("nvcc", "cuobjdump"), "-sass",
+                           str(kernels.build().path)], capture_output=True, text=True).stdout
+    for body in sass.split("Function : ")[1:]:
+        name = body.split()[0]
+        if "eskf" not in name:
+            continue
+        ins = [(int(a, 16), op.split(".")[0], rest) for a, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,5})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);", body)]
+        count = Counter(op for _, op, _ in ins)
+        line = (f"probe sass {name} [{card}]: {len(ins)} instructions, SHFL {count['SHFL']}, "
+                f"FMUL {count['FMUL']}, FADD {count['FADD']}, LDS {count['LDS']}")
+        loops = []
+        for addr, op, rest in ins:
+            m = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+            if m and int(m.group(1), 16) < addr:
+                inside = [o for a, o, _ in ins if int(m.group(1), 16) <= a <= addr]
+                if inside.count("SHFL") > 100:
+                    loops.append((len(inside), inside.count("SHFL")))
+        if loops and "predict" in name:
+            n_ins, n_shfl = min(loops)
+            line += f"; per-sample loop {n_ins} instructions, {n_shfl} SHFL"
+        print(line, flush=True)
+
+
+def packet_paths(device, card, trees, reps=10) -> None:
+    """eskf_predict_scan on one demo-log packet of host arrays three ways, in
+    turns: the parent's (its page-locked ring and copy), this tree's (the
+    kernel reads the packet in place) and this tree's kernel on a packet
+    copied to the card first (numpy pack, pageable copy: the earlier way).
+    Host us to enqueue a call, and ms a call between CUDA events."""
+    log = cs.demo_log(10)
+    mg = list(log.measures(imu_capacity=64))[8]
+    packet = (mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+    eskf = trees["change"]("models.eskf")
+    st = eskf.init_state(gravity=[0.0, 0.0, -9.81], time=float(mg.imu_stamp[0]) - 0.01,
+                         device=device)
+    opts = eskf.EskfOptions()
+    Q = eskf.process_noise(opts, device)
+    kp, kc = trees["parent"]("ops.kernels"), trees["change"]("ops.kernels")
+    fns = {"parent ring copy": lambda: kp.eskf_predict_scan(*st, *packet, Q, opts.imu_dt),
+           "in place": lambda: kc.eskf_predict_scan(*st, *packet, Q, opts.imu_dt),
+           "pageable copy": lambda: kc._eskf_predict_scan_launch(
+               *st, kc.imu_packet(*packet, device), Q, opts.imu_dt)}
+    host = {k: [] for k in fns}
+    evt = {k: [] for k in fns}
+    names = list(fns)
+    for r in range(reps):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            host[name].append(cs._enqueue_us(fns[name], 200))
+            evt[name].append(cs._time_in_turns({"k": fns[name]}, 25)["k"])
+    for a, b in (("parent ring copy", "in place"), ("pageable copy", "in place")):
+        _pairs(f"predict_scan packet path, {a} -> {b}, host us to enqueue one call", "us",
+               host[a], host[b], card)
+        _pairs(f"predict_scan packet path, {a} -> {b}, per-call CUDA-event median", "ms",
+               evt[a], evt[b], card)
 
 
 def ab(device, card, parent_dir, reps=10):
@@ -177,6 +341,7 @@ def ab(device, card, parent_dir, reps=10):
              "change": lambda sub: importlib.import_module(f"loc_lib_tpu_torch.{sub}")}
     for get in trees.values():
         get("ops.kernels").build()
+    eskf_equal(device, card, trees)
     workload = cs.headline_workload(device)
     tgt_pc, src, _, _, R, t = workload
     order = lambda r: ("parent", "change") if r % 2 == 0 else ("change", "parent")
@@ -191,6 +356,8 @@ def ab(device, card, parent_dir, reps=10):
     packet = (mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
     gt = torch.tensor(log.gt_poses[mg.scan_index], dtype=torch.float32, device=device)
     bw = cs.batch_workload(device)
+    from loc_lib_tpu_torch.io import synthetic
+    world = synthetic.make_world(num_points=120000, extent=80.0, seed=0)
     for side, get in trees.items():
         icp, ndt, kernels = get("models.icp"), get("models.ndt"), get("ops.kernels")
         pc = get("ops.pointcloud")
@@ -251,8 +418,30 @@ def ab(device, card, parent_dir, reps=10):
         calls[side]["step ESKF observe_se3, the state after frame 8"] = \
             lambda e=eskf, st=eng.state.eskf: e.observe_se3(st, gt[:3, :3], gt[:3, 3],
                                                             e.EskfOptions())
+        # the update's wrapper alone (host us to enqueue, CUDA-event ms), on
+        # contiguous pose tensors
+        Rc, tc = gt[:3, :3].contiguous(), gt[:3, 3].contiguous()
+        calls[side]["ESKF eskf_update wrapper, pose"] = \
+            lambda k=kernels, st=eng.state.eskf, Rc=Rc, tc=tc: k.eskf_update(
+                *st[:7], "se3", (Rc, tc), (0.1, 0.0174533), True, True)
+        calls[side]["ESKF eskf_update wrapper, wheel"] = \
+            lambda k=kernels, st=eng.state.eskf: k.eskf_update(
+                *st[:7], "wheel", (31.0, 33.0, 0.01), (0.5,), True, True)
+        calls[side]["step ESKF observe_wheel_speed, the state after frame 8"] = \
+            lambda e=eskf, st=eng.state.eskf: e.observe_wheel_speed(st, 31.0, 33.0,
+                                                                    e.EskfOptions())
         calls[side]["step LIO icp step_measure, frame 8"] = \
             lambda l=lio, st=eng.state, sc=log.frame(mg.scan_index, device), o=lopts: \
+            l.step_measure(st, sc, *packet, o)
+        loc = get("pipeline.loc")
+        leng = loc.Loc(world, loc.LocOptions(icp=icp.IcpOptions(method="p2plane_vox")),
+                       device=device)
+        leng.set_init_pose(log.gt_poses[0][:3, :3], log.gt_poses[0][:3, 3])
+        for m in mgs[:8]:
+            leng.update_measure(log.frame(m.scan_index, device), m.imu_gyro, m.imu_acce,
+                                m.imu_stamp, m.imu_valid)
+        calls[side]["step Loc p2plane_vox step_measure, frame 8"] = \
+            lambda l=loc, st=leng.state, sc=log.frame(mg.scan_index, device), o=leng.opts: \
             l.step_measure(st, sc, *packet, o)
     # every timing first, the profiler runs last (once the profiler has
     # run, later launches in the process cost the host more)
@@ -288,6 +477,7 @@ def ab(device, card, parent_dir, reps=10):
                    card)
             _pairs(f"{name}, per-call CUDA-event median", "ms", evt["parent"], evt["change"],
                    card)
+    packet_paths(device, card, trees, reps)
     per_scan(device, card, trees, order, reps)
     log12 = cs.demo_log(12)
     syncs = {side: [_lio_syncs(get, device, log12) for _ in range(2)]
@@ -295,6 +485,7 @@ def ab(device, card, parent_dir, reps=10):
     print(f"ab host synchronizations per LIO icp scan (frames 4-11, two runs each) [{card}]: "
           f"parent {syncs['parent']} -> change {syncs['change']}", flush=True)
     batched_against_scalar(device, card)
+    eskf_probe(device, card)
     for name in calls["parent"]:
         prof = {side: cs._profiled(calls[side][name], 5)[:2] for side in ("parent", "change")}
         print(f"ab {name} [{card}]: device launches {prof['parent'][0]:.0f} -> "

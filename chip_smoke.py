@@ -953,16 +953,79 @@ def _eskf_gate_packets(log, time0):
     return cases
 
 
+def _eskf_predict_without_block(s, packet, Q, imu_dt):
+    """The planted error of phase 3: the propagation through `packet` with
+    F[3:6, 15:18] (I dt, the velocity's gravity block) left out of F, in
+    float32 torch ops: `kernels.eskf_predict_plain` with that one block
+    missing. Returns (p, v, R, cov, time)."""
+    from loc_lib_tpu_torch.ops import kernels
+    from loc_lib_tpu_torch.utils import lie
+
+    p, v, R, bg, ba, g, cov, time_ = s[:8]
+    dev = p.device
+    gs, acs, ts = (torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+                   for x in packet[:3])
+    keep = torch.as_tensor(np.asarray(packet[3]), device=dev).to(torch.bool)
+    eye3, out = torch.eye(3, device=dev), (p, v, R, cov, time_)
+    for k in range(ts.shape[0]):
+        nxt = kernels.eskf_predict_plain(*out[:3], bg, ba, g, *out[3:], gs[k], acs[k], ts[k], Q,
+                                         imu_dt)
+        dt = ts[k] - out[4]
+        ok = (dt <= 5.0 * imu_dt) & (dt >= 0)
+        dt = torch.where(ok, dt, 0.0)
+        F = torch.eye(18, device=dev)
+        F[0:3, 3:6] = eye3 * dt
+        F[3:6, 6:9] = -nxt[2] @ lie.hat(acs[k] - ba) * dt
+        F[3:6, 12:15] = -nxt[2] * dt
+        F[6:9, 6:9] = lie.so3_exp(-(gs[k] - bg) * dt)
+        F[6:9, 9:12] = -eye3 * dt
+        nxt = nxt[:3] + (torch.where(ok, F @ out[3] @ F.T + Q, out[3]), nxt[4])
+        out = tuple(torch.where(keep[k], n, o) for n, o in zip(nxt, out))
+    return out
+
+
+def _nonfinite_pattern_equal(label, got, want) -> None:
+    """The kernel's outputs hold non-finite values exactly where the float32
+    plain version's do (a cov with a NaN or Inf in it: the dense product's
+    0 x NaN spreads it, in both)."""
+    for k, (x, y) in enumerate(zip(got, want)):
+        if not torch.equal(torch.isfinite(x), torch.isfinite(y)):
+            raise AssertionError(f"{label}: output {k} is non-finite at "
+                                 f"{torch.nonzero(~torch.isfinite(x)).tolist()[:6]}, the plain "
+                                 f"version at {torch.nonzero(~torch.isfinite(y)).tolist()[:6]}")
+
+
+def _ptxas_usage(log, needle) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    kernel body in the ptxas log whose mangled name holds `needle`."""
+    out, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None and needle in name:
+            out.append((name, int(m.group(1))) + spill)
+    return out
+
+
 def phase_kernels_eskf_predict(device, card):
     """The ESKF's propagation kernel (eskf_predict_scan) against its plain
     version on the card: on each of the demo log's 40 packets (from the
     static init, each state observed at the true pose before the next
     packet) and on synthetic packets with every gate case (padding, a dt >
     5 imu_dt gap, a dt < 0 step, holes, no valid sample, the packet as device
-    tensors), p / v / R / cov within the bound of the float64 plain version
-    (ESKF_SLACK), time bit-equal to the float32 plain version's; a planted
-    error (cov[0, 0] * 1.001, a dropped Q) rejected; one launch per call.
-    Then times at a demo-log packet."""
+    tensors) and on a 300-row packet (two of the kernel's staged chunks),
+    p / v / R / cov within the bound of the float64 plain version
+    (ESKF_SLACK), time bit-equal to the float32 plain version's; planted
+    errors (cov[0, 0] * 1.001, a dropped Q, F[3:6, 15:18] left out)
+    rejected; a NaN or an Inf in cov non-finite where the plain version's
+    result is; one launch per call. Then times at a demo-log packet."""
     from loc_lib_tpu_torch.models import eskf
     from loc_lib_tpu_torch.ops import kernels
     from loc_lib_tpu_torch.pipeline import lio
@@ -1011,6 +1074,15 @@ def phase_kernels_eskf_predict(device, card):
     on_device = tuple(torch.from_numpy(np.asarray(x)).to(device) for x in cases["holes"])
     got, _, _, e = held("packet as device tensors", s, on_device)
     err = max(err, e)
+    # a packet longer than the kernel stages at a time (kChunk = 256 rows)
+    k0 = int(np.searchsorted(log.imu.stamps, float(state.time), side="right"))
+    n = min(300, len(log.imu.stamps) - k0)
+    if n <= 256:
+        raise AssertionError(f"eskf_predict_scan: {n} IMU samples after the init, 257 needed")
+    long_packet = (log.imu.gyro[k0:k0 + n], log.imu.acce[k0:k0 + n], log.imu.stamps[k0:k0 + n],
+                   np.ones(n, bool))
+    _, _, _, e = held(f"{n} rows, two staged chunks", state, long_packet)
+    err = max(err, e)
     bad_cov = got[3].clone()
     bad_cov[0, 0] *= 1.001
     want = kernels.eskf_predict_scan_plain(*s, *on_device, Q, opts.imu_dt)
@@ -1018,17 +1090,30 @@ def phase_kernels_eskf_predict(device, card):
     for planted, bad in (("cov[0, 0] * 1.001", got[:3] + (bad_cov, got[4])),
                          ("Q dropped", kernels.eskf_predict_scan(*s, *on_device,
                                                                  torch.zeros_like(Q),
-                                                                 opts.imu_dt))):
+                                                                 opts.imu_dt)),
+                         ("F[3:6, 15:18] left out", _eskf_predict_without_block(
+                             s, cases["holes"], Q, opts.imu_dt))):
         try:
             _eskf_close(planted, bad, want, want64)
         except AssertionError:
             continue
         raise AssertionError(f"eskf_predict_scan: the check accepts a planted error ({planted})")
+    # a non-finite covariance: the dense product's non-finite pattern
+    for where, value in (((17, 17), float("nan")), ((4, 4), float("inf"))):
+        bad_state = s._replace(cov=s.cov.clone())
+        bad_state.cov[where] = value
+        _nonfinite_pattern_equal(
+            f"eskf_predict_scan, cov{list(where)} = {value}",
+            kernels.eskf_predict_scan(*bad_state, *mid[1], Q, opts.imu_dt),
+            kernels.eskf_predict_scan_plain(*bad_state, *mid[1], Q, opts.imu_dt))
     torch.cuda.synchronize()
     print(f"phase 3 eskf_predict_scan vs plain (float64 plain: scaled error <= 2 x the float32 "
           f"plain's + {ESKF_SLACK:g}; time bit-equal): {len(mgs)} demo-log packets, gate cases "
-          f"{', '.join(cases)}, a packet as device tensors; planted errors (cov[0, 0] * 1.001, "
-          f"Q dropped) rejected; largest |kernel - float32 plain| {err:.3g} [{card}]", flush=True)
+          f"{', '.join(cases)}, a packet as device tensors, a {n}-row packet; planted errors "
+          f"(cov[0, 0] * 1.001, Q dropped, F[3:6, 15:18] left out) rejected; a NaN at "
+          f"cov[17, 17] and an Inf at "
+          f"cov[4, 4] give the plain version's non-finite entries; largest |kernel - float32 "
+          f"plain| {err:.3g} [{card}]", flush=True)
 
     s, packet = mid
     call = lambda: kernels.eskf_predict_scan(*s, *packet, Q, opts.imu_dt)
@@ -1039,15 +1124,19 @@ def phase_kernels_eskf_predict(device, card):
     bound_ms, by = _bound(n_bytes, flops)
     print(f"phase 3 eskf_predict_scan, one demo-log packet ({len(packet[2])} rows, {n_upd} "
           f"updating samples) [{card}]: {ms:.4f} ms vs plain {pms:.4f} ms (median of 20 "
-          f"per-call CUDA-event samples in turns, the packet's host-to-device copy included) | "
-          f"host time to enqueue {host:.1f} us | bound {bound_ms:.9f} ms by {by} ({n_bytes} B, "
-          f"{flops} float32 ops, F's structure counted)", flush=True)
-    timing = {"ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": by, "err": err}
-    # the profiler's device time: the launch alone, the packet already on the card
+          f"per-call CUDA-event samples in turns, the packet read in place from a page-locked "
+          f"host buffer) | host time to enqueue {host:.1f} us | bound {bound_ms:.9f} ms by {by} "
+          f"({n_bytes} B, {flops} float32 ops, F's structure counted)", flush=True)
+    timing = {"ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": by, "err": err,
+              "host_us": host}
+    # the profiler's device time: the main path's call (the kernel reads the
+    # packet in place: one device event), and the launch on a packet on the card
     packed = kernels.imu_packet(*packet, device)
     s = tuple(x.contiguous() for x in s)
-    return timing, {"eskf_predict_scan": (
-        lambda: kernels._eskf_predict_scan_launch(*s, packed, Q, opts.imu_dt), True)}
+    return timing, {"eskf_predict_scan": (call, True),
+                    "eskf_predict_scan, packet on the card": (
+                        lambda: kernels._eskf_predict_scan_launch(*s, packed, Q, opts.imu_dt),
+                        True)}
 
 
 # ESKF update (csrc/eskf_predict.cu, eskf_update). Bytes a call must move:
@@ -1168,7 +1257,8 @@ def phase_kernels_eskf_update(device, card):
     with SPD covariances, the bias flags on and off; the pulses also as a
     device tensor: every field within its bound of the float64 plain version
     (`_eskf_update_close`), one launch a call. Planted errors (V squared for
-    a pose, the covariance projection dropped) rejected. Then times."""
+    a pose, the covariance projection dropped) rejected; a NaN or an Inf in
+    cov non-finite where the plain version's result is. Then times."""
     from loc_lib_tpu_torch.models import eskf
     from loc_lib_tpu_torch.ops import kernels
     from loc_lib_tpu_torch.pipeline import lio
@@ -1232,13 +1322,23 @@ def phase_kernels_eskf_update(device, card):
             continue
         raise AssertionError(f"eskf_update: the check accepts a planted error ({planted})")
     _eskf_update_close("planted-error state", got, state, "se3", obs, noise, (True, True))
+    # a non-finite covariance: the dense products' non-finite pattern
+    for where, value in (((17, 17), float("nan")), ((4, 4), float("inf"))):
+        bad = state[:6] + (state[6].clone(),)
+        bad[6][where] = value
+        for kind, (o, n) in _eskf_observations(np.random.default_rng(97), bad, device).items():
+            _nonfinite_pattern_equal(
+                f"eskf_update ({kind}), cov{list(where)} = {value}",
+                kernels.eskf_update(*bad, kind, o, n, True, True),
+                kernels.eskf_update_plain(*bad, kind, o, n, True, True))
     torch.cuda.synchronize()
     print(f"phase 3 eskf_update vs plain (float64 plain: scaled error <= 8 x the float32 "
           f"plain's + {ESKF_UPDATE_SLACK} kappa(S) u): {n_held} updates (the demo log's "
           f"{len(mgs)} states, pose and wheel; 24 random SPD covariances, both kinds, the bias "
           f"flags on and off; pulses on the card); planted errors (V squared, the covariance "
-          f"projection dropped) rejected; largest |kernel - float32 plain| {err:.3g} [{card}]",
-          flush=True)
+          f"projection dropped) rejected; a NaN at cov[17, 17] and an Inf at cov[4, 4] give the "
+          f"plain version's non-finite entries, both kinds; largest |kernel - float32 plain| "
+          f"{err:.3g} [{card}]", flush=True)
 
     timing, profile_later = {}, {}
     obs_all = _eskf_observations(np.random.default_rng(1), mid, device)
@@ -1259,7 +1359,30 @@ def phase_kernels_eskf_update(device, card):
         if kind == "se3":
             timing = {"ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": by,
                       "err": err, "host_us": host}
+        else:
+            timing.update(ms_wheel=ms, plain_ms_wheel=pms, host_us_wheel=host)
     return timing, profile_later
+
+
+def phase_eskf_summary(card, timing, dev_ms) -> None:
+    """One line for the two ESKF kernels: device us a call (phase 3b's
+    profiler), host us to enqueue one, ms a call (CUDA events), ptxas'
+    registers and spills of each kernel body."""
+    from loc_lib_tpu_torch.ops import kernels
+
+    log = kernels.build().log
+    us = lambda ms: "not measured" if ms is None else f"{ms * 1e3:.2f} us"
+    usage = "; ".join(f"{name} {regs} registers, {st} / {ld} B spill stores / loads"
+                      for needle in ("eskf_predict_scan_kernel", "eskf_update_kernel")
+                      for name, regs, st, ld in _ptxas_usage(log, needle))
+    tp, tu = timing["eskf_predict_scan"], timing["eskf_update"]
+    print(f"phase 3b ESKF kernels [{card}]: eskf_predict_scan device "
+          f"{us(dev_ms['eskf_predict_scan'])} a call (packet read in place; "
+          f"{us(dev_ms['eskf_predict_scan, packet on the card'])} with the packet on the card), "
+          f"enqueue {tp['host_us']:.1f} us, {tp['ms']:.4f} ms a call; eskf_update device "
+          f"{us(dev_ms['eskf_update se3'])} / {us(dev_ms['eskf_update wheel'])} (pose / wheel), "
+          f"enqueue {tu['host_us']:.1f} / {tu['host_us_wheel']:.1f} us, {tu['ms']:.4f} / "
+          f"{tu['ms_wheel']:.4f} ms a call; ptxas: {usage}", flush=True)
 
 
 def _cells_and_slots(index, keys):
@@ -4908,6 +5031,7 @@ def main() -> int:
                         ("eskf_predict_scan", "eskf_predict_scan"),
                         ("eskf_update", "eskf_update se3")):
         timing[name]["device_ms"] = dev_ms[label]
+    phase_eskf_summary(card, timing, dev_ms)
     phase_profile(device, card, workload, target,
                   Path(__file__).resolve().parent / "chiprun_out")
     phase_slam3d_profile(card, slam_eng, pgo_graph_, pgo_opts)
@@ -4971,9 +5095,9 @@ def main() -> int:
           "those of phase 5b, phase 12 and phase 14; "
           "max_abs_err of K1 and K2 covers their batched forms; launches of eskf_predict_scan "
           "are those of every counted path (phases 5-5e, 7-7d, 10a, 12a, 14), one per "
-          "eskf.predict_scan call, and its ms / plain_ms include the packet's host-to-device "
-          "copy at one demo-log packet; launches of eskf_update are those of every counted path, "
-          "one per observe_se3 / observe_wheel_speed call",
+          "eskf.predict_scan call, and its ms / plain_ms are at one demo-log packet, which the "
+          "kernel reads in place from page-locked host memory; launches of eskf_update are "
+          "those of every counted path, one per observe_se3 / observe_wheel_speed call",
           flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],

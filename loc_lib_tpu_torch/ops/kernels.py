@@ -49,9 +49,11 @@ scan_match); as torch ops it was ~20 launches an iteration. `so3_renormalize`
 stays for a loop that takes no step.
 
 *The ESKF* (csrc/eskf_predict.cu): `eskf_predict_scan`, the propagation
-through one IMU packet, and `eskf_update`, an observation's Kalman update
-(a pose or a wheel speed), one launch of one block each; in the reference a
-`lax.scan` and a jitted update program.
+through one IMU packet (two warps: the nominal state, and the covariance a
+lane a column over F's nonzeros), and `eskf_update`, an observation's Kalman
+update (a pose or a wheel speed; one warp, a lane a column of P), one launch
+each; in the reference a `lax.scan` and a jitted update program. A packet of
+host arrays is read by the kernel in place, from a page-locked buffer.
 
 `LAUNCHES` counts kernel launches per kernel (never plain-version calls),
 so a run can show that its main path went through the kernels. Each call is
@@ -658,17 +660,15 @@ def _bind(cdll: ctypes.CDLL) -> None:
     cdll.p2line_from_target_launch.argtypes = [vp, vp, vp, *index, vp, vp, cf, *tail]
     cdll.gn_step_launch.argtypes = [ctypes.POINTER(_GnStepArgsC), vp]     # args, stream
     cdll.so3_renormalize_launch.argtypes = [vp, ci, vp, vp]      # R, lanes, R_out, stream
-    # p, v, R, bg, ba, g, cov, time, packet, K, Q, max_dt, p, v, R, cov, time out, stream
-    cdll.eskf_predict_scan_launch.argtypes = [vp] * 9 + [ci, vp, cf] + [vp] * 6
-    # p, v, R, bg, ba, g, cov, kind, R_obs, t_obs, pulses, noise0, noise1, wheel, left,
-    # right, update_bg, update_ba, p, v, R, bg, ba, g, cov out, stream
-    cdll.eskf_update_launch.argtypes = [vp] * 7 + [ci] + [vp] * 3 + [cf] * 5 + [ci] * 2 \
-        + [vp] * 8
+    cdll.eskf_predict_scan_launch.argtypes = [ctypes.POINTER(_EskfPredictArgsC), vp]
+    cdll.eskf_update_launch.argtypes = [ctypes.POINTER(_EskfUpdateArgsC), vp]
     cdll.loc_event_create.argtypes = [ctypes.POINTER(vp)]
     cdll.loc_event_wait.argtypes = [vp]
-    # dst, src, bytes, event, stream
-    cdll.loc_copy_to_device.argtypes = [vp, vp, ctypes.c_longlong, vp, vp]
-    for fn in (cdll.loc_event_create, cdll.loc_event_wait, cdll.loc_copy_to_device):
+    cdll.loc_host_alloc.argtypes = [ctypes.c_longlong, ctypes.POINTER(vp)]   # bytes, host out
+    cdll.loc_host_free.argtypes = [vp]
+    cdll.loc_host_device_pointer.argtypes = [vp, ctypes.POINTER(vp)]     # host, device out
+    for fn in (cdll.loc_event_create, cdll.loc_event_wait, cdll.loc_host_alloc,
+               cdll.loc_host_free, cdll.loc_host_device_pointer):
         fn.restype = ci
     for fn in (cdll.gn_step_launch, cdll.so3_renormalize_launch, cdll.eskf_predict_scan_launch,
                cdll.eskf_update_launch,
@@ -1274,23 +1274,41 @@ def so3_renormalize(R):
 
 
 ESKF_PACKET_WORDS = 8      # kPacketWords in eskf_predict.cu: gyro | acce | stamp | valid
+PINNED_SLOTS = 4           # page-locked packet buffers a card cycles through
 
 
-PINNED_SLOTS = 4           # host buffers the packet copies cycle through
+class _EskfPredictArgsC(ctypes.Structure):
+    """EskfPredictArgs in eskf_predict.cu: the whole launch, passed by pointer."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "p", "v", "R", "bg", "ba", "g", "cov", "time", "packet", "Q",
+        "p_out", "v_out", "R_out", "cov_out", "time_out", "event")] \
+        + [("K", ctypes.c_int), ("max_dt", ctypes.c_float)]
+
+
+class _EskfUpdateArgsC(ctypes.Structure):
+    """EskfUpdateArgs in eskf_predict.cu: the whole launch, passed by pointer."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "p", "v", "R", "bg", "ba", "g", "cov", "R_obs", "t_obs", "pulses",
+        "p_out", "v_out", "R_out", "bg_out", "ba_out", "g_out", "cov_out")] \
+        + [(name, ctypes.c_float) for name in ("noise0", "noise1", "wheel", "left", "right")] \
+        + [(name, ctypes.c_int) for name in ("kind", "update_bg", "update_ba", "R_obs_s0",
+                                             "R_obs_s1", "t_obs_s")]
 
 
 class _PinnedRing:
-    """Page-locked host buffers for the IMU packets of one card, used in
-    turn: a packet is packed into the next buffer and copied to the card in
-    one call (csrc/eskf_predict.cu, `loc_copy_to_device`), without waiting
-    for the stream; the call records the buffer's event behind its copy. A
-    buffer is written again only after that event has completed, so no copy
-    is overwritten while it runs; with PINNED_SLOTS buffers it has long
+    """Page-locked, mapped host buffers for the IMU packets of one card,
+    used in turn. A packet is packed into the next buffer and the kernel
+    reads it there, over PCIe, at the buffer's device address: no device
+    copy of the packet and no copy call. The launch records the buffer's
+    event behind the kernel (csrc/eskf_predict.cu), and a buffer is written
+    again only after that event has completed, so no packet is overwritten
+    before its kernel has read it; with PINNED_SLOTS buffers it has long
     completed."""
 
     def __init__(self, device):
-        lib = build().cdll
-        self.host = [None] * PINNED_SLOTS          # (rows, 8) float32, page-locked
+        self.lib = lib = build().cdll
+        self.host = [None] * PINNED_SLOTS      # (rows, 8) float32 numpy views
+        self.dev = [0] * PINNED_SLOTS          # their device addresses
         self.events = [ctypes.c_void_p() for _ in range(PINNED_SLOTS)]
         with torch.cuda.device(device):
             for e in self.events:
@@ -1298,25 +1316,40 @@ class _PinnedRing:
         self.next = 0
         self.lock = threading.Lock()
 
-    def copy(self, gyros, acces, stamps, valid, dst, stream) -> None:
-        """Pack the packet's K rows and copy them to `dst` (a device address
-        with room for K rows) on `stream`."""
-        K = len(stamps)
-        lib = build().cdll
+    def _buffer(self, k: int, rows: int) -> np.ndarray:
+        """Buffer k with room for `rows` rows (its event has completed)."""
+        if self.host[k] is None or self.host[k].shape[0] < rows:
+            lib = self.lib
+            if self.host[k] is not None:
+                _raise_on("loc_host_free", lib.loc_host_free(self.host[k].ctypes.data))
+                self.host[k] = None
+            rows = max(rows, 64)
+            host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+            _raise_on("loc_host_alloc", lib.loc_host_alloc(rows * ESKF_PACKET_WORDS * 4,
+                                                            ctypes.byref(host)))
+            _raise_on("loc_host_device_pointer",
+                      lib.loc_host_device_pointer(host, ctypes.byref(dev)))
+            words = (ctypes.c_float * (rows * ESKF_PACKET_WORDS)).from_address(host.value)
+            self.host[k] = np.ctypeslib.as_array(words).reshape(rows, ESKF_PACKET_WORDS)
+            self.dev[k] = dev.value
+        return self.host[k]
+
+    def launch(self, args: "_EskfPredictArgsC", gyros, acces, stamps, valid, stream) -> None:
+        """Pack the packet into the next buffer, point `args` at it and
+        launch eskf_predict_scan on `stream`."""
+        K, lib = len(stamps), self.lib
         with self.lock:
             k = self.next
             self.next = (k + 1) % PINNED_SLOTS
             _raise_on("loc_event_wait", lib.loc_event_wait(self.events[k]))
-            if self.host[k] is None or self.host[k].shape[0] < K:
-                self.host[k] = torch.empty((max(K, 64), ESKF_PACKET_WORDS), dtype=torch.float32,
-                                           pin_memory=True)
-            buf = self.host[k].numpy()
+            buf = self._buffer(k, K)
             buf[:K, 0:3] = gyros
             buf[:K, 3:6] = acces
             buf[:K, 6] = stamps
             buf[:K, 7] = valid
-            _raise_on("loc_copy_to_device", lib.loc_copy_to_device(
-                dst, self.host[k].data_ptr(), K * ESKF_PACKET_WORDS * 4, self.events[k], stream))
+            args.packet, args.K, args.event = self.dev[k], K, self.events[k]
+            _raise_on("eskf_predict_scan_launch",
+                      lib.eskf_predict_scan_launch(ctypes.byref(args), stream))
 
 
 _pinned: dict = {}     # device index -> _PinnedRing
@@ -1338,19 +1371,11 @@ def _host_packet(parts) -> bool:
 
 def imu_packet(gyros, acces, stamps, valid, device) -> torch.Tensor:
     """The packet as the kernel reads it: (K, 8) float32 rows [gyro (3) |
-    acce (3) | stamp | valid (0 / 1)] on `device`. Host arrays are packed
-    into one buffer and copied once: to a card through a page-locked buffer
-    of `_PinnedRing`, without waiting for the stream. Tensors are packed
-    where they are (the host reads none of them)."""
+    acce (3) | stamp | valid (0 / 1)] on `device`, as a new tensor. Host
+    arrays are packed into one buffer and copied once; tensors are packed
+    where they are (the host reads none of them). `eskf_predict_scan` reads
+    a packet of host arrays in place instead (`_PinnedRing`)."""
     parts = (gyros, acces, stamps, valid)
-    device = torch.device(device)
-    if _host_packet(parts) and device.type == "cuda":
-        dev = device if device.index is not None else torch.device(
-            "cuda", torch.cuda.current_device())
-        out = torch.empty((len(stamps), ESKF_PACKET_WORDS), dtype=torch.float32, device=dev)
-        _pinned_ring(dev).copy(*parts, out.data_ptr(),
-                               torch._C._cuda_getCurrentRawStream(dev.index))
-        return out
     if _host_packet(parts):
         buf = np.empty((len(stamps), ESKF_PACKET_WORDS), np.float32)
         buf[:, 0:3] = gyros
@@ -1362,42 +1387,81 @@ def imu_packet(gyros, acces, stamps, valid, device) -> torch.Tensor:
     return torch.cat([g, a, ts[:, None], v[:, None]], dim=1)
 
 
+def _checked(name, x, shape, device, strided=False):
+    """x as a float32 tensor of `shape` on `device`, contiguous unless
+    `strided` (the kernel then reads it through its strides): x itself when
+    it is one, else converted (`_f32_on`); ValueError on another shape."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x)
+    if not (x.dtype == torch.float32 and x.shape == shape and x.device == device
+            and (strided or x.is_contiguous())):
+        x = _f32_on(x, device)
+        _check(name, x, shape, device)
+    return x
+
+
+_ESKF_PREDICT_IN = ("p", "v", "R", "bg", "ba", "g", "cov", "time", "Q")
+_ESKF_PREDICT_SHAPES = ((3,), (3,), (3, 3), (3,), (3,), (3,), (18, 18), (), (18, 18))
+
+
 def eskf_predict_scan(p, v, R, bg, ba, g, cov, time, gyros, acces, stamps, valid, Q,
                       imu_dt: float):
     """The ESKF's propagation through one padded IMU packet in ONE launch
     (csrc/eskf_predict.cu): the nominal state p, v (3,), R (3, 3), bg, ba,
     g (3,), the covariance cov (18, 18) and time () as float32 tensors;
-    gyros / acces (K, 3), stamps (K,), valid (K,) as host arrays or tensors;
-    Q (18, 18) the process noise; imu_dt the filter's sample period (the dt
-    gate is 5 imu_dt). CPU tensors take `eskf_predict_scan_plain`. Returns
-    new tensors (p, v, R, cov, time): the inputs are never written
-    (pipelined steps and checkpoints keep them); bg, ba and g do not
-    change."""
+    gyros / acces (K, 3), stamps (K,), valid (K,) as host arrays (read by
+    the kernel in place, from a page-locked buffer of `_PinnedRing`) or
+    tensors (packed on the card by `imu_packet`); Q (18, 18) the process
+    noise; imu_dt the filter's sample period (the dt gate is 5 imu_dt). CPU
+    tensors take `eskf_predict_scan_plain`. Returns new tensors (p, v, R,
+    cov, time): the inputs are never written (pipelined steps and
+    checkpoints keep them); bg, ba and g do not change."""
     if p.device.type == "cpu":
         return eskf_predict_scan_plain(p, v, R, bg, ba, g, cov, time, gyros, acces, stamps,
                                        valid, Q, imu_dt)
     dev = _device_of(p)
-    return _eskf_predict_scan_launch(p, v, R, bg, ba, g, cov, time,
-                                     imu_packet(gyros, acces, stamps, valid, dev), Q, imu_dt)
+    parts = (gyros, acces, stamps, valid)
+    if not _host_packet(parts):
+        return _eskf_predict_scan_launch(p, v, R, bg, ba, g, cov, time,
+                                         imu_packet(*parts, dev), Q, imu_dt)
+    args, out, _alive = _eskf_predict_args((p, v, R, bg, ba, g, cov, time, Q), imu_dt, dev)
+    _pinned_ring(dev).launch(args, *parts, torch._C._cuda_getCurrentRawStream(dev.index))
+    LAUNCHES["eskf_predict_scan"] += 1
+    return out
+
+
+def _eskf_predict_args(state, imu_dt: float, dev):
+    """The launch's arguments but the packet, its outputs (p, v, R, cov,
+    time), new tensors, and the inputs it points at (the caller keeps them
+    alive until the launch is enqueued)."""
+    args = _EskfPredictArgsC()
+    state = [_checked(name, x, shape, dev)
+             for name, x, shape in zip(_ESKF_PREDICT_IN, state, _ESKF_PREDICT_SHAPES)]
+    for name, x in zip(_ESKF_PREDICT_IN, state):
+        setattr(args, name, x.data_ptr())
+    # new_empty: p's device and type, no device argument to parse
+    out = tuple(state[0].new_empty(shape)
+                for shape in _ESKF_PREDICT_SHAPES[:3] + _ESKF_PREDICT_SHAPES[6:8])
+    args.p_out, args.v_out, args.R_out, args.cov_out, args.time_out = (
+        x.data_ptr() for x in out)
+    args.max_dt = 5.0 * imu_dt
+    return args, out, state
 
 
 def _eskf_predict_scan_launch(p, v, R, bg, ba, g, cov, time, packet, Q, imu_dt: float):
-    """The launch of `eskf_predict_scan` on a packet already made by
-    `imu_packet` on the state's device."""
+    """The launch of `eskf_predict_scan` on a packet tensor already on the
+    state's device: (K, 8) float32 rows, contiguous (`imu_packet`)."""
     dev = p.device
-    p, v, R, bg, ba, g, cov, time, Q = (_f32_on(x, dev) for x in (p, v, R, bg, ba, g, cov, time, Q))
-    for name, x, shape in (("p", p, (3,)), ("v", v, (3,)), ("R", R, (3, 3)), ("bg", bg, (3,)),
-                           ("ba", ba, (3,)), ("g", g, (3,)), ("cov", cov, (18, 18)),
-                           ("time", time, ()), ("Q", Q, (18, 18))):
-        _check(name, x, shape, dev)
-    if packet.ndim != 2 or packet.shape[1] != ESKF_PACKET_WORDS:
-        raise ValueError(f"IMU packet: expected (K, {ESKF_PACKET_WORDS}) rows, got "
-                         f"{tuple(packet.shape)}")
-    out = tuple(torch.empty_like(x) for x in (p, v, R, cov, time))
+    if (packet.ndim != 2 or packet.shape[1] != ESKF_PACKET_WORDS or packet.device != dev
+            or packet.dtype != torch.float32 or not packet.is_contiguous()
+            or packet.data_ptr() % 16):
+        raise ValueError(f"IMU packet: expected contiguous, 16-byte aligned (K, "
+                         f"{ESKF_PACKET_WORDS}) float32 rows on {dev}, got "
+                         f"{tuple(packet.shape)} {packet.dtype} on {packet.device}")
+    args, out, _alive = _eskf_predict_args((p, v, R, bg, ba, g, cov, time, Q), imu_dt, dev)
+    args.packet, args.K, args.event = packet.data_ptr(), packet.shape[0], None
     _raise_on("eskf_predict_scan_launch", build().cdll.eskf_predict_scan_launch(
-        p.data_ptr(), v.data_ptr(), R.data_ptr(), bg.data_ptr(), ba.data_ptr(), g.data_ptr(),
-        cov.data_ptr(), time.data_ptr(), packet.data_ptr(), packet.shape[0], Q.data_ptr(),
-        5.0 * imu_dt, *(x.data_ptr() for x in out), torch._C._cuda_getCurrentRawStream(dev.index)))
+        ctypes.byref(args), torch._C._cuda_getCurrentRawStream(dev.index)))
     LAUNCHES["eskf_predict_scan"] += 1
     return out
 
@@ -1429,31 +1493,37 @@ def eskf_update(p, v, R, bg, ba, g, cov, kind: str, obs, noise, update_bias_gyro
         return eskf_update_plain(p, v, R, bg, ba, g, cov, kind, obs, noise, update_bias_gyro,
                                  update_bias_acce)
     dev = _device_of(p)
-    state = tuple(_f32_on(x, dev) for x in (p, v, R, bg, ba, g, cov))
-    for name, x, shape in zip(_ESKF_FIELDS, state, _ESKF_SHAPES):
-        _check(name, x, shape, dev)
+    args = _EskfUpdateArgsC()
+    # every tensor the launch points at stays referenced until it is enqueued
+    alive = [_checked(name, x, shape, dev)
+             for name, x, shape in zip(_ESKF_FIELDS, (p, v, R, bg, ba, g, cov), _ESKF_SHAPES)]
+    for name, x in zip(_ESKF_FIELDS, alive):
+        setattr(args, name, x.data_ptr())
     if kind == "se3":
-        R_obs, t_obs = (_f32_on(x if isinstance(x, torch.Tensor) else torch.as_tensor(x), dev)
-                        for x in obs)
-        _check("R_obs", R_obs, (3, 3), dev)
-        _check("t_obs", t_obs, (3,), dev)
-        _alive = (R_obs, t_obs)
-        ptrs = (R_obs.data_ptr(), t_obs.data_ptr(), None)
-        values = (float(noise[0]), float(noise[1]), 0.0, 0.0, 0.0)
+        # read through their strides: a pose's R = T[:3, :3], t = T[:3, 3] need no copy
+        R_obs, t_obs = (_checked(name, x, shape, dev, strided=True)
+                        for name, x, shape in zip(("R_obs", "t_obs"), obs, ((3, 3), (3,))))
+        alive += [R_obs, t_obs]
+        args.R_obs, args.t_obs = R_obs.data_ptr(), t_obs.data_ptr()
+        (args.R_obs_s0, args.R_obs_s1), (args.t_obs_s,) = R_obs.stride(), t_obs.stride()
+        args.noise0, args.noise1 = float(noise[0]), float(noise[1])
     else:
         (left, lt), (right, rt) = _pulse(obs[0], dev), _pulse(obs[1], dev)
-        _alive = None
         if lt is not None or rt is not None:
-            _alive = torch.stack([torch.full((), x, dtype=torch.float32, device=dev)
+            pulses = torch.stack([torch.full((), x, dtype=torch.float32, device=dev)
                                   if t is None else t for x, t in ((left, lt), (right, rt))])
-            left = right = 0.0
-        ptrs = (None, None, None if _alive is None else _alive.data_ptr())
-        values = (float(noise[0]) * float(noise[0]), 0.0, float(obs[2]), left, right)
-    out = tuple(torch.empty(shape, dtype=torch.float32, device=dev) for shape in _ESKF_SHAPES)
+            alive.append(pulses)
+            args.pulses = pulses.data_ptr()
+        else:
+            args.left, args.right = left, right
+        args.noise0, args.wheel = float(noise[0]) * float(noise[0]), float(obs[2])
+        args.kind = 1
+    args.update_bg, args.update_ba = bool(update_bias_gyro), bool(update_bias_acce)
+    out = tuple(alive[0].new_empty(shape) for shape in _ESKF_SHAPES)
+    args.p_out, args.v_out, args.R_out, args.bg_out, args.ba_out, args.g_out, args.cov_out = (
+        x.data_ptr() for x in out)
     _raise_on("eskf_update_launch", build().cdll.eskf_update_launch(
-        *(x.data_ptr() for x in state), ESKF_KINDS.index(kind), *ptrs, *values,
-        1 if update_bias_gyro else 0, 1 if update_bias_acce else 0,
-        *(x.data_ptr() for x in out), torch._C._cuda_getCurrentRawStream(dev.index)))
+        ctypes.byref(args), torch._C._cuda_getCurrentRawStream(dev.index)))
     LAUNCHES["eskf_update"] += 1
     return out
 

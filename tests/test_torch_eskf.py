@@ -374,3 +374,376 @@ def test_imu_integrate_matches_jax():
         for name in eskf.ImuIntegState._fields:
             np.testing.assert_allclose(getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
                                        atol=ATOL, err_msg=f"{name} at sample {k}")
+
+
+# ---------------------------------------------------------------------------
+# The two sum orders of csrc/eskf_predict.cu, emulated in float32
+# ---------------------------------------------------------------------------
+#
+# The redesigned kernels (a lane a column, F's and (I - K H)'s nonzeros in
+# index order, the column-parallel Gauss-Jordan, a finiteness vote that takes
+# the dense sums) and the earlier ones (one thread an entry, the dense
+# 18-term sums in index order, thread 0's serial inverse) are emulated with
+# numpy float32 ops, each product and sum rounded on its own as under
+# nvcc -fmad=false. Both share the nominal chain and the innovation (torch's
+# lie.so3_exp / so3_log), so what the tests below hold equal is the sum order.
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+F32 = np.float32
+
+
+def _dense_product(A, B):
+    """A @ B, each entry summed over the 18 terms in index order."""
+    s = A[:, 0:1] * B[0:1, :]
+    for m in range(1, A.shape[1]):
+        s = s + A[:, m:m + 1] * B[m:m + 1, :]
+    return s
+
+
+def _nominal_steps(state, packet, imu_dt):
+    """The nominal chain of `predict_scan` (torch float32 ops, the plain
+    version's formulas), shared by both emulations: the F of every updating
+    sample in order, then (p, v, R, time)."""
+    from loc_lib_tpu_torch.utils import lie
+
+    p, v, R, bg, ba, g = (x.clone() for x in state[:6])
+    time, max_dt = F32(state[7]), F32(5.0 * imu_dt)
+    gyros, acces, stamps, valid = (np.asarray(x) for x in packet)
+    eye = torch.eye(3)
+    Fs = []
+    for k in range(len(stamps)):
+        if not valid[k]:
+            continue
+        dt = F32(F32(stamps[k]) - time)
+        time = F32(stamps[k])
+        if not (dt <= max_dt and dt >= 0):
+            continue
+        gyro, acce, d = torch.from_numpy(gyros[k]), torch.from_numpy(acces[k]), torch.tensor(dt)
+        acc_w = R @ (acce - ba)
+        p = p + v * d + 0.5 * acc_w * d * d + 0.5 * g * d * d
+        v = v + acc_w * d + g * d
+        R = R @ lie.so3_exp((gyro - bg) * d)
+        F = torch.eye(18)
+        F[0:3, 3:6] = eye * d
+        F[3:6, 6:9] = -R @ lie.hat(acce - ba) * d
+        F[3:6, 12:15] = -R * d
+        F[3:6, 15:18] = eye * d
+        F[6:9, 6:9] = lie.so3_exp(-(gyro - bg) * d)
+        F[6:9, 9:12] = -eye * d
+        Fs.append(F.numpy())
+    return Fs, (p, v, R, torch.tensor(time))
+
+
+def _cov_dense(cov, F, Q):
+    """The earlier kernel: T = F cov and cov' = T F^T + Q, every entry over
+    its 18 terms in index order."""
+    return _dense_product(_dense_product(F, cov), F.T) + Q
+
+
+def _cov_columns(cov, F, Q, dense):
+    """The redesign: lane j's column of T = F cov and of cov' = T F^T + Q
+    over F's structural nonzeros only, in index order, as the kernel writes
+    them out; where the result holds a non-finite value (a NaN or Inf of cov
+    or T always reaches it), the dense sums from cov, for this sample and
+    every later one. Returns (cov', dense)."""
+    if not dense:
+        d, nd, c = F[0, 3], F[6, 9], cov
+        T = np.empty_like(cov)
+        for r in range(3):
+            T[r] = c[r] + d * c[r + 3]
+            s = c[3 + r] + F[3 + r, 6] * c[6]
+            for m in (7, 8, 12, 13, 14):
+                s = s + F[3 + r, m] * c[m]
+            T[3 + r] = s + d * c[15 + r]
+            s = F[6 + r, 6] * c[6] + F[6 + r, 7] * c[7]
+            s = s + F[6 + r, 8] * c[8]
+            T[6 + r] = s + nd * c[9 + r]
+        T[9:] = c[9:]
+        out = np.empty_like(cov)
+        for j in range(18):
+            if j < 3:
+                terms = ((j, F32(1)), (j + 3, d))
+            elif j < 6:
+                terms = ((j, F32(1)),) + tuple((m, F[j, m]) for m in (6, 7, 8, 12, 13, 14)) \
+                    + ((j + 12, d),)
+            elif j < 9:
+                terms = tuple((m, F[j, m]) for m in (6, 7, 8)) + ((j + 3, nd),)
+            else:
+                terms = ((j, F32(1)),)
+            s = T[:, terms[0][0]] * terms[0][1]
+            for m, w in terms[1:]:
+                s = s + T[:, m] * w
+            out[:, j] = s + Q[:, j]
+        if np.isfinite(out).all():
+            return out, False
+    return _cov_dense(cov, F, Q), True
+
+
+def _predict_emulated(state, packet, Q, imu_dt, order):
+    """(p, v, R, cov, time) of `predict_scan` with the covariance summed in
+    `order` ("dense" or "columns")."""
+    Fs, (p, v, R, time) = _nominal_steps(state, packet, imu_dt)
+    cov, Qn, dense = state[6].numpy().copy(), Q.numpy(), False
+    with np.errstate(all="ignore"):        # NaN and Inf cases
+        for F in Fs:
+            if order == "dense":
+                cov = _cov_dense(cov, F, Qn)
+            else:
+                cov, dense = _cov_columns(cov, F, Qn, dense)
+    return p, v, R, torch.from_numpy(cov), time
+
+
+def _invert_serial(S):
+    """The earlier kernel's `invert<M>`: Gauss-Jordan on thread 0, the first
+    row of largest |s_ik| as pivot, rows swapped, row k divided, the others
+    eliminated."""
+    M = S.shape[0]
+    A, X = S.copy(), np.eye(M, dtype=F32)
+    for k in range(M):
+        p, best = k, abs(A[k, k])
+        for i in range(k + 1, M):
+            if abs(A[i, k]) > best:
+                best, p = abs(A[i, k]), i
+        A[[k, p]], X[[k, p]] = A[[p, k]], X[[p, k]]
+        piv = A[k, k]
+        A[k], X[k] = A[k] / piv, X[k] / piv
+        for i in range(M):
+            if i != k:
+                f = A[i, k]
+                A[i], X[i] = A[i] - f * A[k], X[i] - f * X[k]
+    return X
+
+
+def _invert_columns(S):
+    """The redesign: the 2M columns of [S | I], a lane each; at step k every
+    column takes a copy of column k, finds the pivot in it, exchanges rows k
+    and p, divides its row k by the pivot and eliminates with the copy."""
+    M = S.shape[0]
+    cols = [S[:, c].copy() for c in range(M)] + [np.eye(M, dtype=F32)[:, c] for c in range(M)]
+    for k in range(M):
+        ck = cols[k].copy()
+        p, best = k, abs(ck[k])
+        for i in range(k + 1, M):
+            if abs(ck[i]) > best:
+                best, p = abs(ck[i]), i
+        ck[[k, p]] = ck[[p, k]]
+        piv = ck[k]
+        for col in cols:
+            col[[k, p]] = col[[p, k]]
+            col[k] = col[k] / piv
+            for i in range(M):
+                if i != k:
+                    col[i] = col[i] - ck[i] * col[k]
+    return np.stack(cols[M:], axis=1)
+
+
+def _update_emulated(state, kind, obs, noise, flags, order):
+    """(p, v, R, bg, ba, g, cov) of `eskf_update` with P H^T, S, the inverse,
+    (I - K H) P and J cov J^T in `order` ("dense": the 18-term sums in index
+    order and the serial inverse, which are the earlier kernel's values on
+    finite inputs; "columns": the redesign); the observation build, the
+    injection and R's update shared (`kernels.eskf_observation_plain`,
+    torch's so3_exp and so3_renormalize)."""
+    with np.errstate(all="ignore"):        # NaN and Inf cases
+        return _update_sums(state, kind, obs, noise, flags, order)
+
+
+def _update_sums(state, kind, obs, noise, flags, order):
+    from loc_lib_tpu_torch.ops import kernels
+    from loc_lib_tpu_torch.utils import lie
+
+    p, v, R, bg, ba, g, cov = state
+    sel = (0, 1, 2, 6, 7, 8) if kind == "se3" else (3, 4, 5)
+    M = len(sel)
+    H, V, innov = kernels.eskf_observation_plain(p, v, R, kind, obs, noise)
+    H, V, innov, P = H.numpy(), V.numpy(), innov.numpy(), cov.numpy()
+    if order == "dense" or not np.isfinite(P).all():
+        PHt = _dense_product(P, H.T)                 # H's zeros carry a NaN of P
+        S = _dense_product(H, PHt) + V
+    else:
+        PHt = P[:, sel]                              # selections
+        S = P[np.ix_(sel, sel)] + V
+    Si = (_invert_serial if order == "dense" else _invert_columns)(S)
+    K = PHt[:, 0:1] * Si[0][None, :]
+    for r in range(1, M):
+        K = K + PHt[:, r:r + 1] * Si[r][None, :]
+    dx = K[:, 0] * innov[0]
+    for c in range(1, M):
+        dx = dx + K[:, c] * innov[c]
+    A = np.eye(18, dtype=F32)
+    for r, k in enumerate(sel):
+        A[:, k] = A[:, k] - K[:, r]
+    if order == "dense" or not np.isfinite(P).all():
+        C = _dense_product(A, P)
+    else:
+        C = np.empty_like(P)
+        for i in range(18):
+            nz = sorted(set(sel) | {i})
+            s = A[i, nz[0]] * P[nz[0]]
+            for k in nz[1:]:
+                s = s + A[i, k] * P[k]
+            C[i] = s
+    d = dx[6:9]
+    J = np.eye(18, dtype=F32)
+    for r in range(3):
+        for c in range(3):
+            h = F32(0) if r == c else (-d[3 - r - c] if (c - r + 3) % 3 == 1 else d[3 - r - c])
+            J[6 + r, 6 + c] = J[6 + r, 6 + c] - F32(0.5) * h
+    if order == "columns":
+        T = C.copy()
+        T[6:9] = (J[6:9, 6:7] * C[6] + J[6:9, 7:8] * C[7]) + J[6:9, 8:9] * C[8]
+        out = T.copy()
+        out[:, 6:9] = (T[:, 6:7] * J[6:9, 6] + T[:, 7:8] * J[6:9, 7]) + T[:, 8:9] * J[6:9, 8]
+    if order == "dense" or not np.isfinite(out).all():    # a NaN or Inf of C or T reaches it
+        out = _dense_product(_dense_product(J, C), J.T)
+    dxt = torch.from_numpy(dx)
+    return (p + dxt[0:3], v + dxt[3:6], lie.so3_renormalize(R @ lie.so3_exp(dxt[6:9])),
+            bg + dxt[9:12] * (1.0 if flags[0] else 0.0),
+            ba + dxt[12:15] * (1.0 if flags[1] else 0.0), g + dxt[15:18],
+            torch.from_numpy(out))
+
+
+def _same_values(a, b) -> bool:
+    """Equal float32 values, a zero's sign aside; NaN where the other has NaN."""
+    return all(np.array_equal(np.asarray(x), np.asarray(y), equal_nan=True)
+               for x, y in zip(a, b))
+
+
+_EMU_LOG = {}
+
+
+def _emulation_log():
+    """The demo log's IMU stream (chip_smoke's trajectory: 40 frames, 2 m/s,
+    no yaw; a small world, whose scans nothing here reads), the state after
+    the static IMU init, the measure groups and Q."""
+    if not _EMU_LOG:
+        from loc_lib_tpu_torch.io import logdir
+        from loc_lib_tpu_torch.pipeline import lio
+
+        log = logdir.make_demo_log(num_frames=40, capacity=64, yaw_rate=0.0, speed=2.0,
+                                   world_points=2000)
+        init = lio.ImuStaticInit(device="cpu")
+        state = None
+        for t, g, a in zip(log.imu.stamps, log.imu.gyro, log.imu.acce):
+            state = init.add(g, a, t)
+            if state is not None:
+                break
+        _EMU_LOG.update(log=log, state=state, mgs=list(log.measures(imu_capacity=64)),
+                        Q=eskf.process_noise(eskf.EskfOptions(), "cpu"))
+    return _EMU_LOG
+
+
+def _emulation_cases(case):
+    """(label, state, packet) triples of one test case: the demo log's 40
+    packets (the dense emulation's state carried, observed at the true pose
+    after each), or one of chip_smoke's gate packets, or a random state, or
+    a covariance with a NaN at [17, 17] / an Inf at [4, 4]."""
+    cs, e = _chip_smoke(), _emulation_log()
+    log, state, mgs, Q = e["log"], e["state"], e["mgs"], e["Q"]
+    imu_dt = eskf.EskfOptions().imu_dt
+    mid = (state, (mgs[20].imu_gyro, mgs[20].imu_acce, mgs[20].imu_stamp, mgs[20].imu_valid))
+    if case == "demo":
+        out, s = [], state
+        for i, mg in enumerate(mgs):
+            packet = (mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
+            out.append((f"demo packet {i}", s, packet))
+            s = s._replace(**dict(zip(cs.ESKF_OUT, _predict_emulated(s, packet, Q, imu_dt,
+                                                                     "dense"))))
+            T = torch.from_numpy(log.gt_poses[mg.scan_index])
+            s = eskf.observe_se3(s, T[:3, :3], T[:3, 3], eskf.EskfOptions())
+        return out
+    if case.startswith("random"):
+        rng = np.random.default_rng(int(case[-1]))
+        return [(f"random state {k}", eskf.EskfState(*cs._random_eskf_state(rng, "cpu"),
+                                                      state.time), mid[1]) for k in range(6)]
+    if case in ("nan", "inf"):
+        bad = state._replace(cov=state.cov.clone())
+        bad.cov[(17, 17) if case == "nan" else (4, 4)] = float(case)
+        return [(f"cov with {case}", bad, mid[1])]
+    gates = cs._eskf_gate_packets(log, float(mgs[20].imu_stamp[0]) - 0.01)
+    s = state._replace(time=torch.tensor(np.float32(mgs[20].imu_stamp[0]) - np.float32(0.01)))
+    return [(case, s, gates[case])]
+
+
+@pytest.mark.parametrize("case", ["demo", "padding", "dt > 5 imu_dt", "dt < 0", "holes",
+                                  "all invalid", "random0", "random1", "nan", "inf"])
+def test_eskf_predict_column_order_equals_dense_order(case):
+    """eskf_predict_scan's covariance a lane a column over F's nonzeros
+    gives the same float32 values as the dense 18-term sums of the earlier
+    kernel (a zero's sign aside), on the demo log's packets, every gate case,
+    random states, and a covariance holding a NaN or an Inf (the same
+    non-finite entries: the vote takes the dense sums); on finite inputs
+    each order stays within chip_smoke's bound of the float64 plain version."""
+    from loc_lib_tpu_torch.ops import kernels
+
+    cs, Q = _chip_smoke(), _emulation_log()["Q"]
+    imu_dt = eskf.EskfOptions().imu_dt
+    for label, s, packet in _emulation_cases(case):
+        dense = _predict_emulated(s, packet, Q, imu_dt, "dense")
+        cols = _predict_emulated(s, packet, Q, imu_dt, "columns")
+        assert _same_values(dense, cols), label
+        p32 = kernels.eskf_predict_scan_plain(*s, *packet, Q, imu_dt)
+        if case in ("nan", "inf"):
+            assert not np.isfinite(cols[3].numpy()).all(), label
+            cs._nonfinite_pattern_equal(label, cols, p32)
+            continue
+        p64 = kernels.eskf_predict_scan_plain(*(x.double() for x in s), *packet, Q.double(),
+                                              imu_dt)
+        for got in (dense, cols):
+            cs._eskf_close(label, got, p32, p64)
+
+
+def _update_cases(source):
+    cs, e = _chip_smoke(), _emulation_log()
+    rng = np.random.default_rng(11)
+    if source == "demo":
+        s, out = e["state"], []
+        for i, mg in enumerate(e["mgs"][:20]):
+            s = eskf.predict_scan(s, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid,
+                                  eskf.EskfOptions())
+            if i % 4 == 3:
+                out.append((f"demo state {i}", s[:7]))
+        return out, rng
+    states = [(f"random state {k}", cs._random_eskf_state(rng, "cpu")) for k in range(4)]
+    if source in ("nan", "inf"):
+        bad = states[0][1][:6] + (states[0][1][6].clone(),)
+        bad[6][(17, 17) if source == "nan" else (4, 4)] = float(source)
+        return [(f"cov with {source}", bad)], rng
+    return states, rng
+
+
+@pytest.mark.parametrize("source", ["demo", "random", "nan", "inf"])
+@pytest.mark.parametrize("flags", [(True, True), (False, False), (True, False), (False, True)])
+def test_eskf_update_column_order_equals_dense_order(source, flags):
+    """eskf_update with the column-parallel Gauss-Jordan, (I - K H) P over
+    its rows' nonzeros and J cov J^T over rows and columns 6-8 gives the same
+    float32 values as the serial inverse and dense 18-term sums of the
+    earlier kernel, for a pose and a wheel speed, every bias-flag pair, on
+    the demo log's states, random states, and a covariance holding a NaN or
+    an Inf (the same non-finite entries); on finite inputs each order stays
+    within chip_smoke's bound of the float64 plain version."""
+    from loc_lib_tpu_torch.ops import kernels
+
+    cs = _chip_smoke()
+    states, rng = _update_cases(source)
+    for label, state in states:
+        for kind, (obs, noise) in cs._eskf_observations(rng, state, "cpu", ang=0.05).items():
+            dense = _update_emulated(state, kind, obs, noise, flags, "dense")
+            cols = _update_emulated(state, kind, obs, noise, flags, "columns")
+            assert _same_values(dense, cols), (label, kind)
+            if source in ("nan", "inf"):
+                assert not np.isfinite(cols[6].numpy()).all(), (label, kind)
+                cs._nonfinite_pattern_equal(f"{label} {kind}", cols, kernels.eskf_update_plain(
+                    *state, kind, obs, noise, *flags))
+                continue
+            for got in (dense, cols):
+                cs._eskf_update_close(f"{label} {kind}", got, state, kind, obs, noise, flags)
