@@ -2798,7 +2798,7 @@ def phase_batched_match(device, card, bw, targets):
     kernel_of = {"p2plane_vox": "p2plane_pick_fused_terms", "p2plane_vox_oct": "p2plane_fused_terms"}
     srcs, R0, t0 = bw["srcs"], bw["R0"], bw["t0"]
     to_profile = {}
-    batched_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    batched_launches = dict.fromkeys(kernels.KERNELS, 0)
     for method, kname in kernel_of.items():
         fixed = _loop_icp_options(method, max_iteration=20, eps=0.0)
         converging = (icp.IcpOptions(method=method, grid_leaf=2.0, plane_min_pts=4)
@@ -2814,7 +2814,7 @@ def phase_batched_match(device, card, bw, targets):
             args = args_of(opts, B)
             kernels.reset_launch_counts()
             res = icp.scan_match_batch(*args)
-            launched = dict(kernels.LAUNCHES)
+            launched = {k: kernels.LAUNCHES[k] for k in kernels.KERNELS}
             its = int(res.iterations.max())
             if launched != {**dict.fromkeys(launched, 0), kname: its, "gn_step": its}:
                 raise AssertionError(f"phase 8 {method} B={B}: launches {launched} for {its} "
@@ -3208,7 +3208,7 @@ def phase_slam3d(device, card):
     with _BatchSpy("p2plane_pick_fused_terms") as spy, \
             _Spy(eskf, "predict_scan", keep=lambda r: None) as predicts:
         run = drive_slam3d(device, opts, log)
-    counts = dict(kernels.LAUNCHES)
+    counts = {k: kernels.LAUNCHES[k] for k in kernels.KERNELS}
     if not 0 < counts["eskf_predict_scan"] == len(predicts.calls):
         raise AssertionError(f"3D SLAM: {counts['eskf_predict_scan']} eskf_predict_scan launches "
                              f"for {len(predicts.calls)} eskf.predict_scan calls")
@@ -3781,7 +3781,7 @@ def _profile_lio(device, card, out_dir, matcher):
     from loc_lib_tpu_torch.ops import kernels
     kernels.reset_launch_counts()      # this repo's kernels in one step, unprofiled
     eng.add_measure(last, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid)
-    ours = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    ours = {k: kernels.LAUNCHES[k] for k in kernels.KERNELS if kernels.LAUNCHES[k]}
     n, dev_ms, host_ms, prof = _profiled(
         lambda: eng.add_measure(last, mg.imu_gyro, mg.imu_acce, mg.imu_stamp, mg.imu_valid), 1)
     name = "profile_lio_step.txt" if matcher == "icp" else f"profile_lio_{matcher}_step.txt"
@@ -4225,7 +4225,7 @@ def rank_12b(case: dict) -> dict:
         out["seconds"]["pgo"] = time.perf_counter() - t0
         out["pgo"] = {"R": Rp.cpu().numpy(), "t": tp.cpu().numpy(), "inlier": inl.cpu().numpy()}
     torch.cuda.synchronize()
-    out["launches"] = dict(kernels.LAUNCHES)
+    out["launches"] = {k: kernels.LAUNCHES[k] for k in kernels.KERNELS}
     # the kernels on this rank's own shard, at the final poses
     local = match.local_cloud(src, mesh)
     plane, w = map_shard.elect(mesh, st.target, local, res.R, res.t,
@@ -4848,7 +4848,7 @@ def main() -> int:
                 _Spy(eskf, "observe_wheel_speed", keep=lambda r: None) as wheel, \
                 _GnLoops() as loops:
             result = fn()
-        counts = dict(kernels.LAUNCHES)
+        counts = {k: kernels.LAUNCHES[k] for k in kernels.KERNELS}
         for name in names:
             if counts[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched by its path")

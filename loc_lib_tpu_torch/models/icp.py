@@ -43,7 +43,7 @@ import torch
 
 from ..ops.pointcloud import PointCloud
 from ..ops import kernels, voxel
-from ..utils import lie, mathx
+from ..utils import lie, mathx, timing
 
 _VOX_METHODS = ("p2plane_vox", "p2plane_vox_oct", "p2line_vox")
 _KNN_METHODS = ("p2p", "p2line", "p2plane")
@@ -564,7 +564,7 @@ def _gauss_newton(terms, target: IcpTarget, opts: IcpOptions, src: PointCloud, R
         if reduce is not None:
             lin = reduce(*lin)
         it += 1
-        if not bool(loop.step(lin, warm)):     # the one host sync per iteration
+        if not timing.host_bool(loop.step(lin, warm)):     # the one host sync per iteration
             break
     R, t, converged, n_eff, chi2, _ = loop.result()
     return MatchResult(R=R, t=t, converged=converged, num_effective=n_eff, iterations=it,
@@ -601,7 +601,7 @@ def _scan_match_vox_frozen(target: IcpTarget, opts: IcpOptions, src: PointCloud,
             rot = lie.so3_log(R_e.T @ loop.R)
             moved = torch.sqrt(torch.sum(dt * dt)) \
                 + opts.elect_rot_scale * torch.sqrt(torch.sum(rot * rot))
-            elect = bool(moved > opts.elect_dx_threshold)
+            elect = timing.host_bool(moved > opts.elect_dx_threshold)
         if elect:
             plane, w = _p2plane_vox_elect(target, opts, src, loop.R, loop.t)
             # the loop updates its pose in place: keep the election's own copy
@@ -609,7 +609,7 @@ def _scan_match_vox_frozen(target: IcpTarget, opts: IcpOptions, src: PointCloud,
         lin = kernels.p2plane_fused_terms(src.xyz, plane, w, loop.R, loop.t,
                                           opts.max_plane_distance)
         it += 1
-        if not bool(loop.step(lin)):
+        if not timing.host_bool(loop.step(lin)):
             break
     R, t, converged, n_eff, chi2, _ = loop.result()
     return MatchResult(R=R, t=t, converged=converged, num_effective=n_eff, iterations=it,
@@ -683,7 +683,7 @@ def _lane_by_lane(terms):
     lane; the reference has no batched caller of it) and the knn methods."""
     def batched(targets, opts, srcs, R, t, gate, active):
         outs = [terms(take_lane(targets, b), opts, take_lane(srcs, b), R[b], t[b], gate=gate)
-                if on else None for b, on in enumerate(active.tolist())]
+                if on else None for b, on in enumerate(timing.host_numpy(active).tolist())]
         zeros = tuple(torch.zeros_like(x) for x in next(o for o in outs if o is not None))
         return tuple(torch.stack(x) for x in zip(*(o or zeros for o in outs)))
     return batched
@@ -739,7 +739,7 @@ def scan_match_batch(targets: IcpTarget, opts: IcpOptions, srcs: PointCloud, R0,
         lin = terms(targets, opts, srcs, loop.R, loop.t, wide_gate if warm else gate,
                     every if loop.active is None else loop.active)
         it += 1
-        if not bool(loop.step(lin, warm)):     # the one host read per iteration
+        if not timing.host_bool(loop.step(lin, warm)):     # the one host read per iteration
             break
     R, t, converged, n_eff, chi2, iterations = loop.result()
     return MatchResult(R=R, t=t, converged=converged, num_effective=n_eff,

@@ -27,6 +27,7 @@ import torch
 
 from ..ops.pointcloud import PointCloud
 from ..ops import kernels, voxel
+from ..utils import timing
 from . import icp
 
 
@@ -189,7 +190,7 @@ def scan_match(target: LoamTarget, opts: LoamOption, edge_src: PointCloud,
         it += 1
         # the two systems summed (0 + Hs + He), the solve, filters,
         # retraction and stop test: one launch
-        if not bool(loop.step(lins[0], lin2=lins[1] if len(lins) > 1 else None)):
+        if not timing.host_bool(loop.step(lins[0], lin2=lins[1] if len(lins) > 1 else None)):
             break
     R, t, converged, n_eff, chi2, _ = loop.result()
     return icp.MatchResult(R=R, t=t, converged=converged, num_effective=n_eff, iterations=it,

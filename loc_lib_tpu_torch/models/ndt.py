@@ -45,7 +45,7 @@ import torch
 
 from ..ops.pointcloud import PointCloud, card_device
 from ..ops import kernels, voxel
-from ..utils import lie, mathx
+from ..utils import lie, mathx, timing
 
 _INT32_MAX = torch.iinfo(torch.int32).max
 _INT32_MIN = torch.iinfo(torch.int32).min
@@ -406,7 +406,7 @@ def scan_match(m: NdtMap, opts: NdtOptions, src: PointCloud, R0, t0, reduce=None
             lin = reduce(*lin)
         it += 1
         # damping-free solve, filters, retraction, stop test: one launch
-        if not bool(loop.step(lin, gate_count=gate_count)):    # the one host sync
+        if not timing.host_bool(loop.step(lin, gate_count=gate_count)):    # the one host sync
             break
     R, t, converged, n_res, chi2, _ = loop.result()
     return MatchResult(R=R, t=t, converged=converged, num_effective=n_res, iterations=it,

@@ -56,7 +56,9 @@ each; in the reference a `lax.scan` and a jitted update program. A packet of
 host arrays is read by the kernel in place, from a page-locked buffer.
 
 `LAUNCHES` counts kernel launches per kernel (never plain-version calls),
-so a run can show that its main path went through the kernels. Each call is
+so a run can show that its main path went through the kernels. It is the
+program's one counter store, `utils.timing.COUNTERS`, which holds the
+spans' totals beside the launch counts. Each call is
 ONE launch, a batched call too: the last block of a lane to finish reduces
 that lane's per-block partial sums.
 """
@@ -75,15 +77,18 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..utils import lie, mathx
+from ..utils import lie, mathx, timing
 from . import voxel
 
-LAUNCHES = {"p2plane_fused_terms": 0, "p2plane_pick_fused_terms": 0, "ndt_fused_terms": 0,
-            "gn_step": 0, "so3_renormalize": 0, "eskf_predict_scan": 0, "eskf_update": 0}
+KERNELS = ("p2plane_fused_terms", "p2plane_pick_fused_terms", "ndt_fused_terms", "gn_step",
+           "so3_renormalize", "eskf_predict_scan", "eskf_update")
+LAUNCHES = timing.COUNTERS
+LAUNCHES.update(dict.fromkeys(KERNELS, 0))
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
+    """Zero the launch counts (the spans' totals are left as they are)."""
+    for k in KERNELS:
         LAUNCHES[k] = 0
 
 
@@ -1341,7 +1346,8 @@ class _PinnedRing:
         with self.lock:
             k = self.next
             self.next = (k + 1) % PINNED_SLOTS
-            _raise_on("loc_event_wait", lib.loc_event_wait(self.events[k]))
+            with timing.span(timing.SYNC):
+                _raise_on("loc_event_wait", lib.loc_event_wait(self.events[k]))
             buf = self._buffer(k, K)
             buf[:K, 0:3] = gyros
             buf[:K, 3:6] = acces

@@ -39,7 +39,7 @@ import torch
 from ..ops.pointcloud import PointCloud, PAD_COORD, card_device
 from ..ops import voxel as voxel_ops
 from ..models import icp, ndt, loam, eskf as eskf_mod
-from ..utils import lie, mathx
+from ..utils import lie, mathx, timing
 from ..utils import health as health_mod
 
 
@@ -206,14 +206,14 @@ def _empty_map_cloud(opts: LioOptions, device) -> PointCloud:
 # ---------------------------------------------------------------------------
 
 def _is_keyframe(opts: LioOptions, state: LioState, R, t) -> bool:
-    """Relative motion vs the last keyframe (one host read)."""
+    """Relative motion vs the last keyframe (one host read, a `sync`)."""
     if state.num_kfs == 0:
         return True
     dR, dt = lie.se3_compose(*lie.se3_inverse(state.last_kf_R, state.last_kf_t), R, t)
     ang = torch.linalg.vector_norm(lie.so3_log(dR))
     far = (torch.linalg.vector_norm(dt) > opts.kf_distance) | (
         ang > math.radians(opts.kf_angle_deg))
-    return bool(far)
+    return timing.host_bool(far)
 
 
 def _assemble_local_map(opts: LioOptions, kf_xyz, kf_mask, kf_R, kf_t):
@@ -319,37 +319,41 @@ def step(state: LioState, scan: PointCloud, opts: LioOptions,
          edge_scan: Optional[PointCloud] = None):
     """One scan in, updated state + pose out. `scan` must already be
     voxel-filtered to `opts.scan_capacity` rows; for matcher="loam" pass
-    the surf features as `scan` and the edge features as `edge_scan`."""
+    the surf features as `scan` and the edge features as `edge_scan`.
+    Spans: `match` (the prior pose, the GN loop), `update` (the filter's
+    update, the keyframe test), `map_build` (a keyframe's push)."""
     _check_matcher(opts)
     if (opts.matcher == "loam") != (edge_scan is not None):
         raise ValueError("edge_scan is required for matcher='loam' and only for it")
     first = state.frame_idx == 0
-    if first:
-        # first scan: identity pose (the match still runs, against the empty
-        # target, so StepResult carries the same fields as every later scan)
-        R0 = torch.eye(3, dtype=torch.float32, device=scan.device)
-        t0 = torch.zeros(3, dtype=torch.float32, device=scan.device)
-    else:
-        R0, t0 = _predict_pose(opts, state)
-
-    res = _align(opts, state, scan, R0, t0, edge_src=edge_scan)
+    with timing.span("match"):
+        if first:
+            # first scan: identity pose (the match still runs, against the
+            # empty target, so StepResult carries the same fields as every
+            # later scan)
+            R0 = torch.eye(3, dtype=torch.float32, device=scan.device)
+            t0 = torch.zeros(3, dtype=torch.float32, device=scan.device)
+        else:
+            R0, t0 = _predict_pose(opts, state)
+        res = _align(opts, state, scan, R0, t0, edge_src=edge_scan)
     R_new, t_new = (R0, t0) if first else (res.R, res.t)
 
-    new_eskf = state.eskf
-    if opts.with_eskf and not first:
-        # observe the matched LIDAR pose as an IMU-frame pose, take the
-        # nominal back
-        Ril_inv, til_inv = lie.se3_inverse(state.R_il, state.t_il)
-        R_imu, t_imu = lie.se3_compose(R_new, t_new, Ril_inv, til_inv)
-        new_eskf = eskf_mod.observe_se3(state.eskf, R_imu, t_imu, eskf_mod.EskfOptions())
-        Ri, ti = eskf_mod.nominal_se3(new_eskf)
-        R_new, t_new = lie.se3_compose(Ri, ti, state.R_il, state.t_il)
-
-    state = state._replace(last_R=state.R, last_t=state.t, R=R_new, t=t_new,
-                           eskf=new_eskf, frame_idx=state.frame_idx + 1)
-    is_kf = _is_keyframe(opts, state, R_new, t_new)
+    with timing.span("update"):
+        new_eskf = state.eskf
+        if opts.with_eskf and not first:
+            # observe the matched LIDAR pose as an IMU-frame pose, take the
+            # nominal back
+            Ril_inv, til_inv = lie.se3_inverse(state.R_il, state.t_il)
+            R_imu, t_imu = lie.se3_compose(R_new, t_new, Ril_inv, til_inv)
+            new_eskf = eskf_mod.observe_se3(state.eskf, R_imu, t_imu, eskf_mod.EskfOptions())
+            Ri, ti = eskf_mod.nominal_se3(new_eskf)
+            R_new, t_new = lie.se3_compose(Ri, ti, state.R_il, state.t_il)
+        state = state._replace(last_R=state.R, last_t=state.t, R=R_new, t=t_new,
+                               eskf=new_eskf, frame_idx=state.frame_idx + 1)
+        is_kf = _is_keyframe(opts, state, R_new, t_new)
     if is_kf:
-        state = _push_keyframe(opts, state, scan.xyz, scan.mask, R_new, t_new, edge_scan)
+        with timing.span("map_build"):
+            state = _push_keyframe(opts, state, scan.xyz, scan.mask, R_new, t_new, edge_scan)
     return state, StepResult(R=R_new, t=t_new, is_keyframe=is_kf,
                              converged=res.converged,
                              num_effective=res.num_effective,
@@ -359,25 +363,28 @@ def step(state: LioState, scan: PointCloud, opts: LioOptions,
 def step_measure(state: LioState, scan: PointCloud, imu_gyro, imu_acce,
                  imu_stamp, imu_valid, opts: LioOptions,
                  edge_scan: Optional[PointCloud] = None):
-    """ESKF-predict through the measure group's padded IMU packet, then
-    `step`."""
-    new_eskf = eskf_mod.predict_scan(state.eskf, imu_gyro, imu_acce, imu_stamp,
-                                     imu_valid, eskf_mod.EskfOptions())
+    """ESKF-predict through the measure group's padded IMU packet (the
+    `predict` span), then `step`."""
+    with timing.span("predict"):
+        new_eskf = eskf_mod.predict_scan(state.eskf, imu_gyro, imu_acce, imu_stamp,
+                                         imu_valid, eskf_mod.EskfOptions())
     return step(state._replace(eskf=new_eskf), scan, opts, edge_scan=edge_scan)
 
 
 def preprocess_scan(opts: LioOptions, xyz: torch.Tensor, mask: torch.Tensor) -> PointCloud:
-    """Voxel-filter a raw padded scan down to `scan_capacity` rows."""
-    pc = PointCloud(xyz=xyz, mask=mask)
-    # center the downsample key window on the scan so far returns survive
-    centroid = torch.sum(torch.where(mask[:, None], xyz, 0.0), dim=0) / torch.clamp(
-        torch.sum(mask.to(torch.float32)), min=1.0)
-    ds = voxel_ops.voxel_downsample(pc, opts.scan_filter_leaf, origin=centroid)
-    n = opts.scan_capacity
-    if ds.capacity < n:
-        raise ValueError("scan capacity exceeds raw capacity")
-    order = torch.argsort((~ds.mask).to(torch.int32), stable=True)[:n]
-    return PointCloud(xyz=ds.xyz[order], mask=ds.mask[order])
+    """Voxel-filter a raw padded scan down to `scan_capacity` rows (the
+    `filter` span)."""
+    with timing.span("filter"):
+        pc = PointCloud(xyz=xyz, mask=mask)
+        # center the downsample key window on the scan so far returns survive
+        centroid = torch.sum(torch.where(mask[:, None], xyz, 0.0), dim=0) / torch.clamp(
+            torch.sum(mask.to(torch.float32)), min=1.0)
+        ds = voxel_ops.voxel_downsample(pc, opts.scan_filter_leaf, origin=centroid)
+        n = opts.scan_capacity
+        if ds.capacity < n:
+            raise ValueError("scan capacity exceeds raw capacity")
+        order = torch.argsort((~ds.mask).to(torch.int32), stable=True)[:n]
+        return PointCloud(xyz=ds.xyz[order], mask=ds.mask[order])
 
 
 # ---------------------------------------------------------------------------
@@ -458,16 +465,20 @@ class Lio:
     def add_cloud(self, scan: PointCloud, edge_scan: Optional[PointCloud] = None
                   ) -> Optional[StepResult]:
         """One scan without an IMU packet (the ESKF, if on, is not
-        propagated before the match)."""
-        self.state, out = step(self.state, scan, self.opts, edge_scan=edge_scan)
-        return self._emit(out)
+        propagated before the match). The `step` span, with the frame index."""
+        with timing.span("step", self.state.frame_idx):
+            self.state, out = step(self.state, scan, self.opts, edge_scan=edge_scan)
+            return self._emit(out)
 
     def add_measure(self, scan: PointCloud, imu_gyro, imu_acce, imu_stamp,
                     imu_valid, edge_scan: Optional[PointCloud] = None
                     ) -> Optional[StepResult]:
-        self.state, out = step_measure(self.state, scan, imu_gyro, imu_acce,
-                                       imu_stamp, imu_valid, self.opts, edge_scan=edge_scan)
-        return self._emit(out)
+        """One measure group (IMU packet + scan): the `step` span, with the
+        frame index."""
+        with timing.span("step", self.state.frame_idx):
+            self.state, out = step_measure(self.state, scan, imu_gyro, imu_acce,
+                                           imu_stamp, imu_valid, self.opts, edge_scan=edge_scan)
+            return self._emit(out)
 
     def _emit(self, out: StepResult) -> Optional[StepResult]:
         if not self.pipelined:
@@ -506,19 +517,21 @@ class Lio:
                                 last_kf_R=lk_R, last_kf_t=lk_t, eskf=e)
 
     def _record(self, out: StepResult):
-        # one device-to-host pull per scan
-        vals = torch.cat([out.R.reshape(9), out.t.reshape(3),
-                          torch.stack([out.converged.to(torch.float32),
-                                       out.num_effective.to(torch.float32),
-                                       out.chi2.to(torch.float32)])]).cpu().numpy()
-        T = np.eye(4, dtype=np.float32)
-        T[:3, :3] = vals[:9].reshape(3, 3)
-        T[:3, 3] = vals[9:12]
-        self.poses.append(T)
-        if out.is_keyframe:
-            self.kf_poses.append(T)
-        if len(self.poses) > 1:  # frame 0 does no matching
-            self.health.update(bool(vals[12]), int(vals[13]), float(vals[14]))
+        """The `record` span: the pose's pull (one device-to-host read per
+        scan) and the health update."""
+        with timing.span("record"):
+            vals = timing.host_numpy(torch.cat([
+                out.R.reshape(9), out.t.reshape(3),
+                torch.stack([out.converged.to(torch.float32), out.num_effective.to(torch.float32),
+                             out.chi2.to(torch.float32)])]))
+            T = np.eye(4, dtype=np.float32)
+            T[:3, :3] = vals[:9].reshape(3, 3)
+            T[:3, 3] = vals[9:12]
+            self.poses.append(T)
+            if out.is_keyframe:
+                self.kf_poses.append(T)
+            if len(self.poses) > 1:  # frame 0 does no matching
+                self.health.update(bool(vals[12]), int(vals[13]), float(vals[14]))
 
     def local_map(self) -> np.ndarray:
         s = self.state

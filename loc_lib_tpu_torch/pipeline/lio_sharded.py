@@ -38,7 +38,7 @@ from ..models import eskf as eskf_mod
 from ..ops.pointcloud import PointCloud, card_device
 from ..parallel import map_shard, mesh as mesh_mod
 from ..utils import health as health_mod
-from ..utils import lie
+from ..utils import lie, timing
 from . import lio as lio_mod
 from .lio import LioOptions, StepResult
 
@@ -224,10 +224,10 @@ class LioSharded:
 
     def _record(self, out: StepResult) -> None:
         # one device-to-host pull per scan
-        vals = torch.cat([out.R.reshape(9), out.t.reshape(3),
-                          torch.stack([out.converged.to(torch.float32),
-                                       out.num_effective.to(torch.float32),
-                                       out.chi2.to(torch.float32)])]).cpu().numpy()
+        vals = timing.host_numpy(torch.cat([
+            out.R.reshape(9), out.t.reshape(3),
+            torch.stack([out.converged.to(torch.float32), out.num_effective.to(torch.float32),
+                         out.chi2.to(torch.float32)])]))
         T = np.eye(4, dtype=np.float32)
         T[:3, :3] = vals[:9].reshape(3, 3)
         T[:3, 3] = vals[9:12]

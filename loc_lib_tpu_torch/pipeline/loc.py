@@ -8,8 +8,9 @@ Per scan, `step` predicts the pose (ESKF nominal or constant velocity),
 matches the scan against the crop, fuses the matched pose into the ESKF and
 tests whether the pose came within `recrop_margin` of the box edge. The
 stateful wrapper `Loc` reads that flag back with the pose (one pull per scan)
-and re-crops on the host when it is set; the crop origin is snapped to the
-voxel grid, so successive crops give the same voxel partition.
+and, once the scan is recorded, re-crops when it is set; the crop origin is
+snapped to the voxel grid, so successive crops give the same voxel
+partition.
 
 Unlike LIO there is no first-frame special case: the map exists before the
 first scan, so the ESKF observes from the first scan on and the health
@@ -26,7 +27,7 @@ import torch
 
 from ..ops.pointcloud import PointCloud, PAD_COORD, card_device, from_numpy
 from ..models import icp, ndt, eskf as eskf_mod
-from ..utils import lie
+from ..utils import lie, timing
 from ..utils import health as health_mod
 
 
@@ -123,35 +124,38 @@ def init_state(opts: LocOptions, R_il=None, t_il=None, *, device=None) -> LocSta
 def step(state: LocState, scan: PointCloud, opts: LocOptions, match=None):
     """One scan: predict, match against the crop, fuse, box-edge test.
     `match(scan, R0, t0)`, when given, replaces the match against the
-    state's target (the sharded Loc's distributed match)."""
+    state's target (the sharded Loc's distributed match). Spans: `match`
+    (the prior pose, the GN loop), `update` (the filter's update, the
+    box-edge test)."""
     _check_matcher(opts)
-    if opts.with_eskf:
-        Ri, ti = eskf_mod.nominal_se3(state.eskf)
-        R0, t0 = lie.se3_compose(Ri, ti, state.R_il, state.t_il)
-    else:
-        dR, dt = lie.se3_compose(state.R, state.t, *lie.se3_inverse(state.last_R, state.last_t))
-        R0, t0 = lie.se3_compose(dR, dt, state.R, state.t)
+    with timing.span("match"):
+        if opts.with_eskf:
+            Ri, ti = eskf_mod.nominal_se3(state.eskf)
+            R0, t0 = lie.se3_compose(Ri, ti, state.R_il, state.t_il)
+        else:
+            dR, dt = lie.se3_compose(state.R, state.t,
+                                     *lie.se3_inverse(state.last_R, state.last_t))
+            R0, t0 = lie.se3_compose(dR, dt, state.R, state.t)
+        if match is not None:
+            res = match(scan, R0, t0)
+        elif opts.matcher == "icp":
+            res = icp.scan_match(state.icp_target, opts.icp, scan, R0, t0)
+        else:
+            res = ndt.scan_match(state.ndt_map, opts.ndt, scan, R0, t0)
 
-    if match is not None:
-        res = match(scan, R0, t0)
-    elif opts.matcher == "icp":
-        res = icp.scan_match(state.icp_target, opts.icp, scan, R0, t0)
-    else:
-        res = ndt.scan_match(state.ndt_map, opts.ndt, scan, R0, t0)
-
-    R_new, t_new = res.R, res.t
-    new_eskf = state.eskf
-    if opts.with_eskf:
-        Ril_inv, til_inv = lie.se3_inverse(state.R_il, state.t_il)
-        R_imu, t_imu = lie.se3_compose(R_new, t_new, Ril_inv, til_inv)
-        new_eskf = eskf_mod.observe_se3(state.eskf, R_imu, t_imu, eskf_mod.EskfOptions())
-        Ri, ti = eskf_mod.nominal_se3(new_eskf)
-        R_new, t_new = lie.se3_compose(Ri, ti, state.R_il, state.t_il)
-
-    # box-edge proximity test
-    dist_to_edge = opts.box_size / 2.0 - torch.max(torch.abs(t_new - state.map_center))
-    need_recrop = dist_to_edge < opts.recrop_margin
-    state = state._replace(last_R=state.R, last_t=state.t, R=R_new, t=t_new, eskf=new_eskf)
+    with timing.span("update"):
+        R_new, t_new = res.R, res.t
+        new_eskf = state.eskf
+        if opts.with_eskf:
+            Ril_inv, til_inv = lie.se3_inverse(state.R_il, state.t_il)
+            R_imu, t_imu = lie.se3_compose(R_new, t_new, Ril_inv, til_inv)
+            new_eskf = eskf_mod.observe_se3(state.eskf, R_imu, t_imu, eskf_mod.EskfOptions())
+            Ri, ti = eskf_mod.nominal_se3(new_eskf)
+            R_new, t_new = lie.se3_compose(Ri, ti, state.R_il, state.t_il)
+        # box-edge proximity test
+        dist_to_edge = opts.box_size / 2.0 - torch.max(torch.abs(t_new - state.map_center))
+        need_recrop = dist_to_edge < opts.recrop_margin
+        state = state._replace(last_R=state.R, last_t=state.t, R=R_new, t=t_new, eskf=new_eskf)
     return state, StepResult(R=R_new, t=t_new, converged=res.converged,
                              num_effective=res.num_effective, chi2=res.chi2,
                              need_recrop=need_recrop)
@@ -168,10 +172,11 @@ def predict_imu(state: LocState, gyro, acce, timestamp) -> LocState:
 
 def step_measure(state: LocState, scan: PointCloud, imu_gyro, imu_acce, imu_stamp,
                  imu_valid, opts: LocOptions, match=None):
-    """One measure group: ESKF-predict through the padded IMU packet, then
-    `step`."""
-    new_eskf = eskf_mod.predict_scan(state.eskf, imu_gyro, imu_acce, imu_stamp, imu_valid,
-                                     eskf_mod.EskfOptions())
+    """One measure group: ESKF-predict through the padded IMU packet (the
+    `predict` span), then `step`."""
+    with timing.span("predict"):
+        new_eskf = eskf_mod.predict_scan(state.eskf, imu_gyro, imu_acce, imu_stamp, imu_valid,
+                                         eskf_mod.EskfOptions())
     return step(state._replace(eskf=new_eskf), scan, opts, match)
 
 
@@ -220,31 +225,43 @@ class Loc:
         self._recrop()
 
     def _recrop(self):
-        center = self.state.t
-        local = crop_local_map(self.map_xyz, self.map_mask, center, self.opts.box_size / 2.0,
-                               self.opts.local_map_capacity)
-        self.state = self.state._replace(
-            map_center=center, **_build_target(self.opts, local, snap_origin(self.opts, center)))
+        """The `map_build` span: the crop about the pose and its target."""
+        with timing.span("map_build"):
+            center = self.state.t
+            local = crop_local_map(self.map_xyz, self.map_mask, center,
+                                   self.opts.box_size / 2.0, self.opts.local_map_capacity)
+            self.state = self.state._replace(
+                map_center=center,
+                **_build_target(self.opts, local, snap_origin(self.opts, center)))
 
-    def _record(self, out: StepResult):
-        # one device-to-host pull per scan
-        vals = torch.cat([out.R.reshape(9), out.t.reshape(3),
-                          torch.stack([out.need_recrop.to(torch.float32),
-                                       out.converged.to(torch.float32),
-                                       out.num_effective.to(torch.float32),
-                                       out.chi2.to(torch.float32)])]).cpu().numpy()
-        T = np.eye(4, dtype=np.float32)
-        T[:3, :3] = vals[:9].reshape(3, 3)
-        T[:3, 3] = vals[9:12]
-        self.poses.append(T)
-        self.health.update(bool(vals[13]), int(vals[14]), float(vals[15]))
-        if vals[12] > 0.5:
+    def _record(self, out: StepResult) -> bool:
+        """The `record` span: the pose's pull (one device-to-host read per
+        scan) and the health update. Returns the step's box-edge flag."""
+        with timing.span("record"):
+            vals = timing.host_numpy(torch.cat([
+                out.R.reshape(9), out.t.reshape(3),
+                torch.stack([out.need_recrop.to(torch.float32), out.converged.to(torch.float32),
+                             out.num_effective.to(torch.float32), out.chi2.to(torch.float32)])]))
+            T = np.eye(4, dtype=np.float32)
+            T[:3, :3] = vals[:9].reshape(3, 3)
+            T[:3, 3] = vals[9:12]
+            self.poses.append(T)
+            self.health.update(bool(vals[13]), int(vals[14]), float(vals[15]))
+            return bool(vals[12] > 0.5)
+
+    def _emit(self, out: StepResult) -> None:
+        """Record the scan, then re-crop where its pose came near the box
+        edge."""
+        if self._record(out):
             self._recrop()
             self.num_recrops += 1
 
     def update_cloud(self, scan: PointCloud) -> StepResult:
-        self.state, out = step(self.state, scan, self.opts)
-        self._record(out)
+        """One scan without an IMU packet: the `step` span, with the frame
+        index."""
+        with timing.span("step", len(self.poses)):
+            self.state, out = step(self.state, scan, self.opts)
+            self._emit(out)
         return out
 
     def update_imu(self, gyro, acce, timestamp) -> None:
@@ -254,9 +271,10 @@ class Loc:
                        imu_valid) -> StepResult:
         """One measure group (IMU packet + scan); same re-crop and record
         handling as update_cloud."""
-        self.state, out = step_measure(self.state, scan, imu_gyro, imu_acce, imu_stamp,
-                                       imu_valid, self.opts)
-        self._record(out)
+        with timing.span("step", len(self.poses)):
+            self.state, out = step_measure(self.state, scan, imu_gyro, imu_acce, imu_stamp,
+                                           imu_valid, self.opts)
+            self._emit(out)
         return out
 
     def current_pose(self) -> np.ndarray:

@@ -29,6 +29,7 @@ from ..models import eskf as eskf_mod
 from ..ops.pointcloud import PointCloud, PAD_COORD, card_device
 from ..parallel import map_shard, mesh as mesh_mod
 from ..utils import health as health_mod
+from ..utils import timing
 from . import loc as loc_mod
 from .loc import LocOptions, LocState, StepResult
 
@@ -126,11 +127,10 @@ class LocSharded:
         self.state, out = step_measure(self.mesh, self.target, self.state, scan, imu_gyro,
                                        imu_acce, imu_stamp, imu_valid, self.opts)
         # one device-to-host pull per scan
-        vals = torch.cat([out.R.reshape(9), out.t.reshape(3),
-                          torch.stack([out.need_recrop.to(torch.float32),
-                                       out.converged.to(torch.float32),
-                                       out.num_effective.to(torch.float32),
-                                       out.chi2.to(torch.float32)])]).cpu().numpy()
+        vals = timing.host_numpy(torch.cat([
+            out.R.reshape(9), out.t.reshape(3),
+            torch.stack([out.need_recrop.to(torch.float32), out.converged.to(torch.float32),
+                         out.num_effective.to(torch.float32), out.chi2.to(torch.float32)])]))
         T = np.eye(4, dtype=np.float32)
         T[:3, :3] = vals[:9].reshape(3, 3)
         T[:3, 3] = vals[9:12]

@@ -429,7 +429,7 @@ def test_keyframe_store_resume_matches_jax(tmp_path, fmt):
     assert len(checkpoint.KeyframeStore(str(tmp_path / "p"), fresh=True, fmt=fmt)) == 0
 
 
-def test_timing_instruments(tmp_path):
+def test_timing_instruments():
     tt = timing.TicToc()
     assert tt.toc() >= 0.0
     assert tt.toc(block_on=torch.zeros(3)) >= 0.0
@@ -444,11 +444,6 @@ def test_timing_instruments(tmp_path):
     assert st.counts["a"] == 2 and set(st.report()) == {"a"} and st.mean_ms("b") == 0.0
     tree = (torch.ones(2), {"x": torch.zeros(1)})
     assert timing.block_until_ready(tree) is tree
-    with timing.trace(str(tmp_path), name="probe"):
-        torch.ones(8).sum()
-    assert (tmp_path / "probe.json").stat().st_size > 0
-    with timing.trace():
-        torch.ones(8).sum()
 
 
 SLAM_YAML = """

@@ -56,6 +56,10 @@ NOT_PORTED = {
                                  "(voxel.nearby6 / center1 / nearby27), cached per device",
     ("ops/voxel.py", "CENTER1"): "as NEARBY6",
     ("ops/voxel.py", "NEARBY27"): "as NEARBY6",
+    ("utils/timing.py", "trace"): "no call site, and without a log_dir it entered a "
+                                  "record_function on every call; the program's spans "
+                                  "(timing.span) open a profiler range only while a "
+                                  "profiler records",
 }
 
 
@@ -144,7 +148,6 @@ SIGNATURE_EXCEPTIONS = {
     ("ops/voxel.py", "knn"): "stencil None is voxel.nearby27 on the queries' device (see "
                              "NOT_PORTED's NEARBY27)",
     ("ops/voxel.py", "nn1"): "as knn",
-    ("utils/timing.py", "trace"): "the trace is named after the package that records it",
 }
 REQUIRED = type("Required", (), {"__repr__": lambda self: "<required>"})()
 # what a default means, whichever package wrote it
