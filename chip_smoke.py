@@ -21,8 +21,10 @@ frames of LIO mapping (Lio.add_measure, p2plane_vox + ESKF, scan capacity
 8192), and the NDT family on the same log: incremental NDT (ndt_inc, the
 repo's ndt_inc_odometry cell), direct NDT (ndt) and the moment-table voxel
 planes (icp_vox_inc). Then it checks that the map builds give the same bits
-on every run, and drives LOAM odometry (annotate_rings + extract_features +
-Lio.add_measure with edge_scan) and localization against a prior map
+on every run and that LIO icp's build, one CUDA graph replay, gives the
+eager build's bits over 25 keyframes (phase 5g), and drives LOAM odometry
+(annotate_rings + extract_features + Lio.add_measure with edge_scan) and
+localization against a prior map
 (Loc.update_measure with p2plane_vox and p2plane_vox_oct, and two runs
 that re-crop). Then batched matching (phase 8): the batched forms of K2 and
 K1 are held per lane against their plain versions and, bit for bit, against
@@ -132,6 +134,7 @@ ATE_LIMIT_LOC_M = 0.073056 + 0.04            # p2plane_vox, 150 m box
 ATE_LIMIT_LOC_OCT_M = 0.073002 + 0.04        # p2plane_vox_oct, 150 m box
 ATE_LIMIT_LOC_RECROP_M = 0.073085 + 0.04     # p2plane_vox, 110 m box: one re-crop
 DETERMINISM_FRAMES = 12
+MAP_BUILD_KEYFRAMES = 25  # phase 5g: the ring of 10 filled and wrapped twice
 NDT_TH = 20.0             # NdtOptions.res_outlier_th
 # batched matching: bench_suite.py's throughput_batched workload
 BATCH_LANES = 64
@@ -2329,6 +2332,83 @@ def phase_determinism(device, card, workload):
                                  f"poses (max gap {np.abs(runs[0] - runs[1]).max():.3g})")
         cases.append(f"LIO {matcher} {DETERMINISM_FRAMES} frames x2: poses bit-equal")
     print("phase 5f determinism: " + "; ".join(cases) + f" [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5g: the LIO icp map build as a CUDA graph replay
+# ---------------------------------------------------------------------------
+
+def phase_map_build_graph(device, card, keyframes=MAP_BUILD_KEYFRAMES):
+    """LIO icp at the benchmark cells' sizes (8,192-row scans, 10 keyframes,
+    51,200-row budget) over `keyframes` frames of the demo log, each one a
+    keyframe (kf_distance 0.1 m): the ring fills and wraps twice, a pose
+    correction comes at the 12th and a checkpoint's restore replaces the
+    state at the 18th. At every build the target the graph replay gave (its
+    origin among it) and the overflow equal bit for bit the eager build on
+    the state's own ring; a state kept from the 5th build holds its own
+    target to the end; the build is captured once (from an empty cache of
+    builds) and replayed once a build."""
+    import dataclasses
+    import tempfile
+
+    from loc_lib_tpu_torch.io import checkpoint
+    from loc_lib_tpu_torch.models import icp
+    from loc_lib_tpu_torch.pipeline import lio
+    from loc_lib_tpu_torch.utils import timing
+
+    opts = dataclasses.replace(lio_options("icp"), kf_distance=0.1)
+    if (opts.scan_capacity, opts.num_kfs_in_local_map, opts.local_map_budget) != (8192, 10,
+                                                                                  51200):
+        raise AssertionError("phase 5g: not the benchmark cells' sizes")
+    log = demo_log(keyframes)
+    lio._MAP_BUILDS.clear()
+    keys = ("map_build.captures", "map_build.replays", "map_build.ns", "map_build.calls")
+    before = {k: timing.COUNTERS.get(k, 0) for k in keys}
+    eng = lio.Lio(opts, device=device)
+    for t, g, a in zip(log.imu.stamps[:150], log.imu.gyro[:150], log.imu.acce[:150]):
+        eng.init_imu(g, a, t)
+    dR = _so3_exp(np.array([0.002, -0.001, 0.05])).astype(np.float32)
+    eager_ms, valid = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, mg in enumerate(log.measures(imu_capacity=64)):
+            if k == 12:
+                eng.apply_correction(dR, np.array([0.3, -0.2, 0.05], np.float32))
+            if k == 18:
+                eng.state, _ = checkpoint.load_state(
+                    checkpoint.save_state(f"{tmp}/ckpt", eng.state), eng.state)
+            out = eng.add_measure(log.frame(mg.scan_index, device), mg.imu_gyro, mg.imu_acce,
+                                  mg.imu_stamp, mg.imu_valid)
+            if not out.is_keyframe:
+                raise AssertionError(f"phase 5g: frame {k} is no keyframe")
+            s = eng.state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            target, ovf = lio._icp_map_build(opts, s.kf_xyz, s.kf_mask, s.kf_R, s.kf_t)
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+            if not (_bits_equal(s.icp_target, target) and _bits_equal(s.map_overflow, ovf)):
+                raise AssertionError(f"phase 5g: build {k}: the graph replay's target or "
+                                     "overflow differs from the eager build's")
+            valid.append(int(target.plane_valid.sum()))
+            if k == 0:
+                first = {k_: timing.COUNTERS[k_] for k_ in ("map_build.ns", "map_build.calls")}
+            if k == 5:
+                held, kept = s, icp.tree_map(torch.clone, s.icp_target)
+    if not _bits_equal(held.icp_target, kept):
+        raise AssertionError("phase 5g: a later build changed the target of a kept state")
+    got = {k: timing.COUNTERS.get(k, 0) - before[k] for k in keys}
+    if got["map_build.captures"] != 1 or got["map_build.replays"] != keyframes:
+        raise AssertionError(f"phase 5g: {got['map_build.captures']} captures and "
+                             f"{got['map_build.replays']} replays for {keyframes} builds")
+    span_ms = ((timing.COUNTERS["map_build.ns"] - first["map_build.ns"]) * 1e-6
+               / (timing.COUNTERS["map_build.calls"] - first["map_build.calls"]))
+    print(f"phase 5g map build as one CUDA graph replay, {keyframes} keyframes (ring of 10 "
+          f"filled and wrapped twice, a correction at 12, a restored state at 18; "
+          f"{min(valid)}-{max(valid)} valid planes): every target and overflow bit-equal to "
+          f"the eager build; a kept state's target unchanged; 1 capture, {keyframes} replays; "
+          f"the map_build span {span_ms:.3f} ms a build after the first (the capture's) "
+          f"against an eager build of median {np.median(eager_ms):.3f} ms (fenced) [{card}]",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4909,6 +4989,7 @@ def main() -> int:
     # this slice: run-to-run deterministic map builds, LOAM odometry (K2 +
     # K3 at S = 1) and localization against the prior map (K2, K1)
     phase_determinism(device, card, workload)
+    phase_map_build_graph(device, card)
     loam_last, c = counted(("p2plane_pick_fused_terms", "ndt_fused_terms", "eskf_predict_scan"),
                            lambda: phase_loam(device, card))
     one_launch_per_linearization("phase 5e", c, ("p2plane_pick_fused_terms", "ndt_fused_terms"),

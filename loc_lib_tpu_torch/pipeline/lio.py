@@ -7,7 +7,8 @@ group's IMU packet, Gauss-Newton scan match against the matcher's target,
 ESKF fusion of the matched pose, keyframe decision, and on a keyframe the
 target update:
   * icp: ring-buffer local-map rebuild (transform, concat, voxel filter,
-    budget compaction, voxel-plane target build);
+    budget compaction, voxel-plane target build), on a card one CUDA graph
+    replay over the build's own copy of the ring (`_MapBuild`);
   * ndt: the same local map, built into a direct NDT map;
   * ndt_inc: the new keyframe absorbed into the incremental NDT table;
   * icp_vox_inc: the new keyframe (downsampled) absorbed into a floor-binned
@@ -35,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 from ..ops.pointcloud import PointCloud, PAD_COORD, card_device
 from ..ops import voxel as voxel_ops
@@ -238,6 +240,79 @@ def _assemble_local_map(opts: LioOptions, kf_xyz, kf_mask, kf_R, kf_t):
     return PointCloud(xyz=xyz, mask=mask), origin, overflow
 
 
+def _icp_map_build(opts: LioOptions, kf_xyz, kf_mask, kf_R, kf_t):
+    """matcher="icp": the local map over the keyframe window and its target
+    (whose grid holds the map's origin). Returns (target, overflow)."""
+    local_map, origin, ovf = _assemble_local_map(opts, kf_xyz, kf_mask, kf_R, kf_t)
+    return icp.set_target(local_map, opts.icp, origin), ovf
+
+
+class _MapBuild:
+    """`_icp_map_build` over staging buffers of the ring's shapes that it
+    owns. A call copies the state's ring into them, builds, and hands out
+    clones of the outputs. On a card the build is captured once as a CUDA
+    graph (`map_build.captures`) and each call replays it
+    (`map_build.replays`): one launch in place of ~485, with the eager
+    build's bits. The graph reads only the staging buffers: no address of a
+    state's tensor and no host int (slot, keyframe count), so a ring that
+    fills or wraps, `Lio.apply_correction` and a restored state need nothing
+    of it. Its outputs, which the next replay rewrites, never leave it, so
+    every state keeps its target (states are updated out of place) and one
+    build serves every engine of its shapes. Calls are ordered on the
+    current stream. Elsewhere, and while a profiler records before the
+    capture, the build runs eagerly on the same buffers."""
+
+    def __init__(self, opts: LioOptions, ring):
+        self.opts = opts
+        self.ring = tuple(torch.empty_like(x) for x in ring)
+        self.graph = None
+        self.out = None
+
+    def _capture(self) -> None:
+        """torch's recipe: an eager run on a side stream (it makes the cached
+        constants and the cuBLAS workspace), then the capture there."""
+        dev = self.ring[0].device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _icp_map_build(self.opts, *self.ring)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            self.out = _icp_map_build(self.opts, *self.ring)
+        self.graph = graph
+        timing.count("map_build.captures")
+
+    def __call__(self, *ring):
+        for dst, src in zip(self.ring, ring):
+            dst.copy_(src)
+        if not self.ring[0].is_cuda or (self.graph is None and _profiler._is_profiler_enabled):
+            target, ovf = _icp_map_build(self.opts, *self.ring)
+        else:
+            with torch.cuda.device(self.ring[0].device):
+                if self.graph is None:
+                    self._capture()
+                self.graph.replay()
+            timing.count("map_build.replays")
+            target, ovf = self.out
+        return icp.tree_map(torch.clone, target), ovf.clone()
+
+
+# (device, ICP options, map leaf, budget, ring shapes) -> its _MapBuild
+_MAP_BUILDS: dict = {}
+
+
+def _map_build(opts: LioOptions, kf_xyz, kf_mask, kf_R, kf_t):
+    """`_icp_map_build` through the `_MapBuild` of these shapes."""
+    ring = (kf_xyz, kf_mask, kf_R, kf_t)
+    key = (kf_xyz.device, opts.icp, opts.map_filter_leaf, opts.local_map_budget,
+           tuple(x.shape for x in ring))
+    build = _MAP_BUILDS.get(key)
+    if build is None:
+        build = _MAP_BUILDS[key] = _MapBuild(opts, ring)
+    return build(*ring)
+
+
 def _world_scan(scan_xyz, scan_mask, R, t) -> PointCloud:
     world = torch.where(scan_mask[:, None], scan_xyz @ R.T + t, PAD_COORD)
     return PointCloud(xyz=world, mask=scan_mask)
@@ -256,9 +331,8 @@ def _push_keyframe(opts: LioOptions, state: LioState, scan_xyz, scan_mask, R, t,
     new = state._replace(kf_xyz=kf_xyz, kf_mask=kf_mask, kf_R=kf_R, kf_t=kf_t,
                          last_kf_R=R, last_kf_t=t, num_kfs=state.num_kfs + 1)
     if opts.matcher == "icp":
-        local_map, origin, ovf = _assemble_local_map(opts, kf_xyz, kf_mask, kf_R, kf_t)
-        return new._replace(icp_target=icp.set_target(local_map, opts.icp, origin),
-                            map_overflow=ovf)
+        target, ovf = _map_build(opts, kf_xyz, kf_mask, kf_R, kf_t)
+        return new._replace(icp_target=target, map_overflow=ovf)
     if opts.matcher == "ndt":
         local_map, origin, ovf = _assemble_local_map(opts, kf_xyz, kf_mask, kf_R, kf_t)
         return new._replace(ndt_map=ndt.build_direct(local_map, opts.ndt, origin),

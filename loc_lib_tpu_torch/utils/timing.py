@@ -7,6 +7,8 @@
     while a profiler records, it opens a `torch.profiler.record_function`
     range of that name, stamped on the profiler's clock beside the card's
     kernels and copies.
+  * `count`: one more of a named event in `COUNTERS` (the LIO map build's
+    `map_build.captures` and `map_build.replays`).
   * `host_bool`, `host_numpy`: the program's blocking reads of the device,
     each inside a `sync` span, so `sync.calls` counts the host's waits on
     the card and `sync.ns` their time.
@@ -76,6 +78,11 @@ class span:
         if self._range is not None:
             self._range.__exit__(*exc)
         return False
+
+
+def count(name: str) -> None:
+    """Add one to `COUNTERS[name]`."""
+    COUNTERS[name] = COUNTERS.get(name, 0) + 1
 
 
 def host_bool(x) -> bool:

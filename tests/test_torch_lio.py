@@ -460,3 +460,90 @@ def test_lio_corridor_scans_narrower_than_the_ring_track_like_jax():
     with pytest.raises(ValueError, match="does not fit"):
         lio._push_keyframe(eng.opts, eng.state, torch.zeros((8193, 3)),
                            torch.zeros(8193, dtype=torch.bool), eng.state.R, eng.state.t)
+
+
+def _same_bits(a, b) -> bool:
+    """Two tensors, or (nested) NamedTuples of them, hold the same bits."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same_bits(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _keyframe_scans(frames, points=512):
+    """`frames` scans of `points` rows 0.2 m apart along the synthetic
+    trajectory: each one a keyframe at kf_distance 0.1."""
+    world = jsynth.make_world(num_points=20000, extent=60.0, seed=3)
+    traj = jsynth.make_trajectory(num_frames=frames, dt=0.1, speed=2.0)
+    return [synthetic.render_scan(world, traj.R[i], traj.t[i], max_range=35.0,
+                                  max_points=points, noise=0.005, seed=i, capacity=points,
+                                  device="cpu")
+            for i in range(frames)]
+
+
+def test_icp_map_build_equals_a_direct_build_at_every_keyframe(tmp_path):
+    """matcher "icp" builds its target through `_MapBuild` (staging copies of
+    the ring, the build, clones out; on a card a CUDA graph replay). Over 25
+    keyframes (the ring's 10 slots filled and wrapped twice), with a pose
+    correction at the 12th and the state replaced by a checkpoint's restore
+    at the 18th, every build's target (its grid's origin among it) and
+    overflow equal bit for bit a direct `_assemble_local_map` + `set_target`
+    on the state's own ring. A state kept from the 5th build still holds its
+    own target at the end (states are updated out of place), and on the CPU
+    no graph is captured or replayed."""
+    from loc_lib_tpu_torch.io import checkpoint
+    from loc_lib_tpu_torch.utils import timing
+
+    opts = lio.LioOptions(matcher="icp", icp=icp.IcpOptions(method="p2plane_vox"),
+                          scan_capacity=512, with_eskf=False, kf_distance=0.1)
+    eng = lio.Lio(opts, device="cpu")
+    dR = oracles.so3_exp(np.array([0.002, -0.001, 0.05])).astype(np.float32)
+    held = None
+    for k, scan in enumerate(_keyframe_scans(25)):
+        if k == 12:
+            eng.apply_correction(dR, np.array([0.3, -0.2, 0.05], np.float32))
+        if k == 18:
+            path = checkpoint.save_state(str(tmp_path / "ckpt"), eng.state)
+            restored, _ = checkpoint.load_state(path, eng.state)
+            assert restored.kf_xyz is not eng.state.kf_xyz
+            assert _same_bits(restored.kf_xyz, eng.state.kf_xyz)
+            eng.state = restored
+        assert eng.add_cloud(scan).is_keyframe
+        s = eng.state
+        local_map, origin, ovf = lio._assemble_local_map(opts, s.kf_xyz, s.kf_mask, s.kf_R,
+                                                         s.kf_t)
+        assert _same_bits(s.icp_target, icp.set_target(local_map, opts.icp, origin)), k
+        assert _same_bits(s.icp_target.grid.origin, origin), k
+        assert _same_bits(s.map_overflow, ovf), k
+        if k == 5:
+            held, kept = s, icp.tree_map(torch.clone, s.icp_target)
+    assert eng.state.num_kfs == 25 and int(eng.state.icp_target.plane_valid.sum()) > 0
+    assert _same_bits(held.icp_target, kept)
+    assert not _same_bits(held.icp_target.packed, eng.state.icp_target.packed)
+    assert timing.COUNTERS.get("map_build.replays", 0) == 0
+    assert timing.COUNTERS.get("map_build.captures", 0) == 0
+
+
+@pytest.mark.parametrize("matcher", ["icp", "ndt", "ndt_inc", "loam", "icp_vox_inc"])
+def test_only_the_icp_matcher_builds_through_the_map_build_runner(monkeypatch, matcher):
+    """The other matchers keep their eager build: ndt and loam build other
+    targets over the local map, ndt_inc absorbs a keyframe, icp_vox_inc
+    branches on the host's keyframe count. Only "icp" goes through
+    `_map_build`, once a keyframe."""
+    calls = []
+    build = lio._map_build
+    monkeypatch.setattr(lio, "_map_build", lambda *a: calls.append(1) or build(*a))
+    opts = lio.LioOptions(matcher=matcher, icp=icp.IcpOptions(method="p2plane_vox"),
+                          scan_capacity=512, num_kfs_in_local_map=3, with_eskf=False,
+                          kf_distance=0.1, vox_inc_reanchor=2)
+    state = lio.init_state(opts, device="cpu")
+    keyframes = 0
+    for scan in _keyframe_scans(4):
+        state, out = lio.step(state, scan, opts,
+                              edge_scan=scan if matcher == "loam" else None)
+        keyframes += out.is_keyframe
+    assert keyframes == state.num_kfs >= 2
+    assert len(calls) == (keyframes if matcher == "icp" else 0)
