@@ -9,8 +9,9 @@ reading).
                                    [--fault <name>]
 
 One JSON line per seed on standard output: {"seed", "program": {...},
-"control": {...}}; with --fault the program's numbers with that fault of
-`yardstick/faults.py` planted. The benchmark's own runs never run these.
+"control": {...}}; with --fault the program's numbers with that fault
+planted: one of `yardstick/faults.py`, or of `faults/<engine>.py` for the
+cell's engine. The benchmark's own runs never run these.
 """
 
 import argparse
@@ -26,8 +27,8 @@ sys.path.insert(1, str(BENCH.parent))
 
 def readings(cell, seed: int, seconds: float, device, fault=None) -> dict:
     """The program's and the control's numbers for one seed; with `fault`
-    (a name in `yardstick.faults`) the program runs with that fault planted
-    and the control is not read."""
+    (a name in `yardstick.faults.for_engine` of the cell's engine) the
+    program runs with that fault planted and the control is not read."""
     from yardstick import faults, replay, stepcheck
 
     out = {}
@@ -36,7 +37,7 @@ def readings(cell, seed: int, seconds: float, device, fault=None) -> dict:
         out["control"] = stepcheck.compare(run, refmod, device, tf32=True)
 
     res = replay.run_cell(cell, seed, seconds, False, device, time.perf_counter(),
-                          fault=faults.FAULTS[fault] if fault else None,
+                          fault=faults.for_engine(cell.config["engine"])[fault] if fault else None,
                           after_check=None if fault else grab)
     out["program"] = res["checks"]
     out["attempted"], out["failed"] = res["attempted"], res["failed"]
@@ -49,7 +50,8 @@ def main() -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seconds", type=float, default=5.0)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
-    ap.add_argument("--fault", default=None, help="a fault of yardstick/faults.py to plant")
+    ap.add_argument("--fault", default=None,
+                    help="a fault to plant: of yardstick/faults.py or faults/<engine>.py")
     args = ap.parse_args()
     import torch
 

@@ -3,11 +3,19 @@ for a configuration whose engine is "loc": the prior map and the options
 from the configuration, the initial pose, and per scan the same scan filter
 as LIO (`pipeline.lio.preprocess_scan` at the configuration's leaf and
 capacity) then `Loc.update_measure` with the scan's IMU packet. The engine
-pulls the pose to the host itself and re-crops its local map there."""
+pulls the pose to the host itself and re-crops its local map there.
+
+Loc's step result does not carry its match's GN iterations; the step here
+adds them as `iterations`: on the card the `gn_step` launches over the
+call (one an iteration, and the step's one match is all that launches
+it), on the CPU, where launches are not counted, None."""
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
+import torch
 
 
 def options(cfg: dict):
@@ -29,11 +37,14 @@ class Engine:
     frame = "world"
 
     def __init__(self, cfg: dict, device, prior_map: np.ndarray):
+        from loc_lib_tpu_torch.ops import kernels
         from loc_lib_tpu_torch.pipeline import lio, loc
 
         self._lio = lio
         self.opts = options(cfg)
         self.eng = loc.Loc(prior_map, self.opts, device=device)
+        self._result = collections.namedtuple("StepResult", (*loc.StepResult._fields, "iterations"))
+        self._launches = kernels.LAUNCHES if torch.device(device).type == "cuda" else None
 
     def start(self, static, first_pose: np.ndarray) -> None:
         """Seed the pose with the true pose of scan 0 (crops the first local
@@ -45,10 +56,13 @@ class Engine:
         return self._lio.preprocess_scan(self.opts, xyz, mask)
 
     def step(self, scan, packet):
-        """(StepResult, rebuilt: the local map was re-cropped and the target rebuilt)."""
+        """(StepResult with `iterations`, rebuilt: the local map was
+        re-cropped and the target rebuilt)."""
         n = self.eng.num_recrops
+        steps = self._launches["gn_step"] if self._launches is not None else None
         out = self.eng.update_measure(scan, *packet)
-        return out, self.eng.num_recrops > n
+        iters = self._launches["gn_step"] - steps if steps is not None else None
+        return self._result(*out, iterations=iters), self.eng.num_recrops > n
 
     def pose(self) -> np.ndarray:
         return self.eng.poses[-1]

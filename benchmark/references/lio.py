@@ -1,7 +1,13 @@
 """Plain reference of the LIO engine's context: the keyframe decisions, the
 keyframe window's local map and its target, and the static IMU
 initialisation. Imports nothing of the program; what the program derived is
-worked out again here from the raw scans and the poses it reported."""
+worked out again here from the raw scans and the poses it reported.
+
+Where a back end corrected the front end (`run.corrections`), the
+keyframe poses the program held were moved with it: the last keyframe's
+pose that the keyframe test reads, and the window's poses that the next
+keyframe's target is built from (a correction leaves the target already
+built as it is)."""
 
 from __future__ import annotations
 
@@ -18,10 +24,12 @@ FIRST_SCAN_UNMATCHED = True      # the first scan seeds the map at the identity
 def keyframes(run) -> list:
     """Per scan ordinal, whether the engine takes it as a keyframe: the
     first scan, then any scan whose reported pose is more than kf_distance
-    or kf_angle_deg from the last keyframe's."""
+    or kf_angle_deg from the last keyframe's (as the corrections since have
+    moved it)."""
     e = run.cfg["engine_options"]
+    corr = run.corrections
     out, last = [], None
-    for sc in run.scans:
+    for i, sc in enumerate(run.scans):
         T = sc.pose.astype(np.float64)
         if last is None:
             kf = True
@@ -33,6 +41,8 @@ def keyframes(run) -> list:
         out.append(kf)
         if kf:
             last = T
+        if len(corr):
+            last = corr.between(i, i + 1) @ last
     return out
 
 
@@ -54,16 +64,21 @@ def local_map_budget(e: dict) -> int:
 
 
 def build(ck, ring: tuple) -> ref.Target:
-    """The target over the keyframes `ring`: each keyframe's filtered scan
-    at its reported pose, merged, voxel-filtered about the keyframe
-    positions' mean, the first local_map_budget points in key order, then
-    the voxel planes."""
+    """The target over the keyframes `ring`, built at the step of its last:
+    each keyframe's filtered scan at its reported pose, moved by the
+    corrections that came between its step and that one, merged,
+    voxel-filtered about the keyframe positions' mean, the first
+    local_map_budget points in key order, then the voxel planes."""
     e, p, dev = ck.e, ck.prec, ck.device
     if not ring:
         return ref.empty_target(p, dev, e["dense_dims"])
+    corr = ck.run.corrections
     pts, ts = [], []
     for j in ring:
-        T = p.t(ck.run.scans[j].pose, dev)
+        pose = ck.run.scans[j].pose
+        if len(corr):
+            pose = corr.between(j, ring[-1]) @ pose.astype(np.float64)
+        T = p.t(pose, dev)
         pts.append(p.mm(ck.filtered(ck.run.scans[j].src), T[:3, :3].T) + T[:3, 3])
         ts.append(T[:3, 3])
     origin = torch.stack(ts).mean(dim=0)

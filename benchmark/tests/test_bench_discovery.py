@@ -1,5 +1,7 @@
 """A later change adds a configuration, a traffic mix, a cell and a
-per-layer metric by adding files and manifest entries only."""
+per-layer metric by adding files and manifest entries only; an engine with
+a back end too (its reference and its faults, and a mix that renders the
+lap twice)."""
 
 import json
 import shutil
@@ -7,7 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-from conftest import BENCH
+from conftest import BENCH, TOY_CELL, toy_checkout
 
 
 def test_new_files_add_a_cell_without_editing_any(tmp_path):
@@ -51,6 +53,31 @@ def test_new_files_add_a_cell_without_editing_any(tmp_path):
     assert out == ["65536", "3.0", "scans_rebuilt_pct", "50.0"]
     for p, data in before.items():
         assert p.read_bytes() == data, f"{p} was edited"
+
+
+def test_new_files_add_a_cell_with_a_back_end_without_editing_any(tmp_path):
+    root = tmp_path / "checkout"
+    before = toy_checkout(root)
+    # run from the checkout, the program found beside it
+    probe = (
+        "import json, sys; sys.path[:0] = ['benchmark', '.']; sys.path.append(sys.argv[1])\n"
+        "import run\n"
+        "from yardstick import cell, faults, replay\n"
+        f"c = cell.load_cell({TOY_CELL!r})\n"
+        "res = replay.run_cell(c, 43, 2.0, False, 'cpu', 0.0)\n"
+        "print(json.dumps({'renders': c.traffic['renders'], 'faults': sorted(faults.for_engine(\n"
+        "    c.config['engine'])), 'line': run.result_line(c, res, 'cpu', 1)}))\n")
+    p = subprocess.run([sys.executable, "-c", probe, str(BENCH.parent)], cwd=root,
+                       capture_output=True, text=True)
+    assert p.returncode == 0, p.stderr[-4000:]
+    out = json.loads(p.stdout.splitlines()[-1])
+    line = out["line"]
+    assert line["correct"], line["checks"]
+    assert {"reg_pose_rms_m", "solve_gap_m", "correction_gap_m"} <= set(line["checks"])
+    assert out["renders"] == 2 and "gn_count_over_the_call" in out["faults"]
+    assert "back end: " in p.stderr and "(2 renders)" in p.stderr
+    for path, data in before.items():
+        assert path.read_bytes() == data, f"{path} was edited"
 
 
 def test_every_cell_of_the_manifest_finds_its_files():

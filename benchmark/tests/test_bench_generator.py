@@ -2,6 +2,7 @@
 scan has its raw points, all within range."""
 
 import numpy as np
+import pytest
 import torch
 from conftest import tiny
 
@@ -43,6 +44,53 @@ def test_the_lap_closes():
     assert abs((first - last) - world.IMU_DT) < 1e-4
 
 
+def test_without_renders_set_up_draws_what_it_drew_before_the_key():
+    # one render of the ramp and the lap in one call, after the world and the IMU: set-up's
+    # order before traffic mixes could render the lap more than once
+    cell = tiny(cellmod.load_cell("lio_hdl64.drive"))
+    assert "renders" not in cell.traffic
+    s = _setup(2 ** 31 + 13)
+    cfg, g = cell.config, world.generator(2 ** 31 + 13, "cpu")
+    pts = world.make_world(cfg["world"], g, "cpu")
+    r = world.make_route(cell.traffic, cfg["sensor"])
+    static, ramp, lap = world.make_imu(r, cfg["imu_noise"], cfg["engine_options"]["imu_capacity"],
+                                       g)
+    poses = np.concatenate([world.poses_at(r, world.ramp_times(r)),
+                            world.poses_at(r, world.lap_times(r))])
+    assert np.array_equal(s.raw, world.render_scans(pts, poses, cfg["sensor"], g).numpy())
+    assert np.array_equal(s.true_world, poses)
+    for got, want in ((s.ramp_packets, ramp), (s.lap_packets, lap)):
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert np.array_equal(s.static[0], world.stamps32(static[0]))
+    assert all(np.array_equal(a, b) for a, b in zip(s.static[1:], static[1:]))
+
+
+def test_each_render_draws_the_lap_anew_at_the_same_poses():
+    from yardstick import replay
+
+    cell = tiny(cellmod.load_cell("lio_hdl64.drive"))
+    short = {**cell.traffic, "radius_m": 12.0, "speed_mps": 6.0, "ramp_s": 2.0}
+    one = replay.Setup(cell._replace(traffic=short), 9, "cpu")
+    two = replay.Setup(cell._replace(traffic={**short, "renders": 2}), 9, "cpu")
+    r = two.route
+    assert two.raw.shape[0] == r.ramp + 2 * r.lap
+    # the first render is what a single render draws; the second a fresh draw at the same poses
+    assert np.array_equal(two.raw[:r.ramp + r.lap], one.raw)
+    assert np.array_equal(two.true_world[r.ramp + r.lap:], two.true_world[r.ramp:r.ramp + r.lap])
+    for f in (0, 1, r.lap - 1):
+        assert not np.array_equal(two.raw[r.ramp + f], two.raw[r.ramp + r.lap + f])
+    # pass p replays render p mod 2, with the same IMU packet and stamps a lap on
+    src, packets = zip(*[x for _, x in zip(range(r.ramp + 3 * r.lap), two.stream())])
+    lap_src = np.array(src[r.ramp:]).reshape(3, r.lap)
+    assert np.array_equal(lap_src[0], r.ramp + np.arange(r.lap))
+    assert np.array_equal(lap_src[1], r.ramp + r.lap + np.arange(r.lap))
+    assert np.array_equal(lap_src[2], lap_src[0])
+    stamps = lambda p: p[2][p[3]]
+    f = r.ramp + r.lap + 5
+    assert np.array_equal(packets[f][0], packets[f - r.lap][0])
+    assert np.allclose(stamps(packets[f]) - stamps(packets[f - r.lap]), r.lap_seconds, atol=1e-3)
+
+
 def test_every_scan_has_its_points_within_range():
     s = _setup(11)
     cfg = tiny(cellmod.load_cell("lio_hdl64.drive")).config["sensor"]
@@ -50,6 +98,22 @@ def test_every_scan_has_its_points_within_range():
     rng = np.linalg.norm(s.raw, axis=2)
     assert rng.max() <= cfg["max_range_m"] + 6 * cfg["noise_m"] * np.sqrt(3)
     assert np.isfinite(s.raw).all()
+
+
+@pytest.mark.parametrize("n_walls", [24, 5])
+def test_the_walls_run_both_ways_over_the_whole_extent(n_walls):
+    e = 80.0
+    axis, offset, ends = world.wall_layout(n_walls, e, world.generator(2 ** 31 + 5, "cpu"), "cpu")
+    axis, offset, ends = axis[:, 0], offset[:, 0], ends
+    assert (axis == 0).sum() - (axis == 1).sum() in (0, 1)
+    for a in (0, 1):
+        o = torch.sort(offset[axis == a]).values
+        band = 2 * e / len(o)
+        # one wall to a band of the extent
+        assert torch.equal(torch.floor((o + e) / band), torch.arange(len(o), dtype=o.dtype))
+    length = ends[:, 1] - ends[:, 0]
+    assert bool(((length >= e) & (length <= 2 * e)).all())
+    assert bool(((ends >= -e) & (ends <= e)).all())
 
 
 def test_the_prior_map_puts_the_ground_in_one_layer():

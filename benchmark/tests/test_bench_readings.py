@@ -41,8 +41,13 @@ def test_the_traced_line_carries_the_per_layer_metrics_found():
     res = replay.run_cell(cell, 7, 2.0, True, "cpu", 0.0)
     line = runmod.result_line(cell, res, "cpu", 1)
     assert list(line) == RESULT_KEYS
-    # no card: the device readers find nothing and leave their metrics out
-    assert set(line["metrics"]) == {"filter_ms", "map_build_scan_ms", "track_scan_ms"}
+    # no card: the device readers find nothing and leave their metrics out, as does the
+    # reader of gn_step launches (the CPU's GN loop counts none) and of graph replays (none
+    # on the CPU); the program's spans are read there as on the card
+    assert set(line["metrics"]) == {
+        "filter_ms", "map_build_scan_ms", "track_scan_ms", "filter_span_ms", "predict_ms",
+        "match_ms", "update_ms", "map_build_ms", "record_ms", "host_syncs_per_scan",
+        "sync_wait_ms"}
 
 
 def test_the_tail_is_taken_over_every_scan(cpu_run):
@@ -66,6 +71,21 @@ def test_idle_share_takes_the_union_of_overlapping_events():
     assert idle.read({"slice": sl}) is None
     assert cell.load_module("metrics", "launches_per_scan").read({"slice": sl}) == 1.5
     assert trace.gaps([(0.0, 4.0), (2.0, 6.0), (8.0, 9.0)]) == [(6.0, 8.0)]
+
+
+def test_idle_gaps_lie_between_the_devices_work_and_not_its_annotations():
+    ev = lambda name, s, e, dev, note=False: types.SimpleNamespace(
+        name=name, time_range=types.SimpleNamespace(start=s, end=e), is_user_annotation=note,
+        device_type=torch.autograd.DeviceType.CUDA if dev else torch.autograd.DeviceType.CPU)
+    dev, cpu, notes = trace.split_events([
+        ev("k1", 0.0, 2.0, True), ev("bench.engine", 0.0, 20.0, True, note=True),
+        ev("k2", 12.0, 14.0, True), ev("bench.engine", 0.0, 20.0, False),
+        ev("aten::mm", 3.0, 8.0, False)])
+    assert [n for n, _, _ in dev] == ["k1", "k2"] and [n for n, _, _ in notes] == ["bench.engine"]
+    sl = trace.Slice(1, 20e-6, dev, cpu, notes)
+    # one gap, 2-12 us, labelled by the stage and the host operation at its middle
+    assert trace.idle_gaps(sl) == [["bench.engine / aten::mm", pytest.approx(10e-6)]]
+    assert trace.union_s([(s, e) for _, s, e in sl.events]) == pytest.approx(4e-6)
 
 
 def test_the_roofline_copy_counts_the_bytes_the_smoke_run_counts():

@@ -1,11 +1,16 @@
 """Faults planted in the timed path, underneath the harness, to show that
 the check refuses them: each takes the engine's wrapper (`engines/*.py`'s
-`Engine`) before the window and breaks it in place. The cells run on one
-card, so there is no exchange between cards to leave out."""
+`Engine`) before the window and breaks it in place. These hold for every
+engine; an engine's own faults (of its back end, say) sit in
+`faults/<engine>.py` as a dict `FAULTS` of the same kind, and `for_engine`
+gives both. The cells run on one card, so there is no exchange between
+cards to leave out."""
 
 from __future__ import annotations
 
 import torch
+
+from . import cell as cellmod
 
 
 def state_unchanged(engine):
@@ -65,3 +70,15 @@ def velocity_not_updated(engine):
 
 
 FAULTS = {f.__name__: f for f in (state_unchanged, half_scan, pose_altered, velocity_not_updated)}
+
+
+def for_engine(engine: str) -> dict:
+    """The faults a cell of `engine` has to refuse, by name: those above,
+    and `FAULTS` of `faults/<engine>.py` where there is one."""
+    own = {}
+    if (cellmod.BENCH_DIR / "faults" / f"{engine}.py").is_file():
+        own = cellmod.load_module("faults", engine).FAULTS
+    clash = set(own) & set(FAULTS)
+    if clash:
+        raise ValueError(f"faults/{engine}.py names {sorted(clash)}, which yardstick/faults.py has")
+    return {**FAULTS, **own}

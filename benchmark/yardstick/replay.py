@@ -1,14 +1,17 @@
 """One run of one cell: set-up (world, route, one lap of raw scans held in
-host memory, the engine and its warm-up), the measured window (the lap
-replayed closed-loop: a scan is handed over only after the previous scan's
-pose has reached the host), then, with the window closed, the traced slices
-and the comparison with the plain reference.
+host memory, rendered `renders` times where the traffic mix says so, the
+engine and its warm-up), the measured window (the lap replayed closed-loop,
+pass p from render p mod renders: a scan is handed over only after the
+previous scan's pose has reached the host), then, with the window closed,
+the traced slices and the comparison with the plain reference.
 
 The timed path of a scan: the raw scan's copy from host memory to the card,
 the engine's scan filter, the engine's step with the scan's IMU packet, and
-the engine's own pull of the pose to the host. A scan's latency runs from
-the start of its hand-over to the return of the engine's call (the pose is
-on the host then, and a re-crop the pose triggered is done).
+the engine's own pull of the pose to the host, and, of an engine with a
+back end, its `events()`. A scan's latency runs from the start of its
+hand-over to the return of those calls (the pose is on the host then, and
+a re-crop the pose triggered is done, as is whatever the engine's back end
+did after the scan and the records it made of it).
 """
 
 from __future__ import annotations
@@ -44,11 +47,14 @@ class Setup:
         static, self.ramp_packets, self.lap_packets = world.make_imu(
             self.route, cfg["imu_noise"], cfg["engine_options"]["imu_capacity"], g)
         self.static = (world.stamps32(static[0]), static[1], static[2])
-        poses = np.concatenate([world.poses_at(self.route, world.ramp_times(self.route)),
-                                world.poses_at(self.route, world.lap_times(self.route))])
-        self.true_world = poses                       # by src: ramp scans, then lap frames
+        # each render of the lap a fresh draw of the points and the noise, all at the same poses
+        self.renders = int(traffic.get("renders", 1))
+        poses = np.concatenate([world.poses_at(self.route, world.ramp_times(self.route))]
+                               + [world.poses_at(self.route, world.lap_times(self.route))]
+                               * self.renders)
+        self.true_world = poses             # by src: ramp scans, then each render's lap frames
         raw = world.render_scans(pts, poses, cfg["sensor"], g)
-        log("lap rendered on the card")
+        log(f"lap rendered on the card ({self.renders} render{'s' * (self.renders > 1)})")
         self.raw = raw.cpu().numpy()
         del raw
         self.mask = np.ones(self.raw.shape[:2], bool)
@@ -56,7 +62,8 @@ class Setup:
         if "prior_map" in cfg:
             m = world.voxel_filter_map(pts, float(cfg["prior_map"]["leaf_m"]))
             e = cfg["engine_options"]
-            rows = world.max_crop_rows(m, poses[:, :3, 3], e["box_size"] / 2.0)
+            rows = world.max_crop_rows(m, poses[:self.route.ramp + self.route.lap, :3, 3],
+                                       e["box_size"] / 2.0)
             if rows > e["local_map_capacity"]:
                 raise RuntimeError(f"a crop on the route holds {rows} map points, more than the "
                                    f"crop's {e['local_map_capacity']} rows")
@@ -68,8 +75,8 @@ class Setup:
     def stream(self):
         """(src, packet) of every scan from the engine's start: the ramp, then
         the lap replayed for ever with its stamps moved on by a lap each
-        pass (the lap's first frame comes with the ramp's last packet on the
-        first pass)."""
+        pass, pass p from render p mod renders (the lap's first frame comes
+        with the ramp's last packet on the first pass)."""
         r = self.route
         for k in range(r.ramp):
             yield k, self.ramp_packets.take(k)
@@ -78,7 +85,8 @@ class Setup:
         while True:
             if f == r.lap:
                 lap, f = lap + 1, 0
-            yield r.ramp + f, self.lap_packets.take(f, lap * r.lap_seconds)
+            yield r.ramp + (lap % self.renders) * r.lap + f, self.lap_packets.take(
+                f, lap * r.lap_seconds)
             f += 1
 
 
@@ -99,20 +107,23 @@ class Runner:
     """Hands scans to the engine and keeps what the check needs: of every
     scan its host numbers (`stepcheck.ScanLog`), of the engine's first scan
     and of the scans the `sampler` chooses while it is set (the window) the
-    device state too, and the filtered scans of the ordinals in `clouds`."""
+    device state too, and the filtered scans of the ordinals in `clouds`.
+    Of an engine with a back end (`events()`) every correction it applied,
+    and the events the `event_sampler` chooses while it is set, whose scans
+    are held as the sampled scans are."""
 
     def __init__(self, engine, setup: Setup, device):
         self.engine, self.setup, self.device = engine, setup, device
         self.scans = stepcheck.ScanLog()
         self.sampler: Optional[stepcheck.Sampler] = None
+        self.corrections = stepcheck.Corrections()
+        self.event_sampler: Optional[stepcheck.EventSampler] = None
+        self.backend = hasattr(engine, "events")
         self.clouds: Optional[dict] = None
         self.prev = None                       # the filter state after the last scan
         self.src_iter = setup.stream()
-        self.on_card = torch.device(device).type == "cuda"
-        self.sync = torch.cuda.synchronize if self.on_card else (lambda: None)
-        from loc_lib_tpu_torch.ops import kernels
-
-        self.launches = kernels.LAUNCHES
+        on_card = torch.device(device).type == "cuda"
+        self.sync = torch.cuda.synchronize if on_card else (lambda: None)
 
     def scan(self, fence: bool = False, spans: Optional[list] = None, label: bool = False) -> None:
         """One scan through the timed path. `fence`: synchronise around the
@@ -121,7 +132,6 @@ class Runner:
         src, packet = next(self.src_iter)
         eng = self.engine
         mark = torch.profiler.record_function if label else (lambda _: contextlib.nullcontext())
-        steps = self.launches["gn_step"]
         t0 = time.perf_counter()
         try:
             with mark("bench.copy"):
@@ -138,25 +148,33 @@ class Runner:
             with mark("bench.engine"):
                 out, rebuilt = eng.step(cloud, packet)
             pose, failed = eng.pose(), False
+            events = eng.events() if self.backend else []
         except Exception as exc:       # a scan that raises counts in `failed`; the run goes on
             print(f"scan {len(self.scans)} (raw scan {src}) raised: {exc!r}", file=sys.stderr,
                   flush=True)
             out, rebuilt, pose, failed, cloud = None, False, np.full((4, 4), np.nan), True, None
+            events = []
         t3 = time.perf_counter()
         if fence and not failed:
             self.sync()
             t3 = time.perf_counter()
             spans.append(((t2 - t1) * 1e3, (t3 - t2) * 1e3, rebuilt))
         ms = (t3 - t0) * 1e3
-        # the GN iterations: one gn_step launch each on the card; on the CPU what the result says
-        iters = (self.launches["gn_step"] - steps if self.on_card
-                 else getattr(out, "iterations", None))
-        i = self.scans.append(src, pose, rebuilt, ms, t0, failed, iters)
+        # the front end's GN iterations, as its step's result gives them
+        i = self.scans.append(src, pose, rebuilt, ms, t0, failed, getattr(out, "iterations", None))
+        for e in events:
+            if e["kind"] == "correction":
+                self.corrections.append(i, e["dR"], e["dt"])
         after = None if failed else eng.filter_state()
-        keep = i == 0
+        keep, drop = i == 0, []
         if self.sampler is not None and after is not None and self.prev is not None:
             keep, drop = self.sampler.offer(i, ms)
-            for j in drop:
+            if self.backend:
+                # the scans of the chosen events are re-done too
+                held, gone = self.event_sampler.offer_events(i, ms, events)
+                keep, drop = keep or held, drop + gone
+        for j in drop:
+            if not (self.sampler.chooses(j) or self.backend and j in self.event_sampler.scans()):
                 self.scans.kept.pop(j, None)
         if keep:
             self.scans.kept[i] = stepcheck.Kept(packet, self.prev, after, out)
@@ -202,16 +220,18 @@ class HostProbe:
                 f"collection {self.gc_s * 1e3:.1f} ms in {self.gc_runs} passes (by generation)")
 
 
-def window(runner: Runner, seconds: float, fence: bool, sampler: stepcheck.Sampler):
+def window(runner: Runner, seconds: float, fence: bool, sampler: stepcheck.Sampler,
+           event_sampler: stepcheck.EventSampler):
     """Scans until `seconds` have passed, `sampler` choosing the scans the
-    check re-does: (first ordinal, window seconds, spans when fenced)."""
+    check re-does and `event_sampler` the back-end events: (first ordinal,
+    window seconds, spans when fenced)."""
     first, spans = len(runner.scans), []
-    runner.sampler = sampler
+    runner.sampler, runner.event_sampler = sampler, event_sampler
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
         runner.scan(fence=fence, spans=spans)
     window_s = time.perf_counter() - t0
-    runner.sampler = None
+    runner.sampler = runner.event_sampler = None
     return first, window_s, spans
 
 
@@ -252,9 +272,10 @@ def run_cell(cell: cellmod.Cell, seed: int, seconds: float, traced: bool, device
     gc.freeze()
     counters = _counters()
     sampler = stepcheck.Sampler(int(cfg["checks"]), seed)
+    event_sampler = stepcheck.EventSampler(int(cfg.get("backend_checks", 0)), seed)
     setup_s = time.perf_counter() - t_process
     host = HostProbe()
-    first, window_s, spans = window(runner, seconds, traced, sampler)
+    first, window_s, spans = window(runner, seconds, traced, sampler, event_sampler)
     host = host.stop()
     counters = {k: v - counters.get(k, 0) for k, v in _counters().items()}
     log_ = runner.scans
@@ -278,8 +299,13 @@ def run_cell(cell: cellmod.Cell, seed: int, seconds: float, traced: bool, device
         out["end_to_end"] = {"scans_per_s": (len(win) - failed) / window_s,
                              "scan_p95_ms": float(np.percentile(lat, 95)) if len(lat) else math.nan,
                              "setup_s": setup_s}
-    run = stepcheck.Run(cfg, setup.raw, log_, win, [0] + sampler.chosen(), _truth(engine, setup),
-                        setup.true_world[0], setup.static, setup.prior_map)
+    sample = [0] + sorted(set(sampler.chosen()) | event_sampler.scans())
+    run = stepcheck.Run(cfg, setup.raw, log_, win, sample, _truth(engine, setup),
+                        setup.true_world[0], setup.static, setup.prior_map, runner.corrections,
+                        event_sampler.chosen())
+    if runner.backend:
+        log(f"back end: {len(run.corrections)} corrections since the engine started; "
+            f"{len(run.events)} of the window's {event_sampler.seen} events chosen for the check")
     refmod = cellmod.load_module("references", cfg["engine"])
     del engine, runner
     clouds = out["record"].pop("clouds", None) if traced else None
@@ -319,6 +345,9 @@ def _traced(runner: Runner, spans: list, counters: dict, on_card: bool, window_s
     print(f"profiled slice: {1e3 * rec['slice'].window_s / rec['slice'].scans:.3f} ms a scan "
           f"against {1e3 * rec['s_per_scan']:.3f} ms in the fenced window without the profiler"
           if spans else "profiled slice taken", file=sys.stderr, flush=True)
+    print(f"device events, host ranges' device-side spans apart: slice {len(rec['slice'].events)}"
+          f", {len(rec['slice'].annotations)}; labelled slice {len(rec['labelled'].events)}, "
+          f"{len(rec['labelled'].annotations)}", file=sys.stderr, flush=True)
     return rec
 
 

@@ -42,6 +42,25 @@ Numbers compared, each the widest over the sample:
             from the origin would read as a velocity gap)
   cov_rel   largest gap of the filter's covariance after the scan, over its largest entry
 
+The GN count the match is replayed at is the one the step's result
+carries (`iterations`): the front end's own, whatever else the engine's
+step matched. A count the match cannot have made (under 1, or over
+max_iteration) names no linearization to compare, and chi2_rel and neff_rel
+read inf; a wrong count within that range shows only where the match had
+not converged by then.
+
+An engine with a back end (a loop registration, a pose-graph solve, a
+correction of the front end) hands its events to the harness
+(`engines/<engine>.py`'s `events()`). Every correction is kept
+(`Corrections`): the reference applies them where the program did, to the
+keyframe poses its targets are built from and to the filter state the
+program reports after the scan that took one. Of the events a sample is
+held (`EventSampler`), and their scans join the front end's sample; where
+the reference module defines `backend_readings(run, event, prec, device)`
+each is re-done with it, and the widest of each of its numbers over the
+events joins the five above, held to the configuration's limit of that
+name.
+
 The gap to the ground truth is logged and not compared: it measures the
 algorithm on the world a seed draws (where the half-scan the filter keeps
 sees only walls of one direction, the reference's algorithm drifts along
@@ -135,39 +154,132 @@ class ScanLog:
         return (self[i] for i in range(self.n))
 
 
-class Sampler:
-    """Chooses, while the window runs, the scans the check re-does: `count`
-    drawn uniformly from the seed among the window's sound scans (reservoir
-    sampling), and the slowest. `offer` says whether to keep a scan and which
-    kept scans are no longer chosen, so only the chosen are held."""
+def on_host(x):
+    """A tensor as a host array (a 0-d one as a Python number); anything
+    else as it is."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return x.item() if x.dim() == 0 else x.numpy()
+    return x
 
-    def __init__(self, count: int, seed: int):
-        self.count, self.rng = count, np.random.default_rng(seed)
+
+class Sampler:
+    """Chooses, while the window runs, what the check re-does: `count` items
+    drawn uniformly from the seed among the window's (reservoir sampling),
+    and every item of the slowest scan. Items are whole numbers: a scan's
+    ordinal here, an event's serial number in `EventSampler`. `offer_all`
+    says which of a scan's items to keep and which kept items are no longer
+    chosen, so only the chosen are held."""
+
+    def __init__(self, count: int, seed: int, stream: tuple = ()):
+        self.count, self.rng = count, np.random.default_rng((seed, *stream) if stream else seed)
         self.pool, self.seen = [], 0
-        self.slowest, self.slowest_ms = None, -1.0
+        self.slowest, self.slowest_ms = [], -1.0
+
+    def offer_all(self, items: list, ms: float) -> tuple:
+        """(items to keep, items to let go) of one scan's `items`."""
+        gone = []
+        for i in items:
+            self.seen += 1
+            if len(self.pool) < self.count:
+                self.pool.append(i)
+            else:
+                r = int(self.rng.integers(self.seen))
+                if r < self.count:
+                    gone.append(self.pool[r])
+                    self.pool[r] = i
+        if ms > self.slowest_ms:
+            gone += self.slowest
+            self.slowest, self.slowest_ms = list(items), ms
+        return ([i for i in items if self.chooses(i)],
+                [i for i in dict.fromkeys(gone) if i not in items and not self.chooses(i)])
 
     def offer(self, i: int, ms: float) -> tuple:
         """(keep scan i, ordinals to let go)."""
-        self.seen += 1
-        kept, drop = False, []
-        if len(self.pool) < self.count:
-            self.pool.append(i)
-            kept = True
-        else:
-            r = int(self.rng.integers(self.seen))
-            if r < self.count:
-                old, self.pool[r], kept = self.pool[r], i, True
-                if old != self.slowest:
-                    drop.append(old)
-        if ms > self.slowest_ms:
-            old, self.slowest, self.slowest_ms = self.slowest, i, ms
-            kept = True
-            if old is not None and old not in self.pool:
-                drop.append(old)
-        return kept, drop
+        kept, drop = self.offer_all([i], ms)
+        return bool(kept), drop
+
+    def chooses(self, i: int) -> bool:
+        return i in self.pool or i in self.slowest
 
     def chosen(self) -> list:
-        return sorted(set(self.pool) | ({self.slowest} if self.slowest is not None else set()))
+        return sorted(set(self.pool) | set(self.slowest))
+
+
+class EventSampler(Sampler):
+    """Chooses, while the window runs, the back-end events the check re-does
+    (`Sampler` over the events, from its own stream of the seed) and holds
+    only those. Events are dicts with a "kind"; their tensors stay where the
+    engine made them until `chosen` moves them to the host, after the
+    window. The chosen carry the ordinal of their scan under "scan", and
+    their scans join the front end's sample (`scans`)."""
+
+    def __init__(self, count: int, seed: int):
+        super().__init__(count, seed, (1,))
+        self.held = {}
+
+    def offer_events(self, i: int, ms: float, events: list) -> tuple:
+        """(an event of scan i is held, scans of which no event is held any more)."""
+        first = self.seen
+        kept, drop = self.offer_all(list(range(first, first + len(events))), ms)
+        for k in kept:
+            self.held[k] = {**events[k - first], "scan": i}
+        gone = {self.held.pop(k)["scan"] for k in drop}
+        return bool(kept), sorted(gone - self.scans())
+
+    def scans(self) -> set:
+        """The scans of the held events."""
+        return {e["scan"] for e in self.held.values()}
+
+    def chosen(self) -> list:
+        """The chosen events on the host, in the order they came."""
+        return [{k: on_host(v) for k, v in self.held[j].items()} for j in super().chosen()]
+
+
+class Corrections:
+    """Every correction (dR, dt) the back end applied to the front end's live
+    poses, with the ordinal of the scan after whose step it came: the
+    front end's world poses T became (dR, dt) T there. A correction the
+    engine hands over as device tensors stays there until the check first
+    reads `scan` or `T`, after the window."""
+
+    def __init__(self):
+        self._new = []
+        self._scan, self._T = np.zeros(0, np.int64), np.zeros((0, 4, 4))
+
+    def append(self, i: int, dR, dt) -> None:
+        self._new.append((i, dR, dt))
+
+    def _settle(self) -> None:
+        if self._new:
+            T = np.tile(np.eye(4), (len(self._new), 1, 1))
+            for k, (_, dR, dt) in enumerate(self._new):
+                T[k, :3, :3], T[k, :3, 3] = on_host(dR), on_host(dt)
+            self._scan = np.append(self._scan, [i for i, _, _ in self._new])
+            self._T = np.concatenate([self._T, T])
+            self._new = []
+
+    @property
+    def scan(self) -> np.ndarray:
+        self._settle()
+        return self._scan
+
+    @property
+    def T(self) -> np.ndarray:
+        self._settle()
+        return self._T
+
+    def __len__(self) -> int:
+        return len(self._scan) + len(self._new)
+
+    def between(self, a: int, b: int) -> np.ndarray:
+        """The corrections that came after the steps of scans a .. b - 1,
+        composed (the later on the left): what they did to a pose the
+        front end held from scan a's step to scan b's."""
+        T = np.eye(4)
+        for k in np.nonzero((self.scan >= a) & (self.scan < b))[0]:
+            T = self._T[k] @ T
+        return T
 
 
 class Run(NamedTuple):
@@ -175,11 +287,13 @@ class Run(NamedTuple):
     raw: np.ndarray            # (S, P, 3) float32 raw scans, by src
     scans: ScanLog             # every scan since the engine started
     window: range              # ordinals of the window's scans
-    sample: list               # ordinals the check re-does: 0, then the window's chosen
+    sample: list               # ordinals re-done: 0, the window's chosen, the events' scans
     truth: np.ndarray          # (S, 4, 4) true poses by src, in the engine's frame
     first_pose: np.ndarray     # the engine's starting pose, world frame
     static: tuple              # the stationary IMU window (stamps, gyro, acce)
     prior_map: object          # (M, 3) float32 host array, or None
+    corrections: Corrections   # every correction the back end applied (none without one)
+    events: list               # the back-end events the check re-does
 
 
 def icp_opts(cfg: dict) -> dict:
@@ -262,16 +376,31 @@ def state_gaps(s: ref.Eskf, s_ref: ref.Eskf, s_pred, eskf_opts: dict, in_window:
             "cov_rel": float(torch.max(torch.abs(f(s.cov) - cov_r)) / torch.max(torch.abs(cov_r)))}
 
 
+def uncorrected(s: ref.Eskf, T: np.ndarray) -> ref.Eskf:
+    """The float64 filter state `s` as it was before the correction T moved
+    it: the nominal pose and velocity taken back by T's inverse (a
+    correction leaves the biases, gravity and the covariance as they are)."""
+    Rt = torch.from_numpy(T[:3, :3].T.copy())
+    return s._replace(R=Rt @ s.R, p=Rt @ (s.p - torch.from_numpy(T[:3, 3].copy())), v=Rt @ s.v)
+
+
 def readings(ck: Checker, i: int) -> dict:
     """The numbers of one sampled scan (program against `ck`'s arithmetic)."""
     R, t, m, s, s_pred = ck.step(i)
     sc = ck.run.scans[i]
     pose = sc.pose.astype(np.float64)
+    after = ref.Eskf.of(sc.eskf, ref.Prec())
+    if np.any(ck.run.corrections.scan == i):
+        after = uncorrected(after, ck.run.corrections.between(i, i + 1))
+    # a count no front-end match can make names no linearization of the reference's
+    count_ok = sc.iters is None or 1 <= sc.iters <= ck.e["max_iteration"]
     return {
         "pose_rms_m": pose_rms(pose[:3, :3], pose[:3, 3], m, R, t),
-        "chi2_rel": abs(float(sc.result.chi2) - m.chi2) / max(m.chi2, 1e-30),
-        "neff_rel": abs(float(sc.result.num_effective) - m.count) / max(m.count, 1),
-        **state_gaps(ref.Eskf.of(sc.eskf, ref.Prec()), s, s_pred, ck.e["eskf"], i > 0),
+        "chi2_rel": (abs(float(sc.result.chi2) - m.chi2) / max(m.chi2, 1e-30)
+                     if count_ok else math.inf),
+        "neff_rel": (abs(float(sc.result.num_effective) - m.count) / max(m.count, 1)
+                     if count_ok else math.inf),
+        **state_gaps(after, s, s_pred, ck.e["eskf"], i > 0),
     }
 
 
@@ -291,7 +420,11 @@ def compare(run: Run, refmod, device, tf32: bool = False) -> dict:
     """The widest of each number over the sample, with the program in the
     place of the measured side; `tf32` puts the reference in TF32 there
     instead (the control), which reads the same sample against the float64
-    reference."""
+    reference. Where the reference module defines `backend_readings(run,
+    event, prec, device)`, each chosen back-end event is re-done with it:
+    `prec` is the measured side's arithmetic (float64: the program's event
+    as recorded; TF32: the reference in the program's place), and every
+    number it reads needs a limit in the configuration."""
     base = Checker(run, refmod, ref.Prec(), device)
     out = {k: 0.0 for k in NUMBERS}
     ctrl = Checker(run, refmod, ref.Prec(tf32=True), device) if tf32 else None
@@ -302,6 +435,15 @@ def compare(run: Run, refmod, device, tf32: bool = False) -> dict:
             r = control_readings(base, ctrl, i)
         for k, v in r.items():
             out[k] = max(out[k], v if math.isfinite(v) else math.inf)
+    backend = getattr(refmod, "backend_readings", None)
+    if backend is not None:
+        limits, prec = run.cfg["limits"], ref.Prec(tf32=tf32)
+        for ev in run.events:
+            for k, v in backend(run, ev, prec, device).items():
+                if k not in limits:
+                    raise KeyError(f"the back-end number {k!r} has no limit in the "
+                                   "configuration's limits")
+                out[k] = max(out.get(k, 0.0), v if math.isfinite(v) else math.inf)
     return out
 
 

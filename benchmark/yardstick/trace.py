@@ -18,8 +18,11 @@ SESSIONS = 3           # a session that hands back no device event is repeated
 class Slice(NamedTuple):
     scans: int
     window_s: float                  # host clock over the slice, fenced at both ends
-    events: list                     # (name, start_us, end_us) of every device event
+    events: list                     # (name, start_us, end_us) of every kernel, copy and memset
     cpu: list                        # (name, start_us, end_us) of host events (labelled slices)
+    # (name, start_us, end_us) of the device-side spans of the host's ranges
+    # (`gpu_user_annotation`: first to last kernel of a range), which are no device work
+    annotations: list = ()
 
 
 def union_s(intervals) -> float:
@@ -49,7 +52,8 @@ def profile_scans(run_scan: Callable[[], None], scans: int, with_cpu: bool) -> S
     """Run `run_scan` `scans` times under the profiler (CUDA activity only,
     or with the host's too for labelling gaps). A session whose buffers come
     back without a device event is repeated, up to SESSIONS times; then the
-    slice has no events, and what reads it finds nothing."""
+    slice has no events, and what reads it finds nothing. The device-side
+    spans of the host's ranges are kept apart from the device's work."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if with_cpu else [])
@@ -61,13 +65,23 @@ def profile_scans(run_scan: Callable[[], None], scans: int, with_cpu: bool) -> S
                 run_scan()
             torch.cuda.synchronize()
             window = time.perf_counter() - t0
-        dev, cpu = [], []
-        for e in prof.events():
-            row = (e.name, float(e.time_range.start), float(e.time_range.end))
-            (dev if e.device_type == torch.autograd.DeviceType.CUDA else cpu).append(row)
+        dev, cpu, notes = split_events(prof.events())
         if dev:
-            return Slice(scans, window, dev, cpu)
+            return Slice(scans, window, dev, cpu, notes)
     return Slice(scans, window, [], [])
+
+
+def split_events(events) -> tuple:
+    """The profiler's events as (name, start_us, end_us) rows: (the device's
+    work, the host's events, the device-side spans of the host's ranges)."""
+    dev, cpu, notes = [], [], []
+    for e in events:
+        row = (e.name, float(e.time_range.start), float(e.time_range.end))
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            cpu.append(row)
+        else:
+            (notes if getattr(e, "is_user_annotation", False) else dev).append(row)
+    return dev, cpu, notes
 
 
 def device_ops(sl: Slice, top: int = 10) -> list:
@@ -79,9 +93,11 @@ def device_ops(sl: Slice, top: int = 10) -> list:
 
 
 def idle_gaps(sl: Slice, top: int = 10) -> list:
-    """[label, seconds] of the idle time between device events, summed by
-    what the host was doing at each gap's middle: the harness stage
-    ("bench.*" spans) and the innermost host operation running."""
+    """[label, seconds] of the idle time between kernels, copies and memsets
+    (the host ranges' device-side spans are no work, and cover most of the
+    gaps), summed by what the host was doing at each gap's middle: the
+    harness stage ("bench.*" spans) and the innermost host operation
+    running."""
     dev = [(s, e) for _, s, e in sl.events]
     stages = [c for c in sl.cpu if c[0].startswith("bench.")]
     ops = [c for c in sl.cpu if not c[0].startswith("bench.")]
